@@ -1,0 +1,432 @@
+"""The IndexTTS inference engine on PyTorch (port of indextts_tpu/engine.py,
+the single-request `infer` path).
+
+Public surface as the reference engine (indextts/infer.py: class IndexTTS):
+__init__(cfg_path, model_dir, is_fp16, device, use_cuda_kernel), infer(),
+extract_features(), remove_long_silence(). Underneath, PyTorch runs eagerly
+on `device` (default "cuda"), in bf16 there when `is_fp16`, with the fused
+anti-aliased activation kernel (K1) at every vocoder activation when
+`use_cuda_kernel` (the default).
+
+The same shape buckets as the JAX engine are kept, because padding changes
+numbers: text is padded with stop_text_token to a multiple of 8, codes to a
+multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
+relative lengths), vocoder latents to a multiple of 16.
+
+Not ported yet (see ROADMAP.md): loading checkpoints, beams, infer_fast,
+batching, streaming, latent capture, the int8 KV cache and the server.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+import warnings
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from indextts_tpu_torch.config import IndexTTSConfig, load_config
+from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
+from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
+from indextts_tpu_torch.models.gpt_decode import GenerationConfig, generate_speech
+from indextts_tpu_torch.utils.audio import decode_audio, resample, write_wav
+from indextts_tpu_torch.utils.front import TextNormalizer, TextTokenizer
+from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class IndexTTS:
+    def __init__(
+        self,
+        cfg_path: str = "checkpoints/config.yaml",
+        model_dir: str = "checkpoints",
+        is_fp16: bool = True,
+        device: str = "cuda",
+        use_cuda_kernel: bool = True,
+        allow_random_init: bool = False,
+        seed: int = 0,
+    ):
+        """`is_fp16` selects bf16 compute off the CPU. `use_cuda_kernel` routes
+        every vocoder activation to the fused kernel K1 (its plain version on
+        the CPU); off, the composed torch path runs. `allow_random_init`
+        builds the models from `seed` with the JAX init_* distributions; it
+        is required for now, since checkpoint loading is not ported. Weights
+        of the JAX engine can be copied in afterwards with
+        weights.load_jax_params(self.gpt, ...) / (self.bigvgan, ...)."""
+        self.device = torch.device(device)
+        self.is_fp16 = bool(is_fp16) and self.device.type != "cpu"
+        self.dtype = torch.bfloat16 if self.is_fp16 else torch.float32
+        self.use_cuda_kernel = bool(use_cuda_kernel)
+        self.cfg: IndexTTSConfig = load_config(cfg_path) if os.path.exists(cfg_path) else IndexTTSConfig()
+        self.model_dir = model_dir
+        self.stop_mel_token = self.cfg.gpt.stop_mel_token
+
+        if not allow_random_init:
+            raise NotImplementedError(
+                "loading IndexTTS checkpoints is not ported to the PyTorch engine yet (ROADMAP.md, "
+                "'.pth conversion'); pass allow_random_init=True and load weights with "
+                "indextts_tpu_torch.weights.load_jax_params"
+            )
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        with torch.device(self.device):
+            self.gpt = UnifiedVoice(self.cfg.gpt)
+            self.bigvgan = BigVGAN(self.cfg.bigvgan)
+        self.gpt.reset_parameters(g)
+        self.bigvgan.reset_parameters(g)
+        for m in (self.gpt, self.bigvgan):
+            # .to(device) also moves buffers built from numpy (the conformer's PE table)
+            m.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        print(">> GPT and BigVGAN randomly initialized (seed", seed, ")")
+
+        bpe_path = os.path.join(model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
+        self.normalizer = TextNormalizer()
+        self.normalizer.load()
+        if os.path.exists(bpe_path):
+            self.tokenizer = TextTokenizer(bpe_path, self.normalizer)
+            print(">> bpe model loaded from:", bpe_path)
+        else:
+            from indextts_tpu_torch.utils.spm import SentencePieceProcessor, build_vocab_from_pieces
+
+            # the random-init vocabulary: 26 upper-case letters, "." and "▁"
+            pieces = [(chr(65 + i), -float(i)) for i in range(26)] + [(".", -30.0), ("▁", -31.0)]
+            self.tokenizer = TextTokenizer(
+                sp_model=SentencePieceProcessor(vocab=build_vocab_from_pieces(pieces)),
+                normalizer=self.normalizer,
+            )
+        self.wav2mel = MelSpectrogramFeatures()
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._value_cache: Dict[Any, Any] = {}
+        self._feature_cache: Dict[Any, np.ndarray] = {}
+        # stage times and counts of the last infer() call
+        self.last_stats: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    # features / host helpers (reference: infer.py:82-329)
+    # ------------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def extract_features(self, audio_prompt_path: str) -> np.ndarray:
+        """Prompt audio -> log-mel [1, 100, frames] (reference: infer.py:82-93):
+        mono by mean, resampled to 24 kHz. Memoized by (path, mtime)."""
+        try:
+            key = (audio_prompt_path, os.path.getmtime(audio_prompt_path))
+        except OSError:
+            key = (audio_prompt_path, None)
+        cached = self._feature_cache.get(key)
+        if cached is not None:
+            return cached
+        print(f">> extracting prompt mel spectrogram: {audio_prompt_path}")
+        audio, sr = decode_audio(audio_prompt_path)
+        audio = audio.mean(axis=0, keepdims=True)
+        if sr != 24000:
+            audio = resample(audio, sr, 24000)
+        cond_mel = self.wav2mel(np.clip(audio, -1, 1)).astype(np.float32)
+        if len(self._feature_cache) >= 16:
+            self._feature_cache.pop(next(iter(self._feature_cache)))
+        self._feature_cache[key] = cond_mel
+        return cond_mel
+
+    def remove_long_silence(self, codes: np.ndarray, silent_token=52, max_consecutive=30):
+        """Shrink runs of the silence code and trim at the stop token
+        (reference: infer.py:244-298)."""
+        codes = np.asarray(codes)
+        code_lens = []
+        codes_list = []
+        for i in range(codes.shape[0]):
+            code = codes[i]
+            stop_idx = np.nonzero(code == self.stop_mel_token)[0]
+            len_ = int(stop_idx[0]) if stop_idx.size else code.shape[0]
+            count = int((code[:len_] == silent_token).sum())
+            trimmed = code[:len_]
+            if count > max_consecutive:
+                keep = []
+                run = 0
+                for k in range(len_):
+                    if code[k] != silent_token:
+                        keep.append(k)
+                        run = 0
+                    elif run < 10:
+                        keep.append(k)
+                        run += 1
+                trimmed = code[keep]
+                len_ = len(trimmed)
+            codes_list.append(trimmed)
+            code_lens.append(len_)
+        max_len = max(code_lens) if code_lens else 0
+        out = np.full((len(codes_list), max_len), self.stop_mel_token, dtype=codes.dtype)
+        for i, c in enumerate(codes_list):
+            out[i, : len(c)] = c
+        return out, np.asarray(code_lens, dtype=np.int64)
+
+    # ------------------------------------------------------------------
+    # stages (bucketed shapes, as the JAX engine)
+    # ------------------------------------------------------------------
+
+    def _cache_value(self, key, make, bound: int):
+        """Value cache under a FIFO bound per key kind."""
+        if key not in self._value_cache:
+            same_kind = [k for k in self._value_cache if k[0] == key[0]]
+            if len(same_kind) >= bound:
+                del self._value_cache[same_kind[0]]
+            self._value_cache[key] = make()
+        return self._value_cache[key]
+
+    @torch.no_grad()
+    def _conds_for(self, prompt_mel: np.ndarray) -> torch.Tensor:
+        """Conditioning latents [1, latents, D] for a [1, 100, frames] prompt
+        mel, frames zero-padded to a multiple of 100; cached per prompt."""
+
+        def make():
+            frames = prompt_mel.shape[-1]
+            bucket = max(_round_up(frames, 100), 100)
+            mel = np.zeros((1, bucket, prompt_mel.shape[1]), np.float32)
+            mel[0, :frames] = prompt_mel[0].T
+            mel_t = torch.from_numpy(mel).to(self.device, self.dtype)
+            lens = torch.tensor([frames], device=self.device)
+            return get_conditioning(self.gpt, self.cfg.gpt, mel_t, lens)
+
+        digest = hashlib.sha1(np.ascontiguousarray(prompt_mel)).hexdigest()
+        return self._cache_value(("condval", digest), make, 128)
+
+    def _text_bucket(self, n: int) -> int:
+        """Text length rounded up to 8, clamped to the text positional table."""
+        return min(max(_round_up(n, 8), 8), max(self.cfg.gpt.max_text_tokens, n))
+
+    def _code_bucket(self, n: int) -> int:
+        """Mel-code length rounded up to 16, clamped to the mel positional table."""
+        return min(max(_round_up(n, 16), 16), max(self.cfg.gpt.max_mel_tokens, n))
+
+    def _gpt_generate(self, conds, text_tokens: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig,
+                      temperature, top_p, repetition_penalty) -> Tuple[np.ndarray, np.ndarray]:
+        """The decode over text padded to its bucket. Returns (codes, lengths) in numpy."""
+        b, l0 = text_tokens.shape
+        padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
+        padded[:, :l0] = text_tokens
+        codes, lengths = generate_speech(
+            self.gpt, self.cfg.gpt, gen, conds.expand(b, -1, -1).to(self.dtype),
+            torch.from_numpy(padded).to(self.device),
+            torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device),
+            self._generator, temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+        )
+        return codes.cpu().numpy(), lengths.cpu().numpy()
+
+    @torch.no_grad()
+    def _gpt_latent(self, conds, text_tokens: np.ndarray, codes: np.ndarray, code_lens: np.ndarray) -> torch.Tensor:
+        """Teacher-forced latents [B, code bucket, D] for the generated codes."""
+        b, lt0 = text_tokens.shape
+        text = np.full((b, self._text_bucket(lt0)), self.cfg.gpt.stop_text_token, np.int64)
+        text[:, :lt0] = text_tokens
+        lc0 = codes.shape[1]
+        codes_p = np.full((b, self._code_bucket(lc0)), self.stop_mel_token, np.int64)
+        codes_p[:, :lc0] = codes
+        dev = self.device
+        return unified_voice_forward(
+            self.gpt, self.cfg.gpt,
+            torch.from_numpy(text).to(dev),
+            torch.full((b,), lt0, dtype=torch.long, device=dev),
+            torch.from_numpy(codes_p).to(dev),
+            torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
+            conds.expand(b, -1, -1).to(self.dtype),
+        )
+
+    def _samples_per_code(self) -> int:
+        h = self.cfg.bigvgan
+        return (4 if h.feat_upsample else 1) * int(np.prod(h.upsample_rates))
+
+    def _mel_ref_for(self, prompt_mel: np.ndarray, b: int):
+        """Reference mel [b, fb, 100] with frames zero-padded to a multiple of
+        100, and ECAPA's relative lengths; cached per prompt."""
+        frames = prompt_mel.shape[-1]
+        fb = max(_round_up(frames, 100), 100)
+
+        def make():
+            mel_ref = np.zeros((b, fb, prompt_mel.shape[1]), np.float32)
+            mel_ref[:, :frames] = np.transpose(prompt_mel, (0, 2, 1))
+            return (torch.from_numpy(mel_ref).to(self.device, self.dtype),
+                    torch.full((b,), frames / fb, dtype=torch.float32, device=self.device))
+
+        digest = hashlib.sha1(np.ascontiguousarray(prompt_mel)).hexdigest()
+        return self._cache_value(("melref", digest, b), make, 16)
+
+    @torch.no_grad()
+    def _vocode(self, latent: torch.Tensor, n_valid: int, prompt_mel: np.ndarray) -> np.ndarray:
+        """latent [1, m, D] -> wav [1, samples] float32; pads the latent to a
+        multiple of 16 frames and trims the wav to n_valid codes."""
+        m0 = latent.shape[1]
+        m = max(_round_up(m0, 16), 16)
+        latent = torch.nn.functional.pad(latent, (0, 0, 0, m - m0))
+        mel_ref, lens = self._mel_ref_for(prompt_mel, latent.shape[0])
+        wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, latent.to(self.dtype), mel_ref, lens=lens,
+                            use_cuda_kernel=self.use_cuda_kernel)
+        wav = wav[..., 0].float().cpu().numpy()
+        return wav[:, : n_valid * self._samples_per_code()]
+
+    # ------------------------------------------------------------------
+    # public synthesis API
+    # ------------------------------------------------------------------
+
+    def _resolve_prompt(self, prompt) -> np.ndarray:
+        """Accept a [1, 100, frames] mel array or an audio path."""
+        if isinstance(prompt, str):
+            return self.extract_features(prompt)
+        arr = np.asarray(prompt)
+        if arr.ndim == 2:
+            arr = arr[None]
+        return arr.astype(np.float32)
+
+    def _clamp_split_len(self, n: int) -> int:
+        """Sentences must fit the text positional table (max_text_tokens + 2 rows)."""
+        return max(4, min(int(n), self.cfg.gpt.max_text_tokens))
+
+    def _clamp_mel_tokens(self, n: int) -> int:
+        """Generation must fit the mel positional table (max_mel_tokens + 3 rows)."""
+        cap = self.cfg.gpt.max_mel_tokens
+        if int(n) > cap:
+            warnings.warn(f"WARN: max_mel_tokens ({int(n)}) exceeds the model's mel capacity ({cap}); "
+                          "clamping.", RuntimeWarning)
+        return max(1, min(int(n), cap))
+
+    def _parse_generation_kwargs(self, generation_kwargs):
+        """The reference's generation kwargs with its defaults (infer.py:116-124).
+        Returns (gen, dynamic sampling params, max_mel_tokens)."""
+        do_sample = generation_kwargs.pop("do_sample", True)
+        top_p = generation_kwargs.pop("top_p", 0.8)
+        top_k = generation_kwargs.pop("top_k", 30)
+        temperature = generation_kwargs.pop("temperature", 1.0)
+        generation_kwargs.pop("length_penalty", 0.0)  # beam-only
+        num_beams = generation_kwargs.pop("num_beams", 3)
+        repetition_penalty = generation_kwargs.pop("repetition_penalty", 10.0)
+        max_mel_tokens = self._clamp_mel_tokens(generation_kwargs.pop("max_mel_tokens", 600))
+        typical_sampling = generation_kwargs.pop("typical_sampling", False)
+        generation_kwargs.pop("typical_mass", 0.9)  # typical-sampling only
+        if generation_kwargs:
+            raise ValueError(f"unknown generation kwargs: {sorted(generation_kwargs)} "
+                             "(did you misspell a sampling parameter?)")
+        if num_beams != 1:
+            raise NotImplementedError(
+                f"num_beams={num_beams}: beam search is not ported to the PyTorch engine yet "
+                "(ROADMAP.md, Queue 1: beams); pass num_beams=1"
+            )
+        if typical_sampling:
+            raise NotImplementedError("typical_sampling is not ported to the PyTorch engine yet (ROADMAP.md)")
+        gen = GenerationConfig(do_sample=bool(do_sample), top_k=int(top_k) if top_k else 0,
+                               max_new_tokens=int(max_mel_tokens))
+        dyn = {"temperature": float(temperature), "top_p": float(top_p),
+               "repetition_penalty": float(repetition_penalty)}
+        return gen, dyn, int(max_mel_tokens)
+
+    def infer(
+        self,
+        prompt_mel=None,
+        text: str = "",
+        output_path: Optional[str] = None,
+        max_text_tokens_per_sentence: int = 120,
+        verbose: bool = False,
+        audio_prompt: Optional[str] = None,
+        **generation_kwargs,
+    ):
+        """Sequential per-sentence synthesis (reference: infer.py:101-241).
+        Returns output_path when given, else (sampling_rate, int16 wav [T, 1])."""
+        max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
+        print(">> start inference...")
+        if verbose:
+            print(f"origin text:{text}")
+        start_time = time.perf_counter()
+        prompt_mel = self._resolve_prompt(audio_prompt if prompt_mel is None else prompt_mel)
+        cond_mel_frame = prompt_mel.shape[-1]
+
+        text_tokens_list = self.tokenizer.tokenize(text)
+        sentences = self.tokenizer.split_sentences(text_tokens_list, max_text_tokens_per_sentence)
+        if not sentences:
+            raise ValueError("Text is empty (nothing to synthesize after tokenization).")
+        if verbose:
+            print("text token count:", len(text_tokens_list))
+            print("sentences count:", len(sentences))
+            print(*sentences, sep="\n")
+        gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        sampling_rate = 24000
+
+        m_start = time.perf_counter()
+        conds = self._conds_for(prompt_mel)
+        self._sync()
+        cond_time = time.perf_counter() - m_start
+        wavs = []
+        gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
+        gpt_tokens = 0
+        has_warned = False
+        for sent in sentences:
+            text_tokens = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int64)[None, :]
+            if verbose:
+                print(text_tokens)
+                print(f"text_tokens shape: {text_tokens.shape}")
+            m_start = time.perf_counter()
+            codes, code_lens = self._gpt_generate(
+                conds, text_tokens, np.asarray([text_tokens.shape[1]]), gen,
+                dyn["temperature"], dyn["top_p"], dyn["repetition_penalty"],
+            )
+            gpt_gen_time += time.perf_counter() - m_start
+            gpt_tokens += int(code_lens.max())
+            if (not has_warned and not (codes[:, -1] == self.stop_mel_token).all()
+                    and code_lens.max() >= gen.max_new_tokens):
+                warnings.warn(
+                    f"WARN: generation stopped due to exceeding `max_mel_tokens` ({max_mel_tokens}). "
+                    f"Input text tokens: {text_tokens.shape[1]}. "
+                    f"Consider reducing `max_text_tokens_per_sentence`({max_text_tokens_per_sentence}) "
+                    f"or increasing `max_mel_tokens`.",
+                    category=RuntimeWarning,
+                )
+                has_warned = True
+            codes, code_lens = self.remove_long_silence(codes[:, : int(code_lens.max())])
+            if verbose:
+                print(f"fix codes shape: {codes.shape}, code_lens: {code_lens}")
+            m_start = time.perf_counter()
+            latent = self._gpt_latent(conds, text_tokens, codes, code_lens)
+            self._sync()
+            gpt_forward_time += time.perf_counter() - m_start
+
+            m_start = time.perf_counter()
+            wav = self._vocode(latent[:, : codes.shape[1]], int(code_lens[0]), prompt_mel)
+            bigvgan_time += time.perf_counter() - m_start
+            wav = np.clip(32767 * wav, -32767.0, 32767.0)
+            if verbose:
+                print(f"wav shape: {wav.shape}", "min:", wav.min(), "max:", wav.max())
+            wavs.append(wav)
+
+        end_time = time.perf_counter()
+        wav = np.concatenate(wavs, axis=1)
+        wav_length = wav.shape[-1] / sampling_rate
+        total = end_time - start_time
+        self.last_stats = {
+            "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
+            "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(sentences),
+            "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
+        }
+        print(f">> Reference audio length: {cond_mel_frame * 256 / sampling_rate:.2f} seconds")
+        print(f">> gpt_gen_time: {gpt_gen_time:.2f} seconds")
+        print(f">> gpt_forward_time: {gpt_forward_time:.2f} seconds")
+        print(f">> bigvgan_time: {bigvgan_time:.2f} seconds")
+        print(f">> Total inference time: {total:.2f} seconds")
+        print(f">> Generated audio length: {wav_length:.2f} seconds")
+        print(f">> RTF: {total / max(wav_length, 1e-9):.4f}")
+        return self._emit(wav, output_path, sampling_rate)
+
+    def _emit(self, wav: np.ndarray, output_path: Optional[str], sampling_rate: int):
+        if output_path:
+            if os.path.isfile(output_path):
+                os.remove(output_path)
+                print(">> remove old wav file:", output_path)
+            if os.path.dirname(output_path) != "":
+                os.makedirs(os.path.dirname(output_path), exist_ok=True)
+            write_wav(output_path, wav.astype(np.int16), sampling_rate)
+            print(">> wav file saved to:", output_path)
+            return output_path
+        return (sampling_rate, wav.astype(np.int16).T)
