@@ -5,18 +5,33 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1 kernel from indextts_tpu_torch/csrc/;
+  2. build   — nvcc builds the K1 and K5 kernels from indextts_tpu_torch/csrc/,
+               one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
                times for both;
-  4. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
+  4. k5      — K5 (int8_matmul) against its plain version at the five GPT
+               matmul shapes of the published width, M = 1, 4, 8, x bf16 and
+               float32, TF32 off; CUDA-event and profiler device times for
+               both, with the weights cycled past the L2 cache, and GB/s over
+               the int8 weight bytes;
+  5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
                launch count must be 109 per vocoder call;
-  5. small   — the same engine at a tiny width in float32 on the card
+  6. int8    — the same width with quant_kv=True: the max |logit| drift of
+               prefill + 16 forced decode steps with the int8 KV cache, and
+               with int8 KV and int8 weights, against the bf16 cache (int8 KV
+               under JAX's gate of 1.0); then, on weights quantized with
+               quantize_unified_voice, a sampled infer_fast request of four
+               sentences decoded as one batch of 4 and a greedy infer; K5
+               must launch 1 + (4 x layers + 1) x steps times per generate
+               call and K1 109 times per vocoder call;
+  7. small   — the same engine at a tiny width in float32 on the card
                against the CPU on the same weights (greedy codes equal, wav
-               within tolerance);
-  6. report  — one JSON line of kernel results, the nvidia-smi line, and the
+               within tolerance), for infer and for infer_fast on int8
+               weights with the int8 KV cache;
+  8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
@@ -37,6 +52,14 @@ PROMPT = os.path.join(REPO, "tests", "sample_prompt.wav")
 FLAGSHIP = os.path.join(REPO, "configs", "indextts_1_5.yaml")
 K1_REPLACES = "indextts_tpu/ops/pallas/antialias.py:84"
 K1_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake.cu"
+K5_REPLACES = "indextts_tpu/ops/pallas/qmatmul.py:42"
+K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
+# the GPT matmuls at the published width, (label, K, N): per layer qkv, attn
+# proj, mlp fc, mlp proj; then the mel head
+K5_SHAPES = [("qkv", 1280, 3840), ("proj", 1280, 1280), ("fc", 1280, 5120), ("mlp_proj", 5120, 1280),
+             ("head", 1280, 8194)]
+# four sentences with the random-init tokenizer at max_text_tokens_per_sentence=16
+FOUR_SENTENCES = "HELLO WORLD. THIS IS A TEST. GOOD DAY TO YOU."
 
 # vocoder stages for ~100 codes: (label, C, T); T = 100 codes x 4 x the upsampling so far
 STAGES = [("stage1", 768, 1600), ("stage2", 384, 6400), ("stage3", 192, 12800), ("stage4", 96, 25600),
@@ -137,12 +160,79 @@ def kernel_phase(card: str) -> dict:
     return {"rows": rows}
 
 
-def flagship_engine():
+def k5_bound(x, wq, scale, ref):
+    """Both sides sum exact bf16 x int8 products in float32, so they differ
+    only in the order of the sum: 1e-5 of (|bf16(x)| @ |wq|) * scale. A bf16
+    output is rounded twice, before and after the bias add (as the JAX
+    kernel does), so either side may round the other way each time: one bf16
+    ulp of the pre-bias value and two of the output on top."""
+    import torch
+
+    xb, w = x.to(torch.bfloat16).float(), wq.float()
+    bound = 1e-5 * (xb.abs() @ w.abs().t()) * scale
+    if ref.dtype == torch.bfloat16:
+        ulp = lambda v: torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+        bound = bound + ulp((xb @ w.t()) * scale) + 2 * ulp(ref.float())
+    return bound
+
+
+def k5_phase(card: str) -> dict:
+    import itertools
+
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    rows, failures = [], []
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for label, k, n in K5_SHAPES:
+        # copies of the weight past the 50 MB L2 cache, cycled: each launch
+        # streams its weight from device memory, as in a decode step
+        copies = max(2, -(-100_000_000 // (n * k)))
+        ws = [torch.randint(-127, 128, (n, k), device="cuda", generator=g, dtype=torch.int32).to(torch.int8)
+              for _ in range(copies)]
+        scale = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-4
+        for m in (1, 4, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+                bias = (0.1 * torch.randn(n, device="cuda", generator=g)).to(dtype)
+                out = k5.int8_matmul(x, ws[0], scale, bias)
+                torch.cuda.synchronize()
+                ref = k5.int8_matmul_plain(x, ws[0], scale, bias)
+                err = (out.float() - ref.float()).abs()
+                ratio = (err / k5_bound(x, ws[0], scale, ref)).max().item()
+                it = itertools.cycle(ws)
+                kern = lambda: k5.int8_matmul(x, next(it), scale, bias)
+                plain = lambda: k5.int8_matmul_plain(x, next(it), scale, bias)
+                iters = 2 * copies
+                plain_ms = cuda_time_ms(plain, iters)
+                ms = cuda_time_ms(kern, iters)
+                dev_ms = device_time_ms(kern, iters)
+                dev_plain_ms = device_time_ms(plain, iters)
+                gbps = n * k / (dev_ms * 1e-3) / 1e9 if dev_ms else None
+                row = dict(case=label, M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
+                           max_abs_err=err.max().item(), err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
+                           device_ms=dev_ms, device_plain_ms=dev_plain_ms, weight_GBps=gbps, ok=bool(ratio <= 1.0))
+                rows.append(row)
+                log(f"[k5] {label:8s} M={m} K={k:4d} N={n:4d} {row['dtype']:8s} err={row['max_abs_err']:.3e} "
+                    f"(err/bound {ratio:.3f}) events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms | device: kernel "
+                    f"{fmt(dev_ms)} ms plain {fmt(dev_plain_ms)} ms, {fmt(gbps)} GB/s of int8 weights  [{card}]")
+                if not row["ok"]:
+                    failures.append(row)
+        del ws
+    if failures:
+        raise AssertionError(f"K5 disagrees with its plain version: {failures}")
+    return {"rows": rows}
+
+
+def flagship_engine(quant_kv: bool = False):
     from indextts_tpu_torch.engine import IndexTTS
 
     # configs/ holds no bpe.model: the engine builds its random-init tokenizer
     return IndexTTS(cfg_path=FLAGSHIP, model_dir=os.path.join(REPO, "configs"), is_fp16=True, device="cuda",
-                    use_cuda_kernel=True, allow_random_init=True, seed=0)
+                    use_cuda_kernel=True, allow_random_init=True, seed=0, quant_kv=quant_kv)
 
 
 def engine_phase(card: str) -> dict:
@@ -242,6 +332,158 @@ def engine_phase(card: str) -> dict:
             "vocoder_ab": ab}
 
 
+def forced_logits(engine, quant_kv: bool, steps: int = 16):
+    """Prefill and `steps` forced decode steps at B = 4, text rows of
+    different lengths, the tokens drawn from a fixed seed. Returns the logits
+    [steps + 1, B, V] (float32, on the host) and a profile of the steps: host
+    ms per step (second run, synchronized), device ms per step and device
+    kernels per step (third run, torch.profiler)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+
+    cfg = engine.cfg.gpt
+    r = np.random.default_rng(7)
+    lens = np.asarray([12, 9, 16, 5])
+    text = np.full((4, 16), cfg.stop_text_token, np.int64)
+    for i, n in enumerate(lens):
+        text[i, :n] = r.integers(0, cfg.number_text_tokens - 1, n)
+    dev = engine.device
+    forced = torch.from_numpy(r.integers(0, cfg.start_mel_token, (4, steps))).to(dev)
+    conds = engine._conds_for(engine.extract_features(PROMPT)).expand(4, -1, -1)
+
+    def run(ctx):
+        with torch.no_grad():
+            emb, mask = tdec.prepare_gpt_inputs(engine.gpt, cfg, conds, torch.from_numpy(text).to(dev),
+                                                torch.from_numpy(lens).to(dev))
+            p = emb.shape[1]
+            logits, cache = tdec._prefill(engine.gpt, cfg, emb, mask, p + steps, quant_kv=quant_kv)
+            outs = [logits.float()]
+            pv = torch.nn.functional.pad(mask, (0, steps))
+            pos = torch.arange(p + steps, device=dev)[None, :]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ctx:
+                for i in range(steps):
+                    valid = pv | ((pos >= p) & (pos < p + i))
+                    outs.append(tdec._decode_step(engine.gpt, cfg, forced[:, i], i + 2, cache, p + i, valid).float())
+                torch.cuda.synchronize()
+            return torch.stack(outs).cpu().numpy(), 1e3 * (time.perf_counter() - t) / steps
+
+    logits, _ = run(contextlib.nullcontext())
+    _, host_ms = run(contextlib.nullcontext())
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    run(prof)  # the profiler covers the decode steps only
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    kernels = sum(e.count for e in events) / steps
+    return logits, {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+                    "device_kernels_per_step": kernels, "device_idle_share": 1.0 - device_ms / host_ms}
+
+
+def int8_phase(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
+
+    t0 = time.perf_counter()
+    engine = flagship_engine(quant_kv=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    base, prof_bf16 = forced_logits(engine, quant_kv=False)
+    kv8, prof_kv8 = forced_logits(engine, quant_kv=True)
+    quantize_unified_voice(engine.gpt)
+    w8kv8, prof_w8kv8 = forced_logits(engine, quant_kv=True)
+    drift = {"int8_kv": float(np.abs(kv8 - base).max()), "int8_kv_int8_weights": float(np.abs(w8kv8 - base).max()),
+             "max_abs_logit_bf16": float(np.abs(base).max()),
+             "argmax_agree_int8_kv": float((kv8.argmax(-1) == base.argmax(-1)).mean()),
+             "argmax_agree_int8_kv_int8_weights": float((w8kv8.argmax(-1) == base.argmax(-1)).mean())}
+    step_profile = {"bf16": prof_bf16, "int8_kv": prof_kv8, "int8_kv_int8_weights": prof_w8kv8}
+    log(f"[int8] flagship built in {init_s:.1f} s; max |logit| drift over prefill + 16 forced steps, B=4, against "
+        f"the bf16 cache: int8 KV {drift['int8_kv']:.5f}, int8 KV + int8 weights "
+        f"{drift['int8_kv_int8_weights']:.5f} (max |logit| {drift['max_abs_logit_bf16']:.4f}; argmax agreement "
+        f"{drift['argmax_agree_int8_kv']:.3f} / {drift['argmax_agree_int8_kv_int8_weights']:.3f}) [{card}]")
+    for name, pr in step_profile.items():
+        log(f"[int8] forced decode step, B=4, {name}: host {pr['host_ms_per_step']:.2f} ms/step, device "
+            f"{pr['device_ms_per_step']:.3f} ms/step in {pr['device_kernels_per_step']:.0f} kernels, device idle "
+            f"{100 * pr['device_idle_share']:.1f} % [{card}]")
+    if not np.isfinite(w8kv8).all() or not drift["int8_kv"] < 1.0:
+        raise AssertionError(f"int8 KV logit drift {drift['int8_kv']} is not under JAX's gate of 1.0 (bench.py:280)")
+
+    vocoded = []
+    for name in ("_vocode", "_vocode_many"):
+        fn = getattr(engine, name)
+
+        def recording(*a, _fn=fn, _name=name, **kw):
+            out = _fn(*a, **kw)
+            n_valid = [a[1]] if _name == "_vocode" else [c[1] for c in a[0]]
+            vocoded.extend(zip(n_valid, out if _name == "_vocode_many" else [out]))
+            return out
+
+        setattr(engine, name, recording)
+    # a first, cold request of the int8 path: reported, not part of the measured run
+    t = time.perf_counter()
+    engine.infer_fast(audio_prompt=PROMPT, text="WARM UP. WARM UP AGAIN.", num_beams=1, do_sample=True,
+                      max_mel_tokens=200, max_text_tokens_per_sentence=16)
+    cold_s = time.perf_counter() - t
+    vocoded.clear()
+    requests = [
+        ("fast_sampled", "infer_fast", dict(text=FOUR_SENTENCES, do_sample=True, top_k=30, top_p=0.8,
+                                            repetition_penalty=10.0, num_beams=1, max_mel_tokens=200,
+                                            max_text_tokens_per_sentence=16)),
+        ("greedy", "infer", dict(text="HELLO WORLD.", do_sample=False, num_beams=1, max_mel_tokens=200)),
+    ]
+    spc = engine._samples_per_code()
+    k1.launches = k5.launches = 0  # the int8 path's run starts here
+    results, gen_calls, gen_steps, vocoder_calls = [], 0, 0, 0
+    for name, method, kw in requests:
+        start = len(vocoded)
+        sr, wav = getattr(engine, method)(audio_prompt=PROMPT, **kw)
+        st = dict(engine.last_stats)
+        gen_calls += st["gpt_calls"]
+        gen_steps += st["gpt_steps"]
+        vocoder_calls += st["vocoder_calls"]
+        n_codes = sum(n for n, _ in vocoded[start:])
+        for n, w in vocoded[start:]:
+            if w.shape[1] != n * spc or (w.dtype != np.int16 and not np.isfinite(w).all()):
+                raise AssertionError(f"{name}: vocoder output {w.shape} {w.dtype} for {n} codes")
+        if wav.shape[0] != n_codes * spc or n_codes < 1:
+            raise AssertionError(f"{name}: returned wav {wav.shape} for {n_codes} codes")
+        if method == "infer_fast" and st["decode_batches"] != [4]:
+            raise AssertionError(f"{name}: decode batches {st['decode_batches']}, want one batch of 4")
+        row = dict(request=name, method=method, codes=n_codes, audio_s=st["audio_s"], cond_ms=1e3 * st["cond_s"],
+                   decode_batches=st.get("decode_batches", [1]), decode_steps=st["gpt_steps"],
+                   decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1),
+                   latent_ms=1e3 * st["gpt_forward_s"], vocoder_ms=1e3 * st["bigvgan_s"],
+                   vocoder_calls=st["vocoder_calls"], total_s=st["total_s"], rtf=st["rtf"])
+        results.append(row)
+        log(f"[int8] {name} ({method}, batches {row['decode_batches']}): {n_codes} codes, {st['audio_s']:.2f} s "
+            f"audio | cond {row['cond_ms']:.1f} ms, decode {row['decode_ms_per_step']:.2f} ms/step over "
+            f"{st['gpt_steps']} steps (prefill included), latent {row['latent_ms']:.1f} ms, vocoder "
+            f"{row['vocoder_ms']:.1f} ms in {st['vocoder_calls']} call(s), total {st['total_s']:.2f} s, "
+            f"RTF {st['rtf']:.4f} [{card}]")
+    per_step = 4 * engine.cfg.gpt.layers + 1
+    want_k5 = gen_calls + per_step * gen_steps
+    h = engine.cfg.bigvgan
+    per_voc = len(h.upsample_rates) * sum(2 * len(d) for d in h.resblock_dilation_sizes) + 1
+    want_k1 = per_voc * vocoder_calls
+    log(f"[int8] K5 launches {k5.launches} (want {gen_calls} + {per_step} x {gen_steps} = {want_k5}); "
+        f"K1 launches {k1.launches} (want {per_voc} x {vocoder_calls} = {want_k1})")
+    if k5.launches != want_k5 or k1.launches != want_k1:
+        raise AssertionError(f"launch counts: K5 {k5.launches} (want {want_k5}), K1 {k1.launches} (want {want_k1})")
+    return {"init_s": init_s, "cold_first_request_s": cold_s, "drift": drift, "step_profile": step_profile,
+            "requests": results,
+            "k5_launches": k5.launches, "k1_launches": k1.launches, "generate_calls": gen_calls,
+            "decode_steps": gen_steps, "vocoder_calls": vocoder_calls}
+
+
 def tiny_config():
     from indextts_tpu_torch.config import (BigVGANConfig, ConditionModuleConfig, GPTConfig,
                                            IndexTTSConfig)
@@ -260,7 +502,9 @@ def tiny_config():
 
 
 def small_phase(card: str) -> dict:
-    """Tiny width, float32: the card's engine against the CPU's on the same weights."""
+    """Tiny width, float32: the card's engine against the CPU's on the same
+    weights, for infer and then, on int8 weights with the int8 KV cache, for
+    infer_fast (batched on the card, one sentence per batch on the CPU)."""
     import tempfile
 
     import numpy as np
@@ -268,6 +512,7 @@ def small_phase(card: str) -> dict:
 
     from indextts_tpu_torch.config import save_config
     from indextts_tpu_torch.engine import IndexTTS
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -300,7 +545,29 @@ def small_phase(card: str) -> dict:
         f"wav {wav_gpu.shape} max |gpu - cpu| = {diff} int16 units [{card}]")
     if not same or wav_gpu.shape != wav_cpu.shape or diff > 8:
         raise AssertionError("the card's engine disagrees with the CPU's at tiny width")
-    return {"codes_equal": same, "wav_max_abs_diff_int16": diff, "samples": int(wav_gpu.shape[0])}
+
+    # int8 weights and the int8 KV cache; the card decodes the sentences as
+    # one batch (K5 at M = 3), the CPU one at a time (K5's plain version)
+    for e in (gpu, cpu):
+        quantize_unified_voice(e.gpt)
+        e.quant_kv = True
+    codes.clear()
+    kw = dict(text="HELLO WORLD. THIS IS A TEST. GOOD DAY.", do_sample=False, num_beams=1, max_mel_tokens=24,
+              max_text_tokens_per_sentence=16)
+    _, wav8_gpu = gpu.infer_fast(audio_prompt=PROMPT, **kw)
+    batches = gpu.last_stats["decode_batches"]
+    _, wav8_cpu = cpu.infer_fast(audio_prompt=PROMPT, **kw)
+    rows = lambda name: [r for c in codes[name] for r in c]
+    same8 = len(rows("gpu")) == len(rows("cpu")) and all(
+        np.array_equal(a, b) for a, b in zip(sorted(map(tuple, rows("gpu"))), sorted(map(tuple, rows("cpu")))))
+    diff8 = int(np.abs(wav8_gpu.astype(np.int64) - wav8_cpu.astype(np.int64)).max()) if wav8_gpu.size else 0
+    log(f"[small] tiny f32 infer_fast, int8 weights + int8 KV: card batches {batches}, codes equal {same8}, "
+        f"wav {wav8_gpu.shape} max |gpu - cpu| = {diff8} int16 units [{card}]")
+    if not same8 or wav8_gpu.shape != wav8_cpu.shape or diff8 > 8 or max(batches) < 2:
+        raise AssertionError("the card's int8 infer_fast disagrees with the CPU's at tiny width")
+    return {"codes_equal": same, "wav_max_abs_diff_int16": diff, "samples": int(wav_gpu.shape[0]),
+            "int8_fast": {"codes_equal": same8, "wav_max_abs_diff_int16": diff8, "card_batches": batches,
+                          "samples": int(wav8_gpu.shape[0])}}
 
 
 def main() -> int:
@@ -315,19 +582,29 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import build
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
+    # one nvcc per source, started together
     t = time.perf_counter()
-    k1._library()
-    log(f"[build] {k1.SOURCE} built and loaded in {time.perf_counter() - t:.2f} s "
-        f"(nvcc {build.build_seconds[k1.SOURCE]:.2f} s)")
-    for line in build.build_log(k1.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            log("[build]", line.strip())
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for future in [pool.submit(k._library) for k in (k1, k5)]:
+            future.result()
+    log(f"[build] {k1.SOURCE} and {k5.SOURCE} built and loaded in {time.perf_counter() - t:.2f} s "
+        f"(nvcc {build.build_seconds[k1.SOURCE]:.2f} s and {build.build_seconds[k5.SOURCE]:.2f} s, in parallel)")
+    for src in (k1.SOURCE, k5.SOURCE):
+        for line in build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {src}:", line.strip())
 
     kern = kernel_phase(card)
+    kern5 = k5_phase(card)
     eng = engine_phase(card)
+    int8 = int8_phase(card)
     small = small_phase(card)
 
     main_rows = {r["case"]: r for r in kern["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16"}
@@ -338,10 +615,23 @@ def main() -> int:
         profiler where it saw the kernels, else CUDA-event time."""
         pick = lambda r: r[key] if r[key] is not None else r[fallback]
         return sum(18 * pick(main_rows[s]) for s, _, _ in STAGES[:6]) + pick(main_rows["activation_post"])
+
+    k5_rows = {r["case"]: r for r in kern5["rows"] if r["M"] == 4 and r["dtype"] == "bfloat16"}
+    layers = load_config(FLAGSHIP).gpt.layers
+
+    def per_step(key: str, fallback: str) -> float:
+        """K5 (or plain) time of one decode step at B = 4, bf16: four block
+        matmuls in each layer plus the mel head."""
+        pick = lambda r: r[key] if r[key] is not None else r[fallback]
+        return layers * sum(pick(k5_rows[c]) for c in ("qkv", "proj", "fc", "mlp_proj")) + pick(k5_rows["head"])
+
     report = {
         "device": card,
+        "build_seconds": dict(build.build_seconds),
         "kernel": kern,
+        "k5": kern5,
         "engine": eng,
+        "int8": int8,
         "small": small,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
@@ -351,6 +641,10 @@ def main() -> int:
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": eng["k1_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": per_call("device_ms", "ms"), "plain_ms": per_call("device_plain_ms", "plain_ms"),
+    }, {
+        "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
+        "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
+        "ms": per_step("device_ms", "ms"), "plain_ms": per_step("device_plain_ms", "plain_ms"),
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

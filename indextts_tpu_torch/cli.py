@@ -1,8 +1,9 @@
 """Console CLI of the PyTorch engine: `indextts-tpu-torch "TEXT." -v prompt.wav -o out.wav`.
 
-The single-request path (IndexTTS.infer) with the reference CLI's flags
-(indextts/cli.py:7-70). Weights are random (seed 0) until checkpoint loading
-is ported; see ROADMAP.md.
+The reference CLI's flags (indextts/cli.py:7-70) plus the JAX CLI's --fast
+(bucketed batch inference, IndexTTS.infer_fast) and --quant-kv (the int8 KV
+cache). Weights are random (seed 0) until checkpoint loading is ported; see
+ROADMAP.md.
 """
 
 import argparse
@@ -30,6 +31,9 @@ def main(argv=None):
                         help="bf16 compute on the GPU (--no-fp16 for float32)")
     parser.add_argument("-f", "--force", action="store_true", default=False, help="Overwrite the output file if it exists")
     parser.add_argument("-d", "--device", type=str, default="cuda", help="torch device (default cuda)")
+    parser.add_argument("--fast", action="store_true", default=False, help="Use bucketed batch inference (infer_fast)")
+    parser.add_argument("--quant-kv", action="store_true", default=False,
+                        help="Int8-quantized KV cache for the decode (near-parity outputs)")
     args = parser.parse_args(argv)
     if not args.text.strip():
         print("ERROR: Text is empty.")
@@ -46,8 +50,9 @@ def main(argv=None):
     from indextts_tpu_torch.engine import IndexTTS
 
     tts = IndexTTS(cfg_path=args.config, model_dir=args.model_dir, is_fp16=args.fp16, device=args.device,
-                   allow_random_init=True)
-    tts.infer(audio_prompt=args.voice, text=args.text.strip(), output_path=args.output_path, num_beams=1)
+                   allow_random_init=True, quant_kv=args.quant_kv)
+    infer = tts.infer_fast if args.fast else tts.infer
+    infer(audio_prompt=args.voice, text=args.text.strip(), output_path=args.output_path, num_beams=1)
 
 
 if __name__ == "__main__":

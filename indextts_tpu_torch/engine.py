@@ -1,20 +1,24 @@
-"""The IndexTTS inference engine on PyTorch (port of indextts_tpu/engine.py,
-the single-request `infer` path).
+"""The IndexTTS inference engine on PyTorch (port of indextts_tpu/engine.py:
+the single-request `infer` path and the bucketed batch `infer_fast` path).
 
 Public surface as the reference engine (indextts/infer.py: class IndexTTS):
 __init__(cfg_path, model_dir, is_fp16, device, use_cuda_kernel), infer(),
-extract_features(), remove_long_silence(). Underneath, PyTorch runs eagerly
-on `device` (default "cuda"), in bf16 there when `is_fp16`, with the fused
-anti-aliased activation kernel (K1) at every vocoder activation when
-`use_cuda_kernel` (the default).
+infer_fast(), extract_features(), remove_long_silence(), bucket_sentences(),
+pad_tokens_cat(). Underneath, PyTorch runs eagerly on `device` (default
+"cuda"), in bf16 there when `is_fp16`, with the fused anti-aliased activation
+kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
+`quant_kv` selects the int8 KV cache, as in the JAX engine; int8 GPT weights
+(the K5 kernel in every decode matmul) come from
+ops/quant.quantize_unified_voice(engine.gpt), a library call as in JAX.
 
 The same shape buckets as the JAX engine are kept, because padding changes
 numbers: text is padded with stop_text_token to a multiple of 8, codes to a
 multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
-relative lengths), vocoder latents to a multiple of 16.
+relative lengths), vocoder latents to a multiple of 16 (32 in the batched
+vocoder of infer_fast).
 
-Not ported yet (see ROADMAP.md): loading checkpoints, beams, infer_fast,
-batching, streaming, latent capture, the int8 KV cache and the server.
+Not ported yet (see ROADMAP.md): loading checkpoints, beams, fast_latents,
+streaming, infer_batch, slots and the server.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import hashlib
 import os
 import time
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +55,7 @@ class IndexTTS:
         use_cuda_kernel: bool = True,
         allow_random_init: bool = False,
         seed: int = 0,
+        quant_kv: bool = False,
     ):
         """`is_fp16` selects bf16 compute off the CPU. `use_cuda_kernel` routes
         every vocoder activation to the fused kernel K1 (its plain version on
@@ -58,11 +63,14 @@ class IndexTTS:
         builds the models from `seed` with the JAX init_* distributions; it
         is required for now, since checkpoint loading is not ported. Weights
         of the JAX engine can be copied in afterwards with
-        weights.load_jax_params(self.gpt, ...) / (self.bigvgan, ...)."""
+        weights.load_jax_params(self.gpt, ...) / (self.bigvgan, ...).
+        `quant_kv`: decode with the int8 KV cache (per head-pair and position
+        scales); opt-in, since K/V rounding changes the sampled numbers."""
         self.device = torch.device(device)
         self.is_fp16 = bool(is_fp16) and self.device.type != "cpu"
         self.dtype = torch.bfloat16 if self.is_fp16 else torch.float32
         self.use_cuda_kernel = bool(use_cuda_kernel)
+        self.quant_kv = bool(quant_kv)
         self.cfg: IndexTTSConfig = load_config(cfg_path) if os.path.exists(cfg_path) else IndexTTSConfig()
         self.model_dir = model_dir
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
@@ -103,8 +111,10 @@ class IndexTTS:
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._value_cache: Dict[Any, Any] = {}
         self._feature_cache: Dict[Any, np.ndarray] = {}
-        # stage times and counts of the last infer() call
-        self.last_stats: Dict[str, float] = {}
+        # stage times and counts of the last infer() / infer_fast() call
+        self.last_stats: Dict[str, Any] = {}
+        # vocoder calls (batches) the last _vocode_many made
+        self._vocode_many_calls = 0
 
     # ------------------------------------------------------------------
     # features / host helpers (reference: infer.py:82-329)
@@ -205,9 +215,32 @@ class IndexTTS:
         """Mel-code length rounded up to 16, clamped to the mel positional table."""
         return min(max(_round_up(n, 16), 16), max(self.cfg.gpt.max_mel_tokens, n))
 
+    def bucket_sentences(self, sentences, bucket_max_size=4) -> List[List[Dict]]:
+        """Length-sorted fixed-capacity buckets (reference: infer.py:303-315)."""
+        outputs = [{"idx": idx, "sent": sent, "len": len(sent)} for idx, sent in enumerate(sentences)]
+        if len(outputs) <= bucket_max_size:
+            return [outputs]
+        buckets: List[List[Dict]] = []
+        for sent in sorted(outputs, key=lambda x: x["len"]):
+            if not buckets or len(buckets[-1]) >= bucket_max_size:
+                buckets.append([sent])
+            else:
+                buckets[-1].append(sent)
+        return buckets
+
+    def pad_tokens_cat(self, tokens: List[np.ndarray]) -> np.ndarray:
+        """Rows of text tokens right-padded with stop_text_token to the longest."""
+        max_len = max(t.shape[-1] for t in tokens)
+        out = np.full((len(tokens), max_len), self.cfg.gpt.stop_text_token, dtype=np.int64)
+        for i, t in enumerate(tokens):
+            t = np.asarray(t).reshape(-1)
+            out[i, : t.shape[0]] = t
+        return out
+
     def _gpt_generate(self, conds, text_tokens: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig,
                       temperature, top_p, repetition_penalty) -> Tuple[np.ndarray, np.ndarray]:
-        """The decode over text padded to its bucket. Returns (codes, lengths) in numpy."""
+        """The decode over text padded to its bucket. Returns (codes, lengths)
+        in numpy; the call ran max(lengths) - 1 decode steps."""
         b, l0 = text_tokens.shape
         padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
         padded[:, :l0] = text_tokens
@@ -216,13 +249,19 @@ class IndexTTS:
             torch.from_numpy(padded).to(self.device),
             torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device),
             self._generator, temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+            quant_kv=self.quant_kv,
         )
         return codes.cpu().numpy(), lengths.cpu().numpy()
 
     @torch.no_grad()
-    def _gpt_latent(self, conds, text_tokens: np.ndarray, codes: np.ndarray, code_lens: np.ndarray) -> torch.Tensor:
-        """Teacher-forced latents [B, code bucket, D] for the generated codes."""
+    def _gpt_latent(self, conds, text_tokens: np.ndarray, codes: np.ndarray, code_lens: np.ndarray,
+                    text_lengths: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Teacher-forced latents [B, code bucket, D] for the generated codes.
+        text_lengths [B]: each row's true text length (default: the full
+        width, for per-row callers)."""
         b, lt0 = text_tokens.shape
+        if text_lengths is None:
+            text_lengths = np.full(b, lt0, np.int64)
         text = np.full((b, self._text_bucket(lt0)), self.cfg.gpt.stop_text_token, np.int64)
         text[:, :lt0] = text_tokens
         lc0 = codes.shape[1]
@@ -232,11 +271,47 @@ class IndexTTS:
         return unified_voice_forward(
             self.gpt, self.cfg.gpt,
             torch.from_numpy(text).to(dev),
-            torch.full((b,), lt0, dtype=torch.long, device=dev),
+            torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
             torch.from_numpy(codes_p).to(dev),
             torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
             conds.expand(b, -1, -1).to(self.dtype),
         )
+
+    def _gpt_latent_many(self, rows) -> List[torch.Tensor]:
+        """Batched teacher-forced latents (port of the JAX engine's
+        _gpt_latent_many). rows: (conds [1, C, D], text_tokens [1, Lt],
+        codes [1, Lc], code_lens [1]); returns per-row latents [1, Lc, D] in
+        input order. Rows group by (text bucket, code bucket), at most 16 to a
+        batch padded to a power of two with zero conds rows; the pass is
+        per-row independent, so batched equals per-row."""
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, (_cds, tt, cd, _cl) in enumerate(rows):
+            groups.setdefault((self._text_bucket(tt.shape[1]), self._code_bucket(cd.shape[1])), []).append(i)
+        out: List[Optional[torch.Tensor]] = [None] * len(rows)
+        bucket_max = 16
+        for (lt, lc), idxs in sorted(groups.items()):
+            for k in range(0, len(idxs), bucket_max):
+                part = idxs[k : k + bucket_max]
+                b0 = len(part)
+                b = 1 << (b0 - 1).bit_length()
+                text = np.full((b, lt), self.cfg.gpt.stop_text_token, np.int64)
+                tlens = np.ones((b,), np.int64)
+                codes_p = np.full((b, lc), self.stop_mel_token, np.int64)
+                clens = np.ones((b,), np.int64)
+                conds_rows = []
+                for j, i in enumerate(part):
+                    cds, tt, cd, cl = rows[i]
+                    text[j, : tt.shape[1]] = tt[0]
+                    tlens[j] = tt.shape[1]
+                    codes_p[j, : cd.shape[1]] = cd[0]
+                    clens[j] = int(np.asarray(cl).reshape(-1)[0])
+                    conds_rows.append(cds.to(self.dtype))
+                if b != b0:
+                    conds_rows.append(conds_rows[0].new_zeros((b - b0,) + tuple(conds_rows[0].shape[1:])))
+                lat = self._gpt_latent(torch.cat(conds_rows, dim=0), text, codes_p, clens, text_lengths=tlens)
+                for j, i in enumerate(part):
+                    out[i] = lat[j : j + 1, : rows[i][2].shape[1]]
+        return out
 
     def _samples_per_code(self) -> int:
         h = self.cfg.bigvgan
@@ -269,6 +344,51 @@ class IndexTTS:
                             use_cuda_kernel=self.use_cuda_kernel)
         wav = wav[..., 0].float().cpu().numpy()
         return wav[:, : n_valid * self._samples_per_code()]
+
+    @torch.no_grad()
+    def _vocode_many(self, chunks) -> List[np.ndarray]:
+        """Batched vocoder (port of the JAX engine's _vocode_many). chunks:
+        (latent [1, Tc, D], n_valid codes, prompt_mel [1, 100, frames]);
+        returns int16 wavs [1, n_valid * samples per code] in input order,
+        scaled and clipped on the device. Chunks group by prompt frame bucket;
+        within a group they sort by latent length and batch in neighbours of
+        at most 16, each latent zero-padded to the batch's longest rounded up
+        to 32 frames, the batch padded to a power of two with zero rows. Each
+        row's ECAPA relative length masks its own zero-padded prompt frames."""
+        spc = self._samples_per_code()
+        self._vocode_many_calls = 0
+        groups: Dict[int, List[int]] = {}
+        for i, (_lat, _nv, mel) in enumerate(chunks):
+            groups.setdefault(max(_round_up(mel.shape[-1], 100), 100), []).append(i)
+        out: List[Optional[np.ndarray]] = [None] * len(chunks)
+        bucket_max = 16
+        for fb, idxs in sorted(groups.items()):
+            idxs.sort(key=lambda i: chunks[i][0].shape[1])
+            for k in range(0, len(idxs), bucket_max):
+                part = idxs[k : k + bucket_max]
+                m = max(_round_up(max(chunks[i][0].shape[1] for i in part), 32), 32)
+                b0 = len(part)
+                b = 1 << (b0 - 1).bit_length()
+                lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
+                            for i in part]
+                if b != b0:
+                    lat_rows.append(lat_rows[0].new_zeros((b - b0, m, lat_rows[0].shape[2])))
+                n_mels = chunks[part[0]][2].shape[1]
+                mel_b = np.zeros((b, fb, n_mels), np.float32)
+                rel = np.ones((b,), np.float32)
+                for j, i in enumerate(part):
+                    mel = chunks[i][2]
+                    mel_b[j, : mel.shape[-1]] = mel[0].T
+                    rel[j] = mel.shape[-1] / fb
+                wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, torch.cat(lat_rows, dim=0),
+                                    torch.from_numpy(mel_b).to(self.device, self.dtype),
+                                    lens=torch.from_numpy(rel).to(self.device), use_cuda_kernel=self.use_cuda_kernel)
+                self._vocode_many_calls += 1
+                wav16 = torch.clamp(wav[:b0, :, 0].float() * 32767.0, -32767.0, 32767.0).to(torch.int16)
+                wav_np = wav16.cpu().numpy()
+                for j, i in enumerate(part):
+                    out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
+        return out
 
     # ------------------------------------------------------------------
     # public synthesis API
@@ -407,6 +527,7 @@ class IndexTTS:
         total = end_time - start_time
         self.last_stats = {
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
+            "gpt_calls": len(sentences), "gpt_steps": gpt_tokens - len(sentences),
             "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(sentences),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
         }
@@ -417,6 +538,117 @@ class IndexTTS:
         print(f">> Total inference time: {total:.2f} seconds")
         print(f">> Generated audio length: {wav_length:.2f} seconds")
         print(f">> RTF: {total / max(wav_length, 1e-9):.4f}")
+        return self._emit(wav, output_path, sampling_rate)
+
+    def infer_fast(
+        self,
+        prompt_mel=None,
+        text: str = "",
+        output_path: Optional[str] = None,
+        max_text_tokens_per_sentence: int = 120,
+        verbose: bool = False,
+        sentences_bucket_max_size: int = 4,
+        audio_prompt: Optional[str] = None,
+        **generation_kwargs,
+    ):
+        """Bucketed batch synthesis (reference: infer.py:332-537): sentences
+        are length-bucketed (one sentence per bucket on the CPU), each bucket
+        decoded as one padded batch, the teacher-forced latents computed in
+        batches across buckets, the original order restored, and the vocoder
+        run over chunks of two sentences, batched across chunks.
+        Returns output_path when given, else (sampling_rate, int16 wav [T, 1])."""
+        max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
+        print(">> start fast inference...")
+        if verbose:
+            print(f"origin text:{text}")
+        start_time = time.perf_counter()
+        prompt_mel = self._resolve_prompt(audio_prompt if prompt_mel is None else prompt_mel)
+        cond_mel_frame = prompt_mel.shape[-1]
+
+        text_tokens_list = self.tokenizer.tokenize(text)
+        sentences = self.tokenizer.split_sentences(text_tokens_list, max_tokens_per_sentence=max_text_tokens_per_sentence)
+        if not sentences:
+            raise ValueError("Text is empty (nothing to synthesize after tokenization).")
+        if verbose:
+            print(">> text token count:", len(text_tokens_list))
+            print("   splited sentences count:", len(sentences))
+        gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        sampling_rate = 24000
+
+        m_start = time.perf_counter()
+        conds = self._conds_for(prompt_mel)
+        self._sync()
+        cond_time = time.perf_counter() - m_start
+        gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
+        bucket_max_size = sentences_bucket_max_size if self.device.type != "cpu" else 1
+        all_sentences = self.bucket_sentences(sentences, bucket_max_size=bucket_max_size)
+        all_batch_codes, all_batch_lens, all_text_tokens = [], [], []
+        for bucket in all_sentences:
+            item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(item["sent"]), np.int64)[None, :]
+                           for item in bucket]
+            all_text_tokens.append(item_tokens)
+            m_start = time.perf_counter()
+            codes, lens = self._gpt_generate(
+                conds, self.pad_tokens_cat(item_tokens), np.asarray([t.shape[1] for t in item_tokens]), gen,
+                dyn["temperature"], dyn["top_p"], dyn["repetition_penalty"],
+            )
+            gpt_gen_time += time.perf_counter() - m_start
+            all_batch_codes.append(codes)
+            all_batch_lens.append(lens)
+
+        all_idxs, rows = [], []
+        has_warned = False
+        for batch_codes, batch_lens, batch_tokens, bucket in zip(all_batch_codes, all_batch_lens, all_text_tokens,
+                                                                 all_sentences):
+            for i in range(batch_codes.shape[0]):
+                code_row = batch_codes[i : i + 1]
+                if (not has_warned and batch_lens[i] >= gen.max_new_tokens
+                        and code_row[0, -1] != self.stop_mel_token):
+                    warnings.warn(f"WARN: generation stopped due to exceeding `max_mel_tokens` ({max_mel_tokens}).",
+                                  category=RuntimeWarning)
+                    has_warned = True
+                codes, code_lens = self.remove_long_silence(code_row)
+                all_idxs.append(bucket[i]["idx"])
+                rows.append((conds, batch_tokens[i], codes, code_lens))
+        m_start = time.perf_counter()
+        lats = self._gpt_latent_many(rows)
+        self._sync()
+        gpt_forward_time += time.perf_counter() - m_start
+        all_latents = [(lat, int(row[3][0])) for lat, row in zip(lats, rows)]
+
+        # restore the original order (argsort: a long text splits into many sentences)
+        all_latents = [all_latents[j] for j in np.argsort(all_idxs)]
+        chunk_size = 2
+        chunks = [all_latents[i : i + chunk_size] for i in range(0, len(all_latents), chunk_size)]
+        chunk_args = [(torch.cat([lat for lat, _ in items], dim=1), sum(n for _, n in items), prompt_mel)
+                      for items in chunks]
+        m_start = time.perf_counter()
+        wavs = self._vocode_many(chunk_args)  # int16, scaled and clipped on the device
+        bigvgan_time += time.perf_counter() - m_start
+
+        end_time = time.perf_counter()
+        wav = np.concatenate(wavs, axis=1)
+        wav_length = wav.shape[-1] / sampling_rate
+        total = end_time - start_time
+        # a generate call of max(lengths) tokens ran max(lengths) - 1 decode steps
+        gpt_tokens = sum(int(lens.max()) for lens in all_batch_lens)
+        self.last_stats = {
+            "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
+            "gpt_calls": len(all_sentences), "gpt_steps": gpt_tokens - len(all_sentences),
+            "decode_batches": [len(b) for b in all_sentences],
+            "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": self._vocode_many_calls,
+            "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
+        }
+        print(f">> Reference audio length: {cond_mel_frame * 256 / sampling_rate:.2f} seconds")
+        print(f">> gpt_gen_time: {gpt_gen_time:.2f} seconds")
+        print(f">> gpt_forward_time: {gpt_forward_time:.2f} seconds")
+        print(f">> bigvgan_time: {bigvgan_time:.2f} seconds")
+        print(f">> Total fast inference time: {total:.2f} seconds")
+        print(f">> Generated audio length: {wav_length:.2f} seconds")
+        print(f">> [fast] bigvgan chunk_length: {len(chunks)}")
+        print(f">> [fast] batch_num: {len(sentences)} bucket_max_size: {bucket_max_size}",
+              f"bucket_count: {len(all_sentences)}" if bucket_max_size > 1 else "")
+        print(f">> [fast] RTF: {total / max(wav_length, 1e-9):.4f}")
         return self._emit(wav, output_path, sampling_rate)
 
     def _emit(self, wav: np.ndarray, output_path: Optional[str], sampling_rate: int):

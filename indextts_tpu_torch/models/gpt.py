@@ -22,6 +22,7 @@ from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.norms import layer_norm
+from indextts_tpu_torch.ops.quant import matmul_maybe_quantized, quantize_weight
 from indextts_tpu_torch.weights import default_init_, normal_, uniform_
 
 NEG = torch.finfo(torch.float32).min
@@ -29,6 +30,37 @@ NEG = torch.finfo(torch.float32).min
 
 def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, m.weight, m.bias)
+
+
+class QuantLinear(nn.Module):
+    """A Linear with int8 weights: weight [out, in] int8 (one output channel
+    per row), scale [out] float32, bias in the model's dtype; y = x @ (weight
+    * scale)^T + bias through ops/quant.matmul_maybe_quantized, so a 2-D x
+    (the decode step) runs K5 and a 3-D x (prefill, teacher-forced pass)
+    dequantizes. Built by ops/quant.quantize_unified_voice or by the weight
+    bridge from a quantized JAX tree."""
+
+    def __init__(self, in_features: int, out_features: int, bias_dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32, device=device))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=bias_dtype, device=device))
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
+        """Quantize lin's weight per output channel (ops/quant.quantize_weight
+        on the JAX layout [in, out], so the bytes equal JAX's)."""
+        q = cls(lin.in_features, lin.out_features, lin.bias.dtype, lin.weight.device)
+        qd = quantize_weight(lin.weight.detach().t())
+        q.weight.copy_(qd["weight"].t())
+        q.scale.copy_(qd["scale"].reshape(-1))
+        q.bias.copy_(lin.bias.detach())
+        return q
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return matmul_maybe_quantized(x, self.weight, self.scale, self.bias)
 
 
 def _attn(q, k, v, bias):
@@ -40,7 +72,8 @@ def _attn(q, k, v, bias):
 
 
 class GPT2Block(nn.Module):
-    """One GPT-2 block; weights as HF Conv1D, y = x @ W + b."""
+    """One GPT-2 block; weights as HF Conv1D, y = x @ W + b. The four
+    linears may be QuantLinear (ops/quant.quantize_gpt_blocks)."""
 
     def __init__(self, d: int):
         super().__init__()

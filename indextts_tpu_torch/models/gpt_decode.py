@@ -1,5 +1,6 @@
 """Autoregressive decode for UnifiedVoice: prefill plus a KV-cached loop
-(port of indextts_tpu/models/gpt_decode.py, greedy and sampled, num_beams == 1).
+(port of indextts_tpu/models/gpt_decode.py, greedy and sampled, num_beams == 1,
+with the bf16 / float32 or the int8 KV cache).
 
   * prepare_gpt_inputs builds the left-padded [pad][cond][text][start]
     embedding layout and key mask of model.py:591-654.
@@ -8,24 +9,32 @@
     writes each token's K/V into that cache in place (the JAX loop returns a
     new cache each step) and stops early when every row has emitted
     stop_mel_token.
+  * With quant_kv the cache is int8 (k8, ks, v8, vs): k8 / v8 [L, B, H, S,
+    Dh] int8 and one float32 scale per head PAIR and position, ks / vs [L,
+    B, H/2, S]. The JAX cache is head-paired ([.., H/2, S, 2*Dh], a TPU lane
+    layout the port does not carry), and its scale is the amax of a paired
+    column, i.e. over both heads 2g and 2g+1; a per-head scale would be a
+    different quantizer. The new token attends to its own exact K / V and is
+    quantized into the cache afterwards, as in JAX _decode_block_q.
   * The mel positional off-by-one of the reference inference model
     (model.py:151-155: generated token t takes mel position t+1) is kept:
     pos_off=2.
 
-Beams, segmented decoding and latent capture stay in the JAX package for
-now. The JAX monolithic driver is the contract: its segmented driver is
-pinned bit-exact to it.
+Not ported yet (see ROADMAP.md): beams, segmented decoding, latent capture
+(fast_latents) and forced input_tokens prefixes. The JAX monolithic driver
+is the contract: its segmented driver is pinned bit-exact to it.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt import NEG, UnifiedVoice, gpt2_apply
+from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, gpt2_apply
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import greedy_token, process_logits, sample_token
 
@@ -41,13 +50,14 @@ class GenerationConfig:
 
 @dataclass
 class DecodeState:
-    """The loop state: step i, codes [B, max_new] (stop-filled), the caches
-    (k, v) [L, B, H, S, Dh], done [B], seen [B, V] for the repetition
-    penalty, and the last token cur [B]. Updated in place by decode_steps."""
+    """The loop state: step i, codes [B, max_new] (stop-filled), the cache
+    (k, v) [L, B, H, S, Dh] or, int8, (k8, ks, v8, vs), done [B], seen [B, V]
+    for the repetition penalty, and the last token cur [B]. Updated in place
+    by decode_steps."""
 
     i: int
     codes: torch.Tensor
-    cache: Tuple[torch.Tensor, torch.Tensor]
+    cache: Tuple[torch.Tensor, ...]
     done: torch.Tensor
     seen: torch.Tensor
     cur: torch.Tensor
@@ -119,26 +129,82 @@ def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor) -> torch.Tensor:
     return model.mel_head(h)
 
 
-def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch.Tensor, cache_len: int):
+def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch.Tensor, cache_len: int,
+             quant_kv: bool = False):
     """Run the stack over the prompt; returns last-position logits [B, V] and
-    the caches (k, v), each [L, B, H, cache_len, Dh], zero past the prompt."""
+    the cache, zero past the prompt: (k, v), each [L, B, H, cache_len, Dh],
+    or with quant_kv (k8, ks, v8, vs), quantized after the full-precision
+    prefill attention; the pad columns' scales are zero (the attention bias
+    masks those columns)."""
     hidden, (k, v) = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask, return_kv=True)
     pad = cache_len - k.shape[3]
-    cache = tuple(torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    if quant_kv:
+        (k8, ks), (v8, vs) = _quant_cols(k), _quant_cols(v)
+        pad8, pads = (0, 0, 0, pad), (0, pad)
+        cache = tuple(torch.nn.functional.pad(t, pad8 if t.dim() == 5 else pads) for t in (k8, ks, v8, vs))
+    else:
+        cache = tuple(torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
     return _mel_logits(model, hidden[:, -1]), cache
+
+
+def _quant_cols(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 of a cache t [..., H, S, Dh] with one scale per head
+    pair and position: the amax runs over heads 2g and 2g+1 together, the
+    column of JAX's head-paired cache (gpt_decode.py:326-336). Returns (q
+    [..., H, S, Dh] int8, s [..., H/2, S] float32), t ~ q * s."""
+    *lead, h, s_len, dh = t.shape
+    tf = t.float().reshape(*lead, h // 2, 2, s_len, dh)
+    amax = tf.abs().amax(dim=(-3, -1))
+    s = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(tf / s[..., None, :, None]), -127, 127).to(torch.int8)
+    return q.reshape(t.shape), s
+
+
+def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor, v8: torch.Tensor,
+                    vs: torch.Tensor, pos: int, bias: torch.Tensor, heads: int) -> torch.Tensor:
+    """GPT2Block.step against the int8 cache of one layer: k8 / v8 [B, H, S,
+    Dh], ks / vs [B, H/2, S]. `bias` [B, 1, S] masks slot `pos`: the new
+    token's exact K / V enter the softmax as an extra logit, and are then
+    quantized into slot `pos` in place. Dequantization in JAX's order
+    (_decode_block_q): scores contract in x's dtype and then take ks in
+    float32; the attention weights take vs in float32 before the cast."""
+    b, d = x.shape
+    dh = d // heads
+    q, k, v = (y.reshape(b, heads, dh) for y in block.attn_qkv(_ln(block.ln_1, x)).split(d, dim=-1))
+    scale = 1.0 / math.sqrt(dh)
+    ksh, vsh = ks.repeat_interleave(2, dim=1), vs.repeat_interleave(2, dim=1)  # [B, H, S]
+    s = (q[:, :, None] @ k8.to(x.dtype).transpose(-1, -2))[:, :, 0].float()
+    scores = torch.cat([s * ksh * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
+    attn = torch.softmax(scores, dim=-1)
+    a2 = (attn[..., :-1] * vsh).to(x.dtype)
+    a = (a2[:, :, None] @ v8.to(x.dtype))[:, :, 0] + attn[..., -1:].to(x.dtype) * v
+    for cache8, cache_s, new in ((k8, ks, k), (v8, vs, v)):
+        q8, qs = _quant_cols(new[:, :, None])
+        cache8[:, :, pos] = q8[:, :, 0]
+        cache_s[:, :, pos] = qs[:, :, 0]
+    return block._mlp(x + block.attn_proj(a.reshape(b, d)))
 
 
 def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: int, cache, pos: int,
                  valid: torch.Tensor) -> torch.Tensor:
-    """One step: token [B] at mel position `mel_pos`, written into cache slot
-    `pos` (in place). valid: [B, S] bool, the cache slots to attend, `pos`
-    included. Returns logits [B, V]."""
+    """One step: token [B] at mel position `mel_pos`, its K/V written into
+    cache slot `pos` (in place). valid: [B, S] bool, the cache slots already
+    written that the token attends, `pos` excluded (JAX's base_mask). The
+    cache is (k, v) or int8 (k8, ks, v8, vs). Returns logits [B, V]."""
     x = model.mel_embedding[token] + model.mel_pos_embedding[mel_pos]
     zero = torch.zeros((), device=x.device)
-    bias = torch.where(valid, zero, NEG)[:, None, :]  # [B, 1, S]
-    k_all, v_all = cache
-    for layer, block in enumerate(model.gpt.blocks):
-        x = block.step(x, k_all[layer], v_all[layer], pos, bias, cfg.heads)
+    if len(cache) == 4:
+        bias = torch.where(valid, zero, NEG)[:, None, :]  # [B, 1, S]
+        for layer, block in enumerate(model.gpt.blocks):
+            x = _decode_block_q(block, x, *(c[layer] for c in cache), pos, bias, cfg.heads)
+    else:
+        # the full-precision step writes slot pos first and attends over it
+        valid = valid.clone()
+        valid[:, pos] = True
+        bias = torch.where(valid, zero, NEG)[:, None, :]
+        k_all, v_all = cache
+        for layer, block in enumerate(model.gpt.blocks):
+            x = block.step(x, k_all[layer], v_all[layer], pos, bias, cfg.heads)
     x = layer_norm(x, model.gpt.ln_f.weight, model.gpt.ln_f.bias)
     return _mel_logits(model, x)
 
@@ -154,15 +220,17 @@ def prefill_decode_state(
     temperature: float = 1.0,
     top_p: float = 0.8,
     repetition_penalty: float = 10.0,
+    quant_kv: bool = False,
 ) -> Tuple[DecodeState, DecodeContext]:
-    """Prefill + first token. Returns the loop state and its context."""
+    """Prefill + first token. Returns the loop state and its context; the
+    cache is int8 with quant_kv."""
     b = text_tokens.shape[0]
     dev = text_tokens.device
     emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
     p = emb.shape[1]
     max_new = gen.max_new_tokens
     s_max = p + max_new
-    logits0, cache = _prefill(model, cfg, emb, prefill_mask, s_max)
+    logits0, cache = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv)
     # HF penalizes over the whole input_ids row: the fake inputs are 1s with
     # a trailing start_mel (model.py:645-653), so ids {1, start_mel} start seen
     seen = torch.zeros(b, cfg.number_mel_codes, dtype=torch.bool, device=dev)
@@ -193,7 +261,7 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
     while state.i < max_new - 1 and state.i < stop and not bool(state.done.all()):
         i = state.i
         write_pos = ctx.p + i
-        valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions <= write_pos))
+        valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions < write_pos))
         logits = _decode_step(model, cfg, state.cur, i + pos_off, state.cache, write_pos, valid)
         nxt = ctx.sample(logits, state.seen)
         nxt = torch.where(state.done, torch.full_like(nxt, cfg.stop_mel_token), nxt)
@@ -218,14 +286,16 @@ def generate_speech(
     top_p: float = 0.8,
     repetition_penalty: float = 10.0,
     pos_off: int = 2,
+    quant_kv: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy / sampled generation (num_beams == 1). Returns (codes [B,
     max_new_tokens] right-padded with stop_mel_token, lengths [B] counting
     tokens up to and including the stop token), as HF generate() with
-    eos = pad = stop_mel_token (model.py:698-703)."""
+    eos = pad = stop_mel_token (model.py:698-703). The loop runs
+    max(lengths) - 1 decode steps. quant_kv: the int8 KV cache."""
     state, ctx = prefill_decode_state(
         model, cfg, gen, conds, text_tokens, text_lengths, generator,
-        temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+        temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
     )
     max_new = gen.max_new_tokens
     state = decode_steps(model, cfg, state, ctx, max_new - 1, pos_off=pos_off)

@@ -26,7 +26,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}  # one per source: sources build in parallel
 _loaded: Dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when it was found
 # already built); read by chip_smoke.py
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<source>; returns the ctypes library."""
-    with _lock:
+    """Build (if needed) and load csrc/<source>; returns the ctypes library.
+    Threads may build different sources at once."""
+    with _locks_lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _loaded:
             return _loaded[source]
         src = CSRC_DIR / source

@@ -13,7 +13,11 @@ parameter or buffer of the same name. Layouts differ only in these kinds:
 
 (indextts_tpu/convert.py:56-69 has the inverse maps). GPT blocks are stacked
 on a leading layer axis in JAX (one lax.scan body); a dict of stacked arrays
-meeting an nn.ModuleList is unstacked along that axis.
+meeting an nn.ModuleList is unstacked along that axis. A quantized linear of
+indextts_tpu/ops/quant.py ({weight: int8 [in, out], scale: [1, out], bias})
+loads into models/gpt.py:QuantLinear (weight [out, in], the layout the K5
+kernel reads; scale [out]); an nn.Linear that meets one is swapped for a
+QuantLinear first.
 
 The random init fills a module with the distributions of the JAX init_*
 functions from a torch.Generator; it does not reproduce JAX's random bits.
@@ -32,9 +36,13 @@ _CONV_1D = (nn.Conv1d, nn.ConvTranspose1d)
 
 
 def _to_torch_layout(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
+    from indextts_tpu_torch.models.gpt import QuantLinear
+
+    if isinstance(owner, QuantLinear) and name == "scale":
+        return value.reshape(-1)
     if name != "weight":
         return value
-    if isinstance(owner, nn.Linear):
+    if isinstance(owner, (nn.Linear, QuantLinear)):
         return value.T
     if isinstance(owner, _CONV_1D):
         return np.transpose(value, (2, 1, 0))
@@ -48,6 +56,8 @@ def load_jax_params(module: nn.Module, tree: Any, path: str = "") -> None:
     """Copy a JAX parameter tree (numpy or jax arrays) into `module` in place.
     Raises on a missing name or a shape mismatch; leaves of the module that the
     tree does not name keep their values."""
+    from indextts_tpu_torch.models.gpt import QuantLinear  # models/gpt.py imports this module
+
     if isinstance(module, nn.ModuleList):
         if isinstance(tree, Mapping):  # layer-stacked leaves: unstack axis 0
             tree = [_index_tree(tree, i) for i in range(len(module))]
@@ -61,6 +71,11 @@ def load_jax_params(module: nn.Module, tree: Any, path: str = "") -> None:
     for name, sub in tree.items():
         where = f"{path}.{name}" if path else name
         target = getattr(module, name, None)
+        if isinstance(target, nn.Linear) and isinstance(sub, Mapping) and "scale" in sub:
+            target = QuantLinear(target.in_features, target.out_features, target.bias.dtype, target.weight.device)
+            setattr(module, name, target)
+        elif isinstance(target, QuantLinear) and not (isinstance(sub, Mapping) and "scale" in sub):
+            raise TypeError(f"{where}: the port's module is quantized but the JAX tree is not")
         if isinstance(target, nn.Module):
             load_jax_params(target, sub, where)
             continue

@@ -11,6 +11,11 @@ import pytest
 import torch
 
 from indextts_tpu_torch.ops.cuda import antialias as k1
+from indextts_tpu_torch.ops.cuda import qmatmul as k5
+
+# (K, N) of the GPT matmuls at the published IndexTTS-1.5 width: qkv, proj,
+# mlp fc, mlp proj, mel head
+K5_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 8194)]
 
 
 @pytest.mark.cuda
@@ -47,3 +52,79 @@ def test_k1_raises_instead_of_falling_back():
         k1.fused_anti_alias_snake(torch.zeros(1, 8, 64, device="cuda", dtype=torch.float16), alpha, alpha)
     with pytest.raises(ValueError):
         k1.fused_anti_alias_snake(torch.zeros(1, 64, 8, device="cuda").transpose(1, 2), alpha, alpha)
+
+
+def _k5_inputs(m, k, n, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+    wq = torch.randint(-127, 128, (n, k), device="cuda", generator=g, dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-4
+    bias = (0.1 * torch.randn(n, device="cuda", generator=g)).to(dtype)
+    return x, wq, scale, bias
+
+
+def k5_bound(x, wq, scale, ref):
+    """Both sides sum exact bf16 x int8 products in float32: the bound is the
+    summation order, 1e-5 of (|bf16(x)| @ |wq|) * scale. A bf16 output is
+    rounded twice, before and after the bias add (as the JAX kernel does), so
+    either side may round the other way each time: one bf16 ulp of the
+    pre-bias value and two of the output on top."""
+    xb, w = x.to(torch.bfloat16).float(), wq.float()
+    bound = 1e-5 * (xb.abs() @ w.abs().t()) * scale
+    if ref.dtype == torch.bfloat16:
+        ulp = lambda v: torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+        bound = bound + ulp((xb @ w.t()) * scale) + 2 * ulp(ref.float())
+    return bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("k,n", K5_SHAPES + [(300, 700)])
+def test_k5_matches_plain(dtype, m, k, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wq, scale, bias = _k5_inputs(m, k, n, dtype)
+    before = k5.launches
+    out = k5.int8_matmul(x, wq, scale, bias)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    ref = k5.int8_matmul_plain(x, wq, scale, bias)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= k5_bound(x, wq, scale, ref)).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(1280, 1280), (300, 700)])
+def test_k5_more_rows_than_a_block(dtype, k, n):
+    """M = 13: a second block of x rows along the grid's y axis, partly
+    filled (a block takes 8 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wq, scale, bias = _k5_inputs(13, k, n, dtype, seed=1)
+    out = k5.int8_matmul(x, wq, scale, bias)
+    ref = k5.int8_matmul_plain(x, wq, scale, bias)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= k5_bound(x, wq, scale, ref)).all()), err.max().item()
+
+
+@pytest.mark.cuda
+def test_k5_raises_instead_of_falling_back():
+    """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, wq, scale, bias = _k5_inputs(2, 64, 32, torch.bfloat16)
+    before = k5.launches
+    with pytest.raises(TypeError):
+        k5.int8_matmul(x, wq.to(torch.bfloat16), scale, bias)  # not an int8 weight
+    with pytest.raises(ValueError):
+        k5.int8_matmul(x[None], wq, scale, bias)  # 3-D x
+    with pytest.raises(TypeError):
+        k5.int8_matmul(x.half(), wq, scale, bias)
+    with pytest.raises(ValueError):
+        k5.int8_matmul(torch.zeros(64, 2, device="cuda", dtype=torch.bfloat16).t(), wq, scale, bias)
+    assert k5.launches == before
