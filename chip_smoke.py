@@ -296,13 +296,13 @@ def engine_phase(card: str) -> dict:
             raise AssertionError("sampled request produced no codes")
         if name == "two_sentences" and st["vocoder_calls"] != 2:
             raise AssertionError(f"two_sentences ran {st['vocoder_calls']} vocoder calls, not 2")
-        ms_step = 1e3 * st["gpt_gen_s"] / max(st["gpt_tokens"], 1)
+        ms_step = 1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1)
         row = dict(request=name, codes=n_codes, audio_s=st["audio_s"], cond_ms=1e3 * st["cond_s"],
-                   decode_ms_per_step=ms_step, decode_tokens=st["gpt_tokens"], latent_ms=1e3 * st["gpt_forward_s"],
+                   decode_ms_per_step=ms_step, decode_steps=st["gpt_steps"], latent_ms=1e3 * st["gpt_forward_s"],
                    vocoder_ms=1e3 * st["bigvgan_s"], total_s=st["total_s"], rtf=st["rtf"])
         results.append(row)
         log(f"[engine] {name}: {n_codes} codes, {st['audio_s']:.2f} s audio | cond {row['cond_ms']:.1f} ms, "
-            f"decode {ms_step:.2f} ms/step over {st['gpt_tokens']} tokens (prefill included), "
+            f"decode {ms_step:.2f} ms/step over {st['gpt_steps']} steps (prefill included), "
             f"latent {row['latent_ms']:.1f} ms, vocoder {row['vocoder_ms']:.1f} ms, total {st['total_s']:.2f} s, "
             f"RTF {st['rtf']:.4f} [{card}]")
     launches = k1.launches

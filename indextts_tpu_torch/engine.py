@@ -113,8 +113,6 @@ class IndexTTS:
         self._feature_cache: Dict[Any, np.ndarray] = {}
         # stage times and counts of the last infer() / infer_fast() call
         self.last_stats: Dict[str, Any] = {}
-        # vocoder calls (batches) the last _vocode_many made
-        self._vocode_many_calls = 0
 
     # ------------------------------------------------------------------
     # features / host helpers (reference: infer.py:82-329)
@@ -345,49 +343,56 @@ class IndexTTS:
         wav = wav[..., 0].float().cpu().numpy()
         return wav[:, : n_valid * self._samples_per_code()]
 
+    @staticmethod
+    def _vocode_batches(chunks) -> List[Tuple[int, List[int]]]:
+        """The vocoder calls _vocode_many makes for `chunks`, each as (prompt
+        frame bucket, chunk indices): chunks group by prompt frame bucket;
+        within a group they sort by latent length and batch in neighbours of
+        at most 16."""
+        groups: Dict[int, List[int]] = {}
+        for i, (_lat, _nv, mel) in enumerate(chunks):
+            groups.setdefault(max(_round_up(mel.shape[-1], 100), 100), []).append(i)
+        bucket_max = 16
+        batches = []
+        for fb, idxs in sorted(groups.items()):
+            idxs.sort(key=lambda i: chunks[i][0].shape[1])
+            batches.extend((fb, idxs[k : k + bucket_max]) for k in range(0, len(idxs), bucket_max))
+        return batches
+
     @torch.no_grad()
     def _vocode_many(self, chunks) -> List[np.ndarray]:
         """Batched vocoder (port of the JAX engine's _vocode_many). chunks:
         (latent [1, Tc, D], n_valid codes, prompt_mel [1, 100, frames]);
         returns int16 wavs [1, n_valid * samples per code] in input order,
-        scaled and clipped on the device. Chunks group by prompt frame bucket;
-        within a group they sort by latent length and batch in neighbours of
-        at most 16, each latent zero-padded to the batch's longest rounded up
-        to 32 frames, the batch padded to a power of two with zero rows. Each
-        row's ECAPA relative length masks its own zero-padded prompt frames."""
+        scaled and clipped on the device. One call per batch of
+        _vocode_batches, each latent zero-padded to the batch's longest
+        rounded up to 32 frames, the batch padded to a power of two with zero
+        rows. Each row's ECAPA relative length masks its own zero-padded
+        prompt frames."""
         spc = self._samples_per_code()
-        self._vocode_many_calls = 0
-        groups: Dict[int, List[int]] = {}
-        for i, (_lat, _nv, mel) in enumerate(chunks):
-            groups.setdefault(max(_round_up(mel.shape[-1], 100), 100), []).append(i)
         out: List[Optional[np.ndarray]] = [None] * len(chunks)
-        bucket_max = 16
-        for fb, idxs in sorted(groups.items()):
-            idxs.sort(key=lambda i: chunks[i][0].shape[1])
-            for k in range(0, len(idxs), bucket_max):
-                part = idxs[k : k + bucket_max]
-                m = max(_round_up(max(chunks[i][0].shape[1] for i in part), 32), 32)
-                b0 = len(part)
-                b = 1 << (b0 - 1).bit_length()
-                lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
-                            for i in part]
-                if b != b0:
-                    lat_rows.append(lat_rows[0].new_zeros((b - b0, m, lat_rows[0].shape[2])))
-                n_mels = chunks[part[0]][2].shape[1]
-                mel_b = np.zeros((b, fb, n_mels), np.float32)
-                rel = np.ones((b,), np.float32)
-                for j, i in enumerate(part):
-                    mel = chunks[i][2]
-                    mel_b[j, : mel.shape[-1]] = mel[0].T
-                    rel[j] = mel.shape[-1] / fb
-                wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, torch.cat(lat_rows, dim=0),
-                                    torch.from_numpy(mel_b).to(self.device, self.dtype),
-                                    lens=torch.from_numpy(rel).to(self.device), use_cuda_kernel=self.use_cuda_kernel)
-                self._vocode_many_calls += 1
-                wav16 = torch.clamp(wav[:b0, :, 0].float() * 32767.0, -32767.0, 32767.0).to(torch.int16)
-                wav_np = wav16.cpu().numpy()
-                for j, i in enumerate(part):
-                    out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
+        for fb, part in self._vocode_batches(chunks):
+            m = max(_round_up(max(chunks[i][0].shape[1] for i in part), 32), 32)
+            b0 = len(part)
+            b = 1 << (b0 - 1).bit_length()
+            lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
+                        for i in part]
+            if b != b0:
+                lat_rows.append(lat_rows[0].new_zeros((b - b0, m, lat_rows[0].shape[2])))
+            n_mels = chunks[part[0]][2].shape[1]
+            mel_b = np.zeros((b, fb, n_mels), np.float32)
+            rel = np.ones((b,), np.float32)
+            for j, i in enumerate(part):
+                mel = chunks[i][2]
+                mel_b[j, : mel.shape[-1]] = mel[0].T
+                rel[j] = mel.shape[-1] / fb
+            wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, torch.cat(lat_rows, dim=0),
+                                torch.from_numpy(mel_b).to(self.device, self.dtype),
+                                lens=torch.from_numpy(rel).to(self.device), use_cuda_kernel=self.use_cuda_kernel)
+            wav16 = torch.clamp(wav[:b0, :, 0].float() * 32767.0, -32767.0, 32767.0).to(torch.int16)
+            wav_np = wav16.cpu().numpy()
+            for j, i in enumerate(part):
+                out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
         return out
 
     # ------------------------------------------------------------------
@@ -636,7 +641,7 @@ class IndexTTS:
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
             "gpt_calls": len(all_sentences), "gpt_steps": gpt_tokens - len(all_sentences),
             "decode_batches": [len(b) for b in all_sentences],
-            "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": self._vocode_many_calls,
+            "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(self._vocode_batches(chunk_args)),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
         }
         print(f">> Reference audio length: {cond_mel_frame * 256 / sampling_rate:.2f} seconds")

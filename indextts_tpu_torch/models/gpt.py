@@ -22,7 +22,6 @@ from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.norms import layer_norm
-from indextts_tpu_torch.ops.quant import matmul_maybe_quantized, quantize_weight
 from indextts_tpu_torch.weights import default_init_, normal_, uniform_
 
 NEG = torch.finfo(torch.float32).min
@@ -30,37 +29,6 @@ NEG = torch.finfo(torch.float32).min
 
 def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, m.weight, m.bias)
-
-
-class QuantLinear(nn.Module):
-    """A Linear with int8 weights: weight [out, in] int8 (one output channel
-    per row), scale [out] float32, bias in the model's dtype; y = x @ (weight
-    * scale)^T + bias through ops/quant.matmul_maybe_quantized, so a 2-D x
-    (the decode step) runs K5 and a 3-D x (prefill, teacher-forced pass)
-    dequantizes. Built by ops/quant.quantize_unified_voice or by the weight
-    bridge from a quantized JAX tree."""
-
-    def __init__(self, in_features: int, out_features: int, bias_dtype: torch.dtype = torch.float32,
-                 device=None):
-        super().__init__()
-        self.in_features, self.out_features = in_features, out_features
-        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32, device=device))
-        self.register_buffer("bias", torch.zeros(out_features, dtype=bias_dtype, device=device))
-
-    @classmethod
-    def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
-        """Quantize lin's weight per output channel (ops/quant.quantize_weight
-        on the JAX layout [in, out], so the bytes equal JAX's)."""
-        q = cls(lin.in_features, lin.out_features, lin.bias.dtype, lin.weight.device)
-        qd = quantize_weight(lin.weight.detach().t())
-        q.weight.copy_(qd["weight"].t())
-        q.scale.copy_(qd["scale"].reshape(-1))
-        q.bias.copy_(lin.bias.detach())
-        return q
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return matmul_maybe_quantized(x, self.weight, self.scale, self.bias)
 
 
 def _attn(q, k, v, bias):
@@ -73,7 +41,7 @@ def _attn(q, k, v, bias):
 
 class GPT2Block(nn.Module):
     """One GPT-2 block; weights as HF Conv1D, y = x @ W + b. The four
-    linears may be QuantLinear (ops/quant.quantize_gpt_blocks)."""
+    linears may be ops/quant.QuantLinear (quantize_gpt_blocks)."""
 
     def __init__(self, d: int):
         super().__init__()
@@ -99,15 +67,21 @@ class GPT2Block(nn.Module):
 
     def step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
              bias: torch.Tensor, heads: int) -> torch.Tensor:
-        """One new token x [B, D] against the caches [B, H, S, Dh]. Writes the
-        token's K/V into slot `pos` of the caches in place; `bias` [B, 1, S]
-        must admit that slot."""
+        """One new token x [B, D] against the caches [B, H, S, Dh]. `bias`
+        [B, 1, S] masks slot `pos`: the token's own K/V enter the softmax as
+        an extra logit, as in JAX _decode_block, and are then written into
+        slot `pos` of the caches in place."""
         b, d = x.shape
-        q, k, v = (y.reshape(b, heads, d // heads) for y in self.attn_qkv(_ln(self.ln_1, x)).split(d, dim=-1))
+        dh = d // heads
+        q, k, v = (y.reshape(b, heads, dh) for y in self.attn_qkv(_ln(self.ln_1, x)).split(d, dim=-1))
+        scale = 1.0 / math.sqrt(dh)
+        s = (q[:, :, None] @ k_cache.transpose(-1, -2))[:, :, 0].float()
+        scores = torch.cat([s * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
+        attn = torch.softmax(scores, dim=-1).to(x.dtype)
+        a = (attn[:, :, None, :-1] @ v_cache)[:, :, 0] + attn[..., -1:] * v
         k_cache[:, :, pos] = k
         v_cache[:, :, pos] = v
-        a = _attn(q[:, :, None], k_cache, v_cache, bias[:, :, None]).reshape(b, d)
-        return self._mlp(x + self.attn_proj(a))
+        return self._mlp(x + self.attn_proj(a.reshape(b, d)))
 
 
 class GPT2(nn.Module):

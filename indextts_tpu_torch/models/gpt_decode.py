@@ -192,19 +192,13 @@ def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_p
     written that the token attends, `pos` excluded (JAX's base_mask). The
     cache is (k, v) or int8 (k8, ks, v8, vs). Returns logits [B, V]."""
     x = model.mel_embedding[token] + model.mel_pos_embedding[mel_pos]
-    zero = torch.zeros((), device=x.device)
-    if len(cache) == 4:
-        bias = torch.where(valid, zero, NEG)[:, None, :]  # [B, 1, S]
-        for layer, block in enumerate(model.gpt.blocks):
-            x = _decode_block_q(block, x, *(c[layer] for c in cache), pos, bias, cfg.heads)
-    else:
-        # the full-precision step writes slot pos first and attends over it
-        valid = valid.clone()
-        valid[:, pos] = True
-        bias = torch.where(valid, zero, NEG)[:, None, :]
-        k_all, v_all = cache
-        for layer, block in enumerate(model.gpt.blocks):
-            x = block.step(x, k_all[layer], v_all[layer], pos, bias, cfg.heads)
+    bias = torch.where(valid, torch.zeros((), device=x.device), NEG)[:, None, :]  # [B, 1, S]
+    for layer, block in enumerate(model.gpt.blocks):
+        caches = [c[layer] for c in cache]
+        if len(cache) == 4:
+            x = _decode_block_q(block, x, *caches, pos, bias, cfg.heads)
+        else:
+            x = block.step(x, *caches, pos, bias, cfg.heads)
     x = layer_norm(x, model.gpt.ln_f.weight, model.gpt.ln_f.bias)
     return _mel_logits(model, x)
 

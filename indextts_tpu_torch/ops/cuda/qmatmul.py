@@ -2,7 +2,7 @@
 (csrc/int8_matmul.cu), and its plain PyTorch version.
 
 Replaces indextts_tpu/ops/pallas/qmatmul.py:int8_matmul. The quantized GPT
-linears (models/gpt.py:QuantLinear, through ops/quant.py) call it for every
+linears (ops/quant.py:QuantLinear) call it for every
 2-D product: the decode step's four block matmuls per layer and the mel
 head. The weight is in torch Linear's layout, wq [N, K] int8, one output
 channel per row; the JAX kernel takes [K, N].

@@ -9,6 +9,7 @@ quantize_unified_voice(engine.gpt) on a built engine.
 matmul_maybe_quantized routes a 2-D input (the decode step) to the K5 kernel
 (ops/cuda/qmatmul.py; its plain version on the CPU) and a 3-D input (the
 prefill, the teacher-forced pass) through JAX's dequantize-then-matmul.
+QuantLinear is the module that holds the int8 weight in the layout K5 reads.
 """
 
 from __future__ import annotations
@@ -46,6 +47,37 @@ def matmul_maybe_quantized(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tenso
     return out if bias is None else out + bias.to(out.dtype)
 
 
+class QuantLinear(nn.Module):
+    """A Linear with int8 weights: weight [out, in] int8 (one output channel
+    per row), scale [out] float32, bias in the model's dtype; y = x @ (weight
+    * scale)^T + bias through matmul_maybe_quantized, so a 2-D x (the decode
+    step) runs K5 and a 3-D x (prefill, teacher-forced pass) dequantizes.
+    Built by quantize_unified_voice or by the weight bridge from a quantized
+    JAX tree."""
+
+    def __init__(self, in_features: int, out_features: int, bias_dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32, device=device))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=bias_dtype, device=device))
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
+        """Quantize lin's weight per output channel (quantize_weight on the
+        JAX layout [in, out], so the bytes equal JAX's)."""
+        q = cls(lin.in_features, lin.out_features, lin.bias.dtype, lin.weight.device)
+        qd = quantize_weight(lin.weight.detach().t())
+        q.weight.copy_(qd["weight"].t())
+        q.scale.copy_(qd["scale"].reshape(-1))
+        q.bias.copy_(lin.bias.detach())
+        return q
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return matmul_maybe_quantized(x, self.weight, self.scale, self.bias)
+
+
 _QUANT_TARGETS = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
 
 
@@ -53,8 +85,6 @@ _QUANT_TARGETS = ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")
 def quantize_gpt_blocks(gpt: nn.Module) -> nn.Module:
     """Swap the four matmuls of every GPT-2 block (the decode's bandwidth
     bulk) for QuantLinear, in place. Norms, biases and embeddings stay."""
-    from indextts_tpu_torch.models.gpt import QuantLinear
-
     for block in gpt.blocks:
         for name in _QUANT_TARGETS:
             lin = getattr(block, name)
@@ -64,12 +94,10 @@ def quantize_gpt_blocks(gpt: nn.Module) -> nn.Module:
 
 
 @torch.no_grad()
-def quantize_unified_voice(model: nn.Module, include_head: bool = True) -> nn.Module:
-    """Quantize a UnifiedVoice in place: the GPT blocks and (include_head)
-    the mel head; the text head stays. Returns the model."""
-    from indextts_tpu_torch.models.gpt import QuantLinear
-
+def quantize_unified_voice(model: nn.Module) -> nn.Module:
+    """Quantize a UnifiedVoice in place: the GPT blocks and the mel head; the
+    text head stays. Returns the model."""
     quantize_gpt_blocks(model.gpt)
-    if include_head and not isinstance(model.mel_head, QuantLinear):
+    if not isinstance(model.mel_head, QuantLinear):
         model.mel_head = QuantLinear.from_linear(model.mel_head)
     return model

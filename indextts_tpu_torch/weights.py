@@ -15,7 +15,7 @@ parameter or buffer of the same name. Layouts differ only in these kinds:
 on a leading layer axis in JAX (one lax.scan body); a dict of stacked arrays
 meeting an nn.ModuleList is unstacked along that axis. A quantized linear of
 indextts_tpu/ops/quant.py ({weight: int8 [in, out], scale: [1, out], bias})
-loads into models/gpt.py:QuantLinear (weight [out, in], the layout the K5
+loads into ops/quant.py:QuantLinear (weight [out, in], the layout the K5
 kernel reads; scale [out]); an nn.Linear that meets one is swapped for a
 QuantLinear first.
 
@@ -32,12 +32,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from indextts_tpu_torch.ops.quant import QuantLinear
+
 _CONV_1D = (nn.Conv1d, nn.ConvTranspose1d)
 
 
 def _to_torch_layout(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
-    from indextts_tpu_torch.models.gpt import QuantLinear
-
     if isinstance(owner, QuantLinear) and name == "scale":
         return value.reshape(-1)
     if name != "weight":
@@ -56,8 +56,6 @@ def load_jax_params(module: nn.Module, tree: Any, path: str = "") -> None:
     """Copy a JAX parameter tree (numpy or jax arrays) into `module` in place.
     Raises on a missing name or a shape mismatch; leaves of the module that the
     tree does not name keep their values."""
-    from indextts_tpu_torch.models.gpt import QuantLinear  # models/gpt.py imports this module
-
     if isinstance(module, nn.ModuleList):
         if isinstance(tree, Mapping):  # layer-stacked leaves: unstack axis 0
             tree = [_index_tree(tree, i) for i in range(len(module))]

@@ -26,7 +26,7 @@ from indextts_tpu.models.gpt import unified_voice_forward as jax_forward
 from indextts_tpu.ops.pallas.qmatmul import int8_matmul as jax_int8_matmul
 import indextts_tpu_torch.models.gpt_decode as tdec
 import indextts_tpu_torch.ops.quant as tquant
-from indextts_tpu_torch.models.gpt import QuantLinear, UnifiedVoice, unified_voice_forward
+from indextts_tpu_torch.models.gpt import UnifiedVoice, unified_voice_forward
 from indextts_tpu_torch.ops.cuda.qmatmul import int8_matmul_plain
 from indextts_tpu_torch.weights import load_jax_params
 from tests.test_gpt import tiny_cfg
@@ -133,9 +133,9 @@ def test_quantize_unified_voice_bridge(setup):
     cfg, _, qparams, models, _ = setup
     bridged, own = models["int8"], models["int8_port"]
     for m in (bridged, own):
-        assert isinstance(m.mel_head, QuantLinear) and isinstance(m.text_head, torch.nn.Linear)
+        assert isinstance(m.mel_head, tquant.QuantLinear) and isinstance(m.text_head, torch.nn.Linear)
         for blk in m.gpt.blocks:
-            assert all(isinstance(getattr(blk, n), QuantLinear) for n in ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj"))
+            assert all(isinstance(getattr(blk, n), tquant.QuantLinear) for n in ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj"))
     sd_b, sd_o = bridged.state_dict(), own.state_dict()
     assert sd_b.keys() == sd_o.keys()
     for key in sd_b:
