@@ -5,11 +5,16 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1 and K5 kernels from indextts_tpu_torch/csrc/,
-               one nvcc per source, started together;
+  2. build   — nvcc builds the K1, K2 and K5 kernels from
+               indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
                times for both;
+     k2      — K2 (aa_snake_dconv) against its plain version at the three
+               wide stages of a ~100-code vocoder call, every (k, d), bf16
+               and float32, TF32 off: err against a stated bound, K2's
+               profiler and CUDA-event times, the plain version's, and the
+               default vocoder path's (K1, then cuDNN's conv);
   4. k5      — K5 (int8_matmul) against its plain version at the five GPT
                matmul shapes of the published width, M = 1, 4, 8, x bf16 and
                float32, TF32 off; CUDA-event and profiler device times for
@@ -19,7 +24,13 @@ Phases, in order; any failure exits non-zero:
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
                launch count must be 109 per vocoder call;
-  6. int8    — the same width with quant_kv=True: the max |logit| drift of
+  6. beam    — the same width with fast_latents and INDEXTTS_WIDE_BRANCH=1:
+               infer with the engine's default generation kwargs (num_beams
+               3, sampled), infer_fast on two sentences, and a greedy
+               num_beams=3 infer on the int8 KV cache; K2 must launch 54 and
+               K1 55 times per vocoder call; then one forced beam step at
+               B = 1 profiled (host vs device, the cache reorder alone);
+     int8    — the same width with quant_kv=True: the max |logit| drift of
                prefill + 16 forced decode steps with the int8 KV cache, and
                with int8 KV and int8 weights, against the bf16 cache (int8 KV
                under JAX's gate of 1.0); then, on weights quantized with
@@ -29,8 +40,11 @@ Phases, in order; any failure exits non-zero:
                call and K1 109 times per vocoder call;
   7. small   — the same engine at a tiny width in float32 on the card
                against the CPU on the same weights (greedy codes equal, wav
-               within tolerance), for infer and for infer_fast on int8
-               weights with the int8 KV cache;
+               within tolerance), for infer, for greedy num_beams=3 infer
+               with INDEXTTS_WIDE_BRANCH=1 (K2 on the card, its plain version
+               on the CPU), the card's captured latents against its
+               teacher-forced pass, and infer_fast on int8 weights with the
+               int8 KV cache;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
@@ -54,6 +68,11 @@ K1_REPLACES = "indextts_tpu/ops/pallas/antialias.py:84"
 K1_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake.cu"
 K5_REPLACES = "indextts_tpu/ops/pallas/qmatmul.py:42"
 K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
+K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
+K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
+# each AMPBlock1 (kernel k, dilations 1, 3, 5) makes per stage 4 half-branch
+# calls at (k, 1), one at (k, 3) and one at (k, 5)
+K2_CALLS = {(k, d): (4 if d == 1 else 1) for k in (3, 7, 11) for d in (1, 3, 5)}
 # the GPT matmuls at the published width, (label, K, N): per layer qkv, attn
 # proj, mlp fc, mlp proj; then the mel head
 K5_SHAPES = [("qkv", 1280, 3840), ("proj", 1280, 1280), ("fc", 1280, 5120), ("mlp_proj", 5120, 1280),
@@ -160,6 +179,62 @@ def kernel_phase(card: str) -> dict:
     return {"rows": rows}
 
 
+def k2_phase(card: str) -> dict:
+    """K2 at the wide stages of a ~100-code vocoder call (B = 1), every (k,
+    d) of the vocoder, bf16 and float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    rows, failures = [], []
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for label, c, t in STAGES[:3]:
+        for (k, d) in K2_CALLS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (0.5 * torch.randn(1, c, t, device="cuda", generator=g)).to(dtype)
+                alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
+                beta = 0.3 * torch.randn(c, device="cuda", generator=g)
+                w = (torch.randn(c, c, k, device="cuda", generator=g) / (c * k) ** 0.5).to(dtype)
+                bias = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+                pad = (k * d - d) // 2
+                kern = lambda: k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, True)
+                plain = lambda: k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, True)
+                # what the vocoder runs without the switch: K1, then cuDNN's conv in x's dtype
+                default = lambda: F.conv1d(k1.fused_anti_alias_snake(x, alpha, beta, True), w, bias, padding=pad,
+                                           dilation=d)
+                out = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = (out.float() - ref.float()).abs()
+                ratio = (err / k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True)).max().item()
+                iters = 5
+                ms, plain_ms, default_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters), cuda_time_ms(default, iters)
+                dev_ms = device_time_ms(kern, iters)
+                dev_plain_ms = device_time_ms(plain, iters)
+                dev_default_ms = device_time_ms(default, iters)
+                tflops = 2 * k * c * c * t / (dev_ms * 1e-3) / 1e12 if dev_ms else None
+                row = dict(case=label, C=c, T=t, k=k, d=d, dtype=str(dtype).replace("torch.", ""),
+                           max_abs_err=err.max().item(), err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
+                           default_ms=default_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms,
+                           device_default_ms=dev_default_ms, conv_TFLOPs=tflops, ok=bool(ratio <= 1.0))
+                rows.append(row)
+                log(f"[k2] {label} C={c:3d} T={t:5d} k={k:2d} d={d} {row['dtype']:8s} err={row['max_abs_err']:.3e} "
+                    f"(err/bound {ratio:.3f}) events: kernel {ms:.4f} plain {plain_ms:.4f} K1+conv {default_ms:.4f} ms"
+                    f" | device: kernel {fmt(dev_ms)} plain {fmt(dev_plain_ms)} K1+conv {fmt(dev_default_ms)} ms, "
+                    f"conv {fmt(tflops)} TFLOP/s  [{card}]")
+                if not row["ok"]:
+                    failures.append(row)
+                del x, w, out, ref, err
+    if failures:
+        raise AssertionError(f"K2 disagrees with its plain version: {failures}")
+    return {"rows": rows}
+
+
 def k5_bound(x, wq, scale, ref):
     """Both sides sum exact bf16 x int8 products in float32, so they differ
     only in the order of the sum: 1e-5 of (|bf16(x)| @ |wq|) * scale. A bf16
@@ -227,12 +302,13 @@ def k5_phase(card: str) -> dict:
     return {"rows": rows}
 
 
-def flagship_engine(quant_kv: bool = False):
+def flagship_engine(quant_kv: bool = False, fast_latents: bool = False):
     from indextts_tpu_torch.engine import IndexTTS
 
     # configs/ holds no bpe.model: the engine builds its random-init tokenizer
     return IndexTTS(cfg_path=FLAGSHIP, model_dir=os.path.join(REPO, "configs"), is_fp16=True, device="cuda",
-                    use_cuda_kernel=True, allow_random_init=True, seed=0, quant_kv=quant_kv)
+                    use_cuda_kernel=True, allow_random_init=True, seed=0, quant_kv=quant_kv,
+                    fast_latents=fast_latents)
 
 
 def engine_phase(card: str) -> dict:
@@ -484,6 +560,150 @@ def int8_phase(card: str) -> dict:
             "decode_steps": gen_steps, "vocoder_calls": vocoder_calls}
 
 
+def forced_beam_steps(engine, steps: int = 16, max_new: int = 200) -> dict:
+    """Prefill one sentence and run `steps` beam steps (num_beams = 3, the
+    default sampled settings) against a cache sized for max_new codes, as
+    generate_speech_beam runs them: the decode step, the successor choice,
+    the cache reorder. Host ms per step (second run, synchronized), device ms
+    and kernels per step (third run, torch.profiler), and the device time of
+    the cache reorder alone (index_select of every cache tensor)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+
+    cfg = engine.cfg.gpt
+    nb, dev = 3, engine.device
+    text = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.number_text_tokens - 1, (1, 16))).to(dev)
+    conds = engine._conds_for(engine.extract_features(PROMPT))
+    gen = tdec.GenerationConfig(do_sample=True, num_beams=nb, top_k=30, max_new_tokens=max_new)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def joint_fn(logits, seen, scores):
+        return tdec._beam_joint_scores(logits, seen, scores, gen, 1.0, 0.8, 10.0, 0.9)
+
+    def run(ctx):
+        with torch.no_grad():
+            emb, mask = tdec.prepare_gpt_inputs(engine.gpt, cfg, conds, text, torch.tensor([16], device=dev))
+            p = emb.shape[1]
+            logits, cache = tdec._prefill(engine.gpt, cfg, emb, mask, p + max_new)
+            cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
+            logits = logits.repeat_interleave(nb, dim=0)
+            pv = torch.nn.functional.pad(mask, (0, max_new)).repeat_interleave(nb, dim=0)
+            pos = torch.arange(p + max_new, device=dev)[None, :]
+            codes = torch.full((nb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
+            scores = torch.tensor([0.0] + [tdec.NEG_INF] * (nb - 1), device=dev)
+            seen = tdec._initial_seen(cfg, nb, dev)
+            best = tdec.BeamBest(torch.full((1,), tdec.NEG_INF, device=dev), codes[:1].clone(),
+                                 torch.zeros(1, dtype=torch.long, device=dev))
+            select = lambda cand: tdec._select_successors(cand, g, gen, nb)
+            codes, scores, seen, _, cur = tdec._beam_step(cfg, gen, 0, logits, codes, scores, seen, best, joint_fn,
+                                                          select, 1, nb, prefill_len=p)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ctx:
+                for i in range(steps):
+                    valid = pv | ((pos >= p) & (pos < p + i))
+                    logits = tdec._decode_step(engine.gpt, cfg, cur, i + 2, cache, p + i, valid)
+                    codes, scores, seen, src, cur = tdec._beam_step(cfg, gen, i + 1, logits, codes, scores, seen,
+                                                                    best, joint_fn, select, 1, nb, prefill_len=p)
+                    cache = tuple(c.index_select(1, src) for c in cache)
+                torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t) / steps, cache, src
+
+    run(contextlib.nullcontext())
+    host_ms, cache, src = run(contextlib.nullcontext())
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    run(prof)
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    kernels = sum(e.count for e in events) / steps
+    reorder_ms = device_time_ms(lambda: tuple(c.index_select(1, src) for c in cache), steps)
+    nbytes = sum(c.numel() * c.element_size() for c in cache)
+    return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms, "device_kernels_per_step": kernels,
+            "device_idle_share": 1.0 - device_ms / host_ms, "reorder_device_ms": reorder_ms,
+            "reorder_share_of_device": None if reorder_ms is None else reorder_ms / device_ms,
+            "cache_bytes": nbytes, "rows": nb, "cache_slots": int(cache[0].shape[3])}
+
+
+def beam_phase(card: str) -> dict:
+    """The slice's main path: beam search (the engine's default kwargs) with
+    fast_latents, and the vocoder with INDEXTTS_WIDE_BRANCH=1 (K2 at the wide
+    half-branches, K1 at the rest), at the published width."""
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+
+    os.environ["INDEXTTS_WIDE_BRANCH"] = "1"
+    try:
+        t0 = time.perf_counter()
+        engine = flagship_engine(fast_latents=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        h = engine.cfg.bigvgan
+        stages_wide = sum(1 for i in range(len(h.upsample_rates)) if h.upsample_initial_channel // 2 ** (i + 1) >= 128)
+        per_block = sum(2 * len(d) for d in h.resblock_dilation_sizes)
+        want_k2, want_k1 = stages_wide * per_block, (len(h.upsample_rates) - stages_wide) * per_block + 1
+        if (want_k2, want_k1) != (54, 55):
+            raise AssertionError(f"{FLAGSHIP}: {want_k2} K2 and {want_k1} K1 calls per vocoder call, want 54 and 55")
+        # a first, cold request of the path: reported, not part of the measured run
+        t = time.perf_counter()
+        engine.infer(audio_prompt=PROMPT, text="WARM UP.", max_mel_tokens=200)
+        cold_s = time.perf_counter() - t
+        log(f"[beam] flagship built in {init_s:.1f} s; cold first beam request {cold_s:.2f} s [{card}]")
+        requests = [
+            ("default_infer", "infer", False, dict(text="HELLO WORLD.", max_mel_tokens=200)),
+            ("default_infer_fast", "infer_fast", False, dict(text="HELLO WORLD. THIS IS A TEST.", max_mel_tokens=200,
+                                                              max_text_tokens_per_sentence=16)),
+            ("greedy_int8_kv", "infer", True, dict(text="HELLO WORLD.", do_sample=False, max_mel_tokens=200)),
+        ]
+        spc = engine._samples_per_code()
+        results, k1_total, k2_total = [], 0, 0
+        for name, method, quant_kv, kw in requests:
+            engine.quant_kv = quant_kv
+            k1.launches = k2.launches = 0  # this request of the main path starts here
+            sr, wav = getattr(engine, method)(audio_prompt=PROMPT, **kw)
+            launches = {"k1": k1.launches, "k2": k2.launches}
+            st = dict(engine.last_stats)
+            k1_total += launches["k1"]
+            k2_total += launches["k2"]
+            calls = st["vocoder_calls"]
+            if launches != {"k1": 55 * calls, "k2": 54 * calls}:
+                raise AssertionError(f"{name}: launches {launches} over {calls} vocoder calls, want 55 and 54 each")
+            if wav.shape[0] < spc or wav.shape[0] % spc or not np.isfinite(wav).all():
+                raise AssertionError(f"{name}: returned wav {wav.shape}")
+            if method == "infer_fast" and st["decode_batches"] != [2]:
+                raise AssertionError(f"{name}: decode batches {st['decode_batches']}, want one batch of 2")
+            row = dict(request=name, method=method, quant_kv=quant_kv, codes=wav.shape[0] // spc,
+                       audio_s=st["audio_s"], cond_ms=1e3 * st["cond_s"], decode_steps=st["gpt_steps"],
+                       decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1),
+                       latent_ms=1e3 * st["gpt_forward_s"], teacher_forced_rows=st["tf_latent_rows"],
+                       teacher_forced_skipped=st["tf_latent_rows"] == 0, vocoder_ms=1e3 * st["bigvgan_s"],
+                       vocoder_calls=calls, k1_launches=launches["k1"], k2_launches=launches["k2"],
+                       total_s=st["total_s"], rtf=st["rtf"])
+            results.append(row)
+            log(f"[beam] {name} ({method}, num_beams 3{', int8 KV' if quant_kv else ''}): {row['codes']} codes, "
+                f"{st['audio_s']:.2f} s audio | cond {row['cond_ms']:.1f} ms, decode {row['decode_ms_per_step']:.2f} "
+                f"ms/step over {st['gpt_steps']} steps, latent {row['latent_ms']:.1f} ms (teacher-forced rows "
+                f"{st['tf_latent_rows']}), vocoder {row['vocoder_ms']:.1f} ms in {calls} call(s), total "
+                f"{st['total_s']:.2f} s, RTF {st['rtf']:.4f}; K2 {launches['k2']}, K1 {launches['k1']} launches [{card}]")
+        engine.quant_kv = False
+        step = forced_beam_steps(engine)
+        log(f"[beam] forced beam step, B=1 x 3 beams, {step['cache_slots']} cache slots: host "
+            f"{step['host_ms_per_step']:.2f} ms/step, device {step['device_ms_per_step']:.3f} ms/step in "
+            f"{step['device_kernels_per_step']:.0f} kernels, device idle {100 * step['device_idle_share']:.1f} %, "
+            f"cache reorder {step['reorder_device_ms']} ms of device time ({step['cache_bytes'] / 1e6:.1f} MB) [{card}]")
+    finally:
+        del os.environ["INDEXTTS_WIDE_BRANCH"]
+    return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "forced_step": step,
+            "k1_launches": k1_total, "k2_launches": k2_total}
+
+
 def tiny_config():
     from indextts_tpu_torch.config import (BigVGANConfig, ConditionModuleConfig, GPTConfig,
                                            IndexTTSConfig)
@@ -546,6 +766,45 @@ def small_phase(card: str) -> dict:
     if not same or wav_gpu.shape != wav_cpu.shape or diff > 8:
         raise AssertionError("the card's engine disagrees with the CPU's at tiny width")
 
+    # greedy beams (num_beams = 3) with the wide-branch vocoder: stage 1 is
+    # C = 128, so the card runs K2 there (float32) and the CPU its plain version
+    from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
+
+    codes.clear()
+    os.environ["INDEXTTS_WIDE_BRANCH"] = "1"
+    try:
+        before = k2.launches
+        kw = dict(text="HELLO WORLD.", do_sample=False, num_beams=3, max_mel_tokens=24)
+        _, wavb_gpu = gpu.infer(audio_prompt=PROMPT, **kw)
+        k2_calls = k2.launches - before
+        _, wavb_cpu = cpu.infer(audio_prompt=PROMPT, **kw)
+    finally:
+        del os.environ["INDEXTTS_WIDE_BRANCH"]
+    same_b = all(np.array_equal(a, b) for a, b in zip(codes["gpu"], codes["cpu"]))
+    diff_b = int(np.abs(wavb_gpu.astype(np.int64) - wavb_cpu.astype(np.int64)).max()) if wavb_gpu.size else 0
+    log(f"[small] tiny f32 greedy num_beams=3, INDEXTTS_WIDE_BRANCH=1: codes equal {same_b} "
+        f"({codes['gpu'][0][0, :12].tolist()}...), {k2_calls} K2 launches on the card, wav {wavb_gpu.shape} "
+        f"max |gpu - cpu| = {diff_b} int16 units [{card}]")
+    if not same_b or wavb_gpu.shape != wavb_cpu.shape or diff_b > 1 or k2_calls != 4:
+        raise AssertionError("the card's beams / K2 vocoder disagree with the CPU's at tiny width")
+
+    # the card's captured latents (greedy beams, consistent positions) against its teacher-forced pass
+    gpu.fast_latents = True
+    try:
+        conds = gpu._conds_for(gpu.extract_features(PROMPT))
+        text = np.asarray([gpu.tokenizer.convert_tokens_to_ids(gpu.tokenizer.tokenize("HELLO WORLD."))])
+        gen, dyn, _ = gpu._parse_generation_kwargs(dict(do_sample=False, num_beams=3, max_mel_tokens=24))
+        cb, lb, lat, _ = gpu._gpt_generate(conds, text, np.asarray([text.shape[1]]), gen, **dyn)
+    finally:
+        gpu.fast_latents = False
+    n = int(np.nonzero(cb[0] == gpu.stop_mel_token)[0][0]) if (cb[0] == gpu.stop_mel_token).any() else cb.shape[1]
+    tf = gpu._gpt_latent(conds, text, cb[:, :n], np.asarray([n]))
+    lat_err = float((lat[0, :n].float() - tf[0, :n].float()).abs().max()) if n else 0.0
+    log(f"[small] tiny f32 captured latents (num_beams=3, {n} codes) vs teacher-forced: max |diff| {lat_err:.2e} "
+        f"[{card}]")
+    if n < 2 or not lat_err <= 1e-4:
+        raise AssertionError(f"captured latents differ from the teacher-forced pass by {lat_err} ({n} codes)")
+
     # int8 weights and the int8 KV cache; the card decodes the sentences as
     # one batch (K5 at M = 3), the CPU one at a time (K5's plain version)
     for e in (gpu, cpu):
@@ -566,6 +825,9 @@ def small_phase(card: str) -> dict:
     if not same8 or wav8_gpu.shape != wav8_cpu.shape or diff8 > 8 or max(batches) < 2:
         raise AssertionError("the card's int8 infer_fast disagrees with the CPU's at tiny width")
     return {"codes_equal": same, "wav_max_abs_diff_int16": diff, "samples": int(wav_gpu.shape[0]),
+            "beams_wide_branch": {"codes_equal": same_b, "wav_max_abs_diff_int16": diff_b, "k2_launches": k2_calls,
+                                  "samples": int(wavb_gpu.shape[0])},
+            "captured_latents": {"codes": n, "max_abs_diff_vs_teacher_forced": lat_err},
             "int8_fast": {"codes_equal": same8, "wav_max_abs_diff_int16": diff8, "card_batches": batches,
                           "samples": int(wav8_gpu.shape[0])}}
 
@@ -584,6 +846,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import build
     from indextts_tpu_torch.config import load_config
@@ -591,19 +854,22 @@ def main() -> int:
 
     # one nvcc per source, started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for future in [pool.submit(k._library) for k in (k1, k5)]:
+    kernels_built = (k1, k2, k5)
+    with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
+        for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
-    log(f"[build] {k1.SOURCE} and {k5.SOURCE} built and loaded in {time.perf_counter() - t:.2f} s "
-        f"(nvcc {build.build_seconds[k1.SOURCE]:.2f} s and {build.build_seconds[k5.SOURCE]:.2f} s, in parallel)")
-    for src in (k1.SOURCE, k5.SOURCE):
+    log(f"[build] {', '.join(k.SOURCE for k in kernels_built)} built and loaded in {time.perf_counter() - t:.2f} s "
+        f"(nvcc {', '.join(f'{build.build_seconds[k.SOURCE]:.2f}' for k in kernels_built)} s, in parallel)")
+    for src in (k.SOURCE for k in kernels_built):
         for line in build.build_log(src).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {src}:", line.strip())
 
     kern = kernel_phase(card)
+    kern2 = k2_phase(card)
     kern5 = k5_phase(card)
     eng = engine_phase(card)
+    beam = beam_phase(card)
     int8 = int8_phase(card)
     small = small_phase(card)
 
@@ -625,12 +891,32 @@ def main() -> int:
         pick = lambda r: r[key] if r[key] is not None else r[fallback]
         return layers * sum(pick(k5_rows[c]) for c in ("qkv", "proj", "fc", "mlp_proj")) + pick(k5_rows["head"])
 
+    k2_rows = {(r["case"], r["k"], r["d"]): r for r in kern2["rows"] if r["dtype"] == "bfloat16"}
+
+    def per_voc(key: str, fallback: str) -> float:
+        """K2 (or plain, or K1 + conv) time of one vocoder call at ~100
+        codes, bf16, B=1: the 54 wide half-branch calls. Device time from
+        the profiler where it saw the kernels, else CUDA-event time."""
+        pick = lambda r: r[key] if r[key] is not None else r[fallback]
+        return sum(n * pick(k2_rows[(s, k, d)]) for s, _, _ in STAGES[:3] for (k, d), n in K2_CALLS.items())
+
+    k2_per_stage = {s: {name: sum(n * (r[dk] if r[dk] is not None else r[ek])
+                                  for (k, d), n in K2_CALLS.items() for r in [k2_rows[(s, k, d)]])
+                        for name, dk, ek in (("kernel_ms", "device_ms", "ms"), ("plain_ms", "device_plain_ms", "plain_ms"),
+                                             ("k1_conv_ms", "device_default_ms", "default_ms"))}
+                    for s, _, _ in STAGES[:3]}
+    for s, v in k2_per_stage.items():
+        log(f"[k2] {s} per vocoder call (18 half-branches, bf16, B=1): K2 {v['kernel_ms']:.3f} ms, plain "
+            f"{v['plain_ms']:.3f} ms, K1 + cuDNN conv {v['k1_conv_ms']:.3f} ms [{card}]")
     report = {
         "device": card,
         "build_seconds": dict(build.build_seconds),
         "kernel": kern,
+        "k2": kern2,
+        "k2_per_stage": k2_per_stage,
         "k5": kern5,
         "engine": eng,
+        "beam": beam,
         "int8": int8,
         "small": small,
     }
@@ -641,6 +927,10 @@ def main() -> int:
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": eng["k1_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": per_call("device_ms", "ms"), "plain_ms": per_call("device_plain_ms", "plain_ms"),
+    }, {
+        "name": "aa_snake_dconv", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": beam["k2_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern2["rows"]),
+        "ms": per_voc("device_ms", "ms"), "plain_ms": per_voc("device_plain_ms", "plain_ms"),
     }, {
         "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),

@@ -1,9 +1,9 @@
 """Console CLI of the PyTorch engine: `indextts-tpu-torch "TEXT." -v prompt.wav -o out.wav`.
 
 The reference CLI's flags (indextts/cli.py:7-70) plus the JAX CLI's --fast
-(bucketed batch inference, IndexTTS.infer_fast) and --quant-kv (the int8 KV
-cache). Weights are random (seed 0) until checkpoint loading is ported; see
-ROADMAP.md.
+(bucketed batch inference, IndexTTS.infer_fast), --fast-latents and
+--quant-kv (the int8 KV cache). Weights are random (seed 0) until checkpoint
+loading is ported; see ROADMAP.md.
 """
 
 import argparse
@@ -12,11 +12,11 @@ import sys
 
 _DESCRIPTION = """IndexTTS on PyTorch (single request).
 
-Decoding runs with num_beams=1 (greedy or sampled): beam search, the
-reference engine's default, is not ported to the PyTorch engine yet, so the
-CLI asks for num_beams=1 explicitly instead of failing. Without a bpe.model in
---model_dir the random-init tokenizer knows only the 26 upper-case ASCII
-letters, "." and the word separator, so give upper-case ASCII text."""
+Decoding runs the engine's defaults, as the reference CLI does: beam search
+with num_beams=3, sampled, top-k 30, top-p 0.8, repetition penalty 10.
+Without a bpe.model in --model_dir the random-init tokenizer knows only the
+26 upper-case ASCII letters, "." and the word separator, so give upper-case
+ASCII text."""
 
 
 def main(argv=None):
@@ -32,6 +32,9 @@ def main(argv=None):
     parser.add_argument("-f", "--force", action="store_true", default=False, help="Overwrite the output file if it exists")
     parser.add_argument("-d", "--device", type=str, default="cuda", help="torch device (default cuda)")
     parser.add_argument("--fast", action="store_true", default=False, help="Use bucketed batch inference (infer_fast)")
+    parser.add_argument("--fast-latents", action="store_true", default=False,
+                        help="Capture vocoder latents during decode (skips the teacher-forced pass when silence "
+                             "removal changes nothing; consistent-positions mode)")
     parser.add_argument("--quant-kv", action="store_true", default=False,
                         help="Int8-quantized KV cache for the decode (near-parity outputs)")
     args = parser.parse_args(argv)
@@ -50,9 +53,9 @@ def main(argv=None):
     from indextts_tpu_torch.engine import IndexTTS
 
     tts = IndexTTS(cfg_path=args.config, model_dir=args.model_dir, is_fp16=args.fp16, device=args.device,
-                   allow_random_init=True, quant_kv=args.quant_kv)
+                   allow_random_init=True, quant_kv=args.quant_kv, fast_latents=args.fast_latents)
     infer = tts.infer_fast if args.fast else tts.infer
-    infer(audio_prompt=args.voice, text=args.text.strip(), output_path=args.output_path, num_beams=1)
+    infer(audio_prompt=args.voice, text=args.text.strip(), output_path=args.output_path)
 
 
 if __name__ == "__main__":

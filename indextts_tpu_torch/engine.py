@@ -9,7 +9,12 @@ pad_tokens_cat(). Underneath, PyTorch runs eagerly on `device` (default
 kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
 `quant_kv` selects the int8 KV cache, as in the JAX engine; int8 GPT weights
 (the K5 kernel in every decode matmul) come from
-ops/quant.quantize_unified_voice(engine.gpt), a library call as in JAX.
+ops/quant.quantize_unified_voice(engine.gpt), a library call as in JAX. The
+decode takes the reference's generation kwargs with their defaults: beam
+search with num_beams=3, sampled (models/gpt_decode.generate_speech_beam);
+`fast_latents` keeps the latents the decode computes and skips the
+teacher-forced pass where silence removal left the codes as they were.
+INDEXTTS_WIDE_BRANCH=1 sends the vocoder's wide half-branches through K2.
 
 The same shape buckets as the JAX engine are kept, because padding changes
 numbers: text is padded with stop_text_token to a multiple of 8, codes to a
@@ -17,7 +22,7 @@ multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
 relative lengths), vocoder latents to a multiple of 16 (32 in the batched
 vocoder of infer_fast).
 
-Not ported yet (see ROADMAP.md): loading checkpoints, beams, fast_latents,
+Not ported yet (see ROADMAP.md): loading checkpoints, segmented decoding,
 streaming, infer_batch, slots and the server.
 """
 
@@ -35,7 +40,7 @@ import torch
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
 from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
 from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
-from indextts_tpu_torch.models.gpt_decode import GenerationConfig, generate_speech
+from indextts_tpu_torch.models.gpt_decode import GenerationConfig, generate_speech, generate_speech_beam
 from indextts_tpu_torch.utils.audio import decode_audio, resample, write_wav
 from indextts_tpu_torch.utils.front import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
@@ -56,6 +61,7 @@ class IndexTTS:
         allow_random_init: bool = False,
         seed: int = 0,
         quant_kv: bool = False,
+        fast_latents: bool = False,
     ):
         """`is_fp16` selects bf16 compute off the CPU. `use_cuda_kernel` routes
         every vocoder activation to the fused kernel K1 (its plain version on
@@ -65,12 +71,19 @@ class IndexTTS:
         of the JAX engine can be copied in afterwards with
         weights.load_jax_params(self.gpt, ...) / (self.bigvgan, ...).
         `quant_kv`: decode with the int8 KV cache (per head-pair and position
-        scales); opt-in, since K/V rounding changes the sampled numbers."""
+        scales); opt-in, since K/V rounding changes the sampled numbers.
+        `fast_latents`: the JAX engine's consistent-positions mode. The
+        decode runs with the teacher-forced pass's mel positions and keeps
+        the final-norm hiddens it computes (for beams, the winner's), and
+        the teacher-forced latent pass is skipped whenever silence removal
+        left the codes as they were. Codes then differ slightly from the
+        reference's generate() (other positions); off by default."""
         self.device = torch.device(device)
         self.is_fp16 = bool(is_fp16) and self.device.type != "cpu"
         self.dtype = torch.bfloat16 if self.is_fp16 else torch.float32
         self.use_cuda_kernel = bool(use_cuda_kernel)
         self.quant_kv = bool(quant_kv)
+        self.fast_latents = bool(fast_latents)
         self.cfg: IndexTTSConfig = load_config(cfg_path) if os.path.exists(cfg_path) else IndexTTSConfig()
         self.model_dir = model_dir
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
@@ -236,20 +249,29 @@ class IndexTTS:
         return out
 
     def _gpt_generate(self, conds, text_tokens: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig,
-                      temperature, top_p, repetition_penalty) -> Tuple[np.ndarray, np.ndarray]:
-        """The decode over text padded to its bucket. Returns (codes, lengths)
-        in numpy; the call ran max(lengths) - 1 decode steps."""
+                      temperature, top_p, repetition_penalty, length_penalty=0.0, typical_mass=0.9):
+        """The decode over text padded to its bucket: beam search when
+        gen.num_beams > 1, else greedy / sampled. Returns (codes, lengths) in
+        numpy, the captured latents [B, max_new, D] on the device under
+        fast_latents (else None), and the number of decode steps run."""
         b, l0 = text_tokens.shape
         padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
         padded[:, :l0] = text_tokens
-        codes, lengths = generate_speech(
-            self.gpt, self.cfg.gpt, gen, conds.expand(b, -1, -1).to(self.dtype),
-            torch.from_numpy(padded).to(self.device),
-            torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device),
-            self._generator, temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
-            quant_kv=self.quant_kv,
-        )
-        return codes.cpu().numpy(), lengths.cpu().numpy()
+        capture = self.fast_latents
+        args = (self.gpt, self.cfg.gpt, gen, conds.expand(b, -1, -1).to(self.dtype),
+                torch.from_numpy(padded).to(self.device),
+                torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device), self._generator)
+        kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+                  typical_mass=typical_mass, quant_kv=self.quant_kv, capture_latents=capture,
+                  pos_off=1 if capture else 2)
+        stats = {}
+        if gen.num_beams > 1:
+            out = generate_speech_beam(*args, length_penalty=length_penalty, stats=stats, **kw)
+        else:
+            out = generate_speech(*args, **kw)
+        codes, lengths = out[0].cpu().numpy(), out[1].cpu().numpy()
+        steps = stats.get("steps", int(lengths.max()) - 1)
+        return codes, lengths, (out[2] if capture else None), steps
 
     @torch.no_grad()
     def _gpt_latent(self, conds, text_tokens: np.ndarray, codes: np.ndarray, code_lens: np.ndarray,
@@ -427,26 +449,20 @@ class IndexTTS:
         top_p = generation_kwargs.pop("top_p", 0.8)
         top_k = generation_kwargs.pop("top_k", 30)
         temperature = generation_kwargs.pop("temperature", 1.0)
-        generation_kwargs.pop("length_penalty", 0.0)  # beam-only
+        length_penalty = generation_kwargs.pop("length_penalty", 0.0)
         num_beams = generation_kwargs.pop("num_beams", 3)
         repetition_penalty = generation_kwargs.pop("repetition_penalty", 10.0)
         max_mel_tokens = self._clamp_mel_tokens(generation_kwargs.pop("max_mel_tokens", 600))
         typical_sampling = generation_kwargs.pop("typical_sampling", False)
-        generation_kwargs.pop("typical_mass", 0.9)  # typical-sampling only
+        typical_mass = generation_kwargs.pop("typical_mass", 0.9)
         if generation_kwargs:
             raise ValueError(f"unknown generation kwargs: {sorted(generation_kwargs)} "
                              "(did you misspell a sampling parameter?)")
-        if num_beams != 1:
-            raise NotImplementedError(
-                f"num_beams={num_beams}: beam search is not ported to the PyTorch engine yet "
-                "(ROADMAP.md, Queue 1: beams); pass num_beams=1"
-            )
-        if typical_sampling:
-            raise NotImplementedError("typical_sampling is not ported to the PyTorch engine yet (ROADMAP.md)")
-        gen = GenerationConfig(do_sample=bool(do_sample), top_k=int(top_k) if top_k else 0,
-                               max_new_tokens=int(max_mel_tokens))
+        gen = GenerationConfig(do_sample=bool(do_sample), num_beams=int(num_beams), top_k=int(top_k) if top_k else 0,
+                               typical_sampling=bool(typical_sampling), max_new_tokens=int(max_mel_tokens))
         dyn = {"temperature": float(temperature), "top_p": float(top_p),
-               "repetition_penalty": float(repetition_penalty)}
+               "repetition_penalty": float(repetition_penalty), "length_penalty": float(length_penalty),
+               "typical_mass": float(typical_mass)}
         return gen, dyn, int(max_mel_tokens)
 
     def infer(
@@ -486,7 +502,7 @@ class IndexTTS:
         cond_time = time.perf_counter() - m_start
         wavs = []
         gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
-        gpt_tokens = 0
+        gpt_tokens = gpt_steps = tf_rows = 0
         has_warned = False
         for sent in sentences:
             text_tokens = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int64)[None, :]
@@ -494,12 +510,11 @@ class IndexTTS:
                 print(text_tokens)
                 print(f"text_tokens shape: {text_tokens.shape}")
             m_start = time.perf_counter()
-            codes, code_lens = self._gpt_generate(
-                conds, text_tokens, np.asarray([text_tokens.shape[1]]), gen,
-                dyn["temperature"], dyn["top_p"], dyn["repetition_penalty"],
-            )
+            codes, code_lens, cap_lat, steps = self._gpt_generate(
+                conds, text_tokens, np.asarray([text_tokens.shape[1]]), gen, **dyn)
             gpt_gen_time += time.perf_counter() - m_start
             gpt_tokens += int(code_lens.max())
+            gpt_steps += steps
             if (not has_warned and not (codes[:, -1] == self.stop_mel_token).all()
                     and code_lens.max() >= gen.max_new_tokens):
                 warnings.warn(
@@ -510,11 +525,18 @@ class IndexTTS:
                     category=RuntimeWarning,
                 )
                 has_warned = True
-            codes, code_lens = self.remove_long_silence(codes[:, : int(code_lens.max())])
+            codes_orig = codes[:, : int(code_lens.max())]
+            codes, code_lens = self.remove_long_silence(codes_orig)
             if verbose:
                 print(f"fix codes shape: {codes.shape}, code_lens: {code_lens}")
             m_start = time.perf_counter()
-            latent = self._gpt_latent(conds, text_tokens, codes, code_lens)
+            # captured latents are indexed by the decode's code positions:
+            # valid only where silence removal did not compact the row
+            if cap_lat is not None and np.array_equal(codes, codes_orig[:, : codes.shape[1]]):
+                latent = cap_lat
+            else:
+                latent = self._gpt_latent(conds, text_tokens, codes, code_lens)
+                tf_rows += 1
             self._sync()
             gpt_forward_time += time.perf_counter() - m_start
 
@@ -532,7 +554,7 @@ class IndexTTS:
         total = end_time - start_time
         self.last_stats = {
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
-            "gpt_calls": len(sentences), "gpt_steps": gpt_tokens - len(sentences),
+            "gpt_calls": len(sentences), "gpt_steps": gpt_steps, "tf_latent_rows": tf_rows,
             "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(sentences),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
         }
@@ -587,24 +609,25 @@ class IndexTTS:
         gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
         bucket_max_size = sentences_bucket_max_size if self.device.type != "cpu" else 1
         all_sentences = self.bucket_sentences(sentences, bucket_max_size=bucket_max_size)
-        all_batch_codes, all_batch_lens, all_text_tokens = [], [], []
+        all_batch_codes, all_batch_lens, all_batch_lats, all_text_tokens = [], [], [], []
+        gpt_steps = 0
         for bucket in all_sentences:
             item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(item["sent"]), np.int64)[None, :]
                            for item in bucket]
             all_text_tokens.append(item_tokens)
             m_start = time.perf_counter()
-            codes, lens = self._gpt_generate(
-                conds, self.pad_tokens_cat(item_tokens), np.asarray([t.shape[1] for t in item_tokens]), gen,
-                dyn["temperature"], dyn["top_p"], dyn["repetition_penalty"],
-            )
+            codes, lens, cap_lat, steps = self._gpt_generate(
+                conds, self.pad_tokens_cat(item_tokens), np.asarray([t.shape[1] for t in item_tokens]), gen, **dyn)
             gpt_gen_time += time.perf_counter() - m_start
+            gpt_steps += steps
             all_batch_codes.append(codes)
             all_batch_lens.append(lens)
+            all_batch_lats.append(cap_lat)
 
-        all_idxs, rows = [], []
+        all_idxs, all_latents, rows, pending = [], [], [], []
         has_warned = False
-        for batch_codes, batch_lens, batch_tokens, bucket in zip(all_batch_codes, all_batch_lens, all_text_tokens,
-                                                                 all_sentences):
+        for batch_codes, batch_lens, batch_lat, batch_tokens, bucket in zip(
+                all_batch_codes, all_batch_lens, all_batch_lats, all_text_tokens, all_sentences):
             for i in range(batch_codes.shape[0]):
                 code_row = batch_codes[i : i + 1]
                 if (not has_warned and batch_lens[i] >= gen.max_new_tokens
@@ -614,12 +637,18 @@ class IndexTTS:
                     has_warned = True
                 codes, code_lens = self.remove_long_silence(code_row)
                 all_idxs.append(bucket[i]["idx"])
-                rows.append((conds, batch_tokens[i], codes, code_lens))
+                if batch_lat is not None and np.array_equal(codes, code_row[:, : codes.shape[1]]):
+                    all_latents.append((batch_lat[i : i + 1, : codes.shape[1]], int(code_lens[0])))
+                else:  # teacher-forced latents, batched across buckets below
+                    pending.append(len(all_latents))
+                    all_latents.append(None)
+                    rows.append((conds, batch_tokens[i], codes, code_lens))
         m_start = time.perf_counter()
-        lats = self._gpt_latent_many(rows)
+        if rows:
+            for pos, lat, row in zip(pending, self._gpt_latent_many(rows), rows):
+                all_latents[pos] = (lat, int(row[3][0]))
         self._sync()
         gpt_forward_time += time.perf_counter() - m_start
-        all_latents = [(lat, int(row[3][0])) for lat, row in zip(lats, rows)]
 
         # restore the original order (argsort: a long text splits into many sentences)
         all_latents = [all_latents[j] for j in np.argsort(all_idxs)]
@@ -635,11 +664,10 @@ class IndexTTS:
         wav = np.concatenate(wavs, axis=1)
         wav_length = wav.shape[-1] / sampling_rate
         total = end_time - start_time
-        # a generate call of max(lengths) tokens ran max(lengths) - 1 decode steps
         gpt_tokens = sum(int(lens.max()) for lens in all_batch_lens)
         self.last_stats = {
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
-            "gpt_calls": len(all_sentences), "gpt_steps": gpt_tokens - len(all_sentences),
+            "gpt_calls": len(all_sentences), "gpt_steps": gpt_steps, "tf_latent_rows": len(rows),
             "decode_batches": [len(b) for b in all_sentences],
             "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(self._vocode_batches(chunk_args)),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),

@@ -10,14 +10,19 @@ The trunk runs in torch's [B, C, T] layout; bigvgan_apply keeps the JAX
 layout at its boundary (latents [B, T, D] in, waveform [B, T_wav, 1] out).
 Every anti-aliased activation goes to the fused kernel K1
 (ops/cuda/antialias.py) when `use_cuda_kernel` is set — on a CPU tensor that
-is K1's plain version — and to the composed path otherwise. The JAX
-package's phase folding and its INDEXTTS_WIDE_* / INDEXTTS_FUSED_AA knobs
-are TPU layouts and are not ported.
+is K1's plain version — and to the composed path otherwise. With
+INDEXTTS_WIDE_BRANCH=1 (read once per bigvgan_apply call, as the JAX
+package's _amp_block1 reads it) and `use_cuda_kernel`, each AMPBlock1
+half-branch of a stage with C >= 128 (activation, then its conv) is one call
+of the fused kernel K2 (ops/cuda/aa_conv_branch.py). The JAX package's phase
+folding and its INDEXTTS_WIDE_TMAJOR/POLY/PHASE, INDEXTTS_FOLD_* and
+INDEXTTS_FUSED_AA knobs are not ported yet or are TPU layouts (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -27,6 +32,7 @@ import torch.nn.functional as F
 from indextts_tpu_torch.config import BigVGANConfig
 from indextts_tpu_torch.models.ecapa import ECAPA
 from indextts_tpu_torch.ops.antialias import activation1d
+from indextts_tpu_torch.ops.cuda.aa_conv_branch import fused_aa_snake_dconv
 from indextts_tpu_torch.ops.cuda.antialias import fused_anti_alias_snake
 from indextts_tpu_torch.weights import fan_in, normal_, uniform_
 
@@ -58,9 +64,15 @@ class AMPBlock1(nn.Module):
         )
         self.acts = nn.ModuleList(SnakeParams(channels, h.activation == "snakebeta") for _ in range(2 * len(dilations)))
 
-    def forward(self, x: torch.Tensor, act) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act, branch=None) -> torch.Tensor:
         """[act -> dilated conv -> act -> conv] per dilation, with residuals
-        (models.py:65-74)."""
+        (models.py:65-74). `branch(snake_params, conv, x)`, when given, runs
+        each (act, conv) half-branch as one call at C >= 128 (the JAX
+        package's INDEXTTS_WIDE_BRANCH gate)."""
+        if branch is not None and x.shape[1] >= 128:
+            for c1, c2, a1, a2 in zip(self.convs1, self.convs2, self.acts[::2], self.acts[1::2]):
+                x = branch(a2, c2, branch(a1, c1, x)) + x
+            return x
         for c1, c2, a1, a2 in zip(self.convs1, self.convs2, self.acts[::2], self.acts[1::2]):
             x = c2(act(a2, c1(act(a1, x)))) + x
         return x
@@ -75,7 +87,7 @@ class AMPBlock2(nn.Module):
         )
         self.acts = nn.ModuleList(SnakeParams(channels, h.activation == "snakebeta") for _ in dilations)
 
-    def forward(self, x: torch.Tensor, act) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act, branch=None) -> torch.Tensor:
         for c, a in zip(self.convs, self.acts):
             x = c(act(a, x)) + x
         return x
@@ -137,7 +149,9 @@ def bigvgan_apply(
 
     x: GPT latents [B, T, gpt_dim]; mel_ref: prompt mel [B, frames, num_mels];
     lens: ECAPA relative lengths [B]. Returns the waveform [B, T_wav, 1].
-    `speaker_embedding` [B, 1, spk_dim] may be given precomputed."""
+    `speaker_embedding` [B, 1, spk_dim] may be given precomputed. With
+    `use_cuda_kernel` and INDEXTTS_WIDE_BRANCH=1 the AMPBlock1 half-branches
+    of the C >= 128 stages go through K2, the other activations through K1."""
     if speaker_embedding is None:
         speaker_embedding = model.speaker_encoder(mel_ref, lens)
     # cast to the trunk dtype, or a bf16 trunk silently turns float32
@@ -148,6 +162,10 @@ def bigvgan_apply(
             return fused_anti_alias_snake(y, p.alpha, p.beta, h.snake_logscale)
         return activation1d(y, p.alpha, p.beta, h.snake_logscale)
 
+    def branch(p: SnakeParams, conv: nn.Conv1d, y: torch.Tensor) -> torch.Tensor:
+        return fused_aa_snake_dconv(y, p.alpha, p.beta, conv.weight, conv.bias, conv.dilation[0], h.snake_logscale)
+
+    wide_branch = use_cuda_kernel and os.environ.get("INDEXTTS_WIDE_BRANCH", "") == "1"
     y = x.transpose(1, 2)  # [B, D, T]
     if h.feat_upsample:
         y = linear_interp_x4(y)
@@ -158,6 +176,6 @@ def bigvgan_apply(
         if h.cond_d_vector_in_each_upsampling_layer:
             y = y + model.conds[i](spk)
         blocks = model.resblocks[i * n_kernels : (i + 1) * n_kernels]
-        y = sum(rb(y, act) for rb in blocks) / n_kernels
+        y = sum(rb(y, act, branch if wide_branch else None) for rb in blocks) / n_kernels
     y = model.conv_post(act(model.activation_post, y))
     return torch.tanh(y).transpose(1, 2)

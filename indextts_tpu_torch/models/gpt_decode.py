@@ -1,6 +1,7 @@
 """Autoregressive decode for UnifiedVoice: prefill plus a KV-cached loop
-(port of indextts_tpu/models/gpt_decode.py, greedy and sampled, num_beams == 1,
-with the bf16 / float32 or the int8 KV cache).
+(port of indextts_tpu/models/gpt_decode.py: greedy, sampled and beam search,
+typical sampling, latent capture, with the bf16 / float32 or the int8 KV
+cache).
 
   * prepare_gpt_inputs builds the left-padded [pad][cond][text][start]
     embedding layout and key mask of model.py:591-654.
@@ -18,42 +19,66 @@ with the bf16 / float32 or the int8 KV cache).
     quantized into the cache afterwards, as in JAX _decode_block_q.
   * The mel positional off-by-one of the reference inference model
     (model.py:151-155: generated token t takes mel position t+1) is kept:
-    pos_off=2.
+    pos_off=2. With capture_latents the loop also keeps the final-norm
+    hidden that predicted each code (the vocoder's latent); pos_off=1, the
+    teacher-forced pass's positions, makes them equal to that pass.
+  * generate_speech_beam is HF beam_search / beam_sample with JAX's
+    admissible early stop. The beams' cache is the plain GPU form: [L, B*nb,
+    H, S, Dh], its rows reordered with index_select after every step (the
+    JAX package resolves beam lineage inside attention instead, to avoid a
+    TPU relayout). The beam helpers (_beam_joint_scores, _select_successors,
+    _beam_stop_bound_base, _beam_step, _beam_finalize) are one set, shared
+    by generate_speech_beam and the tests.
 
-Not ported yet (see ROADMAP.md): beams, segmented decoding, latent capture
-(fast_latents) and forced input_tokens prefixes. The JAX monolithic driver
-is the contract: its segmented driver is pinned bit-exact to it.
+Not ported yet (see ROADMAP.md): segmented decoding and forced input_tokens
+prefixes. The JAX package's monolithic decode loops are the contract: its
+segmented ones are pinned bit-exact to them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, gpt2_apply
 from indextts_tpu_torch.ops.norms import layer_norm
-from indextts_tpu_torch.ops.sampling import greedy_token, process_logits, sample_token
+from indextts_tpu_torch.ops.sampling import (
+    apply_repetition_penalty,
+    apply_typical,
+    apply_warpers,
+    greedy_token,
+    process_logits,
+    sample_token,
+)
+
+NEG_INF = torch.finfo(torch.float32).min  # a dead beam's score, as in JAX
 
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Decode settings that change the loop's structure."""
+    """Decode settings that change the loop's structure. early_stopping is
+    JAX's admissible rule: a beam search stops once no live beam's best
+    reachable score can beat the best finished hypothesis."""
 
     do_sample: bool = True
+    num_beams: int = 1
     top_k: int = 30
+    typical_sampling: bool = False
     max_new_tokens: int = 600
+    early_stopping: bool = True
 
 
 @dataclass
 class DecodeState:
     """The loop state: step i, codes [B, max_new] (stop-filled), the cache
     (k, v) [L, B, H, S, Dh] or, int8, (k8, ks, v8, vs), done [B], seen [B, V]
-    for the repetition penalty, and the last token cur [B]. Updated in place
-    by decode_steps."""
+    for the repetition penalty, the last token cur [B] and, under latent
+    capture, lat [B, max_new, D] (lat[:, j] is the final-norm hidden that
+    predicted code j). Updated in place by decode_steps."""
 
     i: int
     codes: torch.Tensor
@@ -61,6 +86,7 @@ class DecodeState:
     done: torch.Tensor
     seen: torch.Tensor
     cur: torch.Tensor
+    lat: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -75,10 +101,12 @@ class DecodeContext:
     temperature: float
     top_p: float
     repetition_penalty: float
+    typical_mass: float = 0.9
 
     def sample(self, logits: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
         lf = process_logits(
             logits, seen_mask=seen, repetition_penalty=self.repetition_penalty,
+            typical_sampling=self.gen.typical_sampling, typical_mass=self.typical_mass,
             temperature=self.temperature, top_k=self.gen.top_k if self.gen.do_sample else 0,
             top_p=self.top_p, do_sample=self.gen.do_sample,
         )
@@ -123,19 +151,24 @@ def prepare_gpt_inputs(
     return emb, mask
 
 
-def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor) -> torch.Tensor:
-    """lm_head = final_norm -> mel_head (reference: model.py:48)."""
+def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor, return_normed: bool = False):
+    """lm_head = final_norm -> mel_head (reference: model.py:48). The
+    final-norm hidden is the latent the vocoder takes; return_normed returns
+    it beside the logits."""
     h = layer_norm(hidden, model.final_norm.weight, model.final_norm.bias)
+    if return_normed:
+        return model.mel_head(h), h
     return model.mel_head(h)
 
 
 def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch.Tensor, cache_len: int,
-             quant_kv: bool = False):
+             quant_kv: bool = False, return_hidden: bool = False):
     """Run the stack over the prompt; returns last-position logits [B, V] and
     the cache, zero past the prompt: (k, v), each [L, B, H, cache_len, Dh],
     or with quant_kv (k8, ks, v8, vs), quantized after the full-precision
     prefill attention; the pad columns' scales are zero (the attention bias
-    masks those columns)."""
+    masks those columns). return_hidden adds the last position's final-norm
+    hidden [B, D], the latent that predicts the first code."""
     hidden, (k, v) = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask, return_kv=True)
     pad = cache_len - k.shape[3]
     if quant_kv:
@@ -144,6 +177,9 @@ def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch
         cache = tuple(torch.nn.functional.pad(t, pad8 if t.dim() == 5 else pads) for t in (k8, ks, v8, vs))
     else:
         cache = tuple(torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    if return_hidden:
+        logits, h = _mel_logits(model, hidden[:, -1], return_normed=True)
+        return logits, cache, h
     return _mel_logits(model, hidden[:, -1]), cache
 
 
@@ -186,11 +222,12 @@ def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: tor
 
 
 def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: int, cache, pos: int,
-                 valid: torch.Tensor) -> torch.Tensor:
+                 valid: torch.Tensor, return_hidden: bool = False):
     """One step: token [B] at mel position `mel_pos`, its K/V written into
     cache slot `pos` (in place). valid: [B, S] bool, the cache slots already
     written that the token attends, `pos` excluded (JAX's base_mask). The
-    cache is (k, v) or int8 (k8, ks, v8, vs). Returns logits [B, V]."""
+    cache is (k, v) or int8 (k8, ks, v8, vs). Returns logits [B, V], and
+    with return_hidden also the final-norm hidden [B, D]."""
     x = model.mel_embedding[token] + model.mel_pos_embedding[mel_pos]
     bias = torch.where(valid, torch.zeros((), device=x.device), NEG)[:, None, :]  # [B, 1, S]
     for layer, block in enumerate(model.gpt.blocks):
@@ -200,7 +237,7 @@ def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_p
         else:
             x = block.step(x, *caches, pos, bias, cfg.heads)
     x = layer_norm(x, model.gpt.ln_f.weight, model.gpt.ln_f.bias)
-    return _mel_logits(model, x)
+    return _mel_logits(model, x, return_normed=return_hidden)
 
 
 def prefill_decode_state(
@@ -215,48 +252,68 @@ def prefill_decode_state(
     top_p: float = 0.8,
     repetition_penalty: float = 10.0,
     quant_kv: bool = False,
+    typical_mass: float = 0.9,
+    capture_latents: bool = False,
 ) -> Tuple[DecodeState, DecodeContext]:
     """Prefill + first token. Returns the loop state and its context; the
-    cache is int8 with quant_kv."""
+    cache is int8 with quant_kv. capture_latents gives the state a latent
+    buffer whose slot 0 is the prefill's last final-norm hidden."""
     b = text_tokens.shape[0]
     dev = text_tokens.device
     emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
     p = emb.shape[1]
     max_new = gen.max_new_tokens
     s_max = p + max_new
-    logits0, cache = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv)
-    # HF penalizes over the whole input_ids row: the fake inputs are 1s with
-    # a trailing start_mel (model.py:645-653), so ids {1, start_mel} start seen
-    seen = torch.zeros(b, cfg.number_mel_codes, dtype=torch.bool, device=dev)
-    seen[:, 1] = True
-    seen[:, cfg.start_mel_token] = True
+    logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
+                                   return_hidden=capture_latents)
+    seen = _initial_seen(cfg, b, dev)
     ctx = DecodeContext(
         p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
         generator=generator, temperature=float(temperature), top_p=float(top_p),
-        repetition_penalty=float(repetition_penalty),
+        repetition_penalty=float(repetition_penalty), typical_mass=float(typical_mass),
     )
     tok1 = ctx.sample(logits0, seen)
     codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
     codes[:, 0] = tok1
     seen[torch.arange(b, device=dev), tok1] = True
-    state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1)
+    lat = None
+    if capture_latents:
+        lat = emb.new_zeros((b, max_new, emb.shape[-1]))
+        lat[:, 0] = h0[0]
+    state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1,
+                        lat=lat)
     return state, ctx
+
+
+def _initial_seen(cfg: GPTConfig, rows: int, dev) -> torch.Tensor:
+    """The repetition penalty's seen set [rows, V]. HF penalizes over the
+    whole input_ids row: the fake inputs are 1s with a trailing start_mel
+    (model.py:645-653), so ids {1, start_mel} start seen."""
+    seen = torch.zeros(rows, cfg.number_mel_codes, dtype=torch.bool, device=dev)
+    seen[:, 1] = True
+    seen[:, cfg.start_mel_token] = True
+    return seen
 
 
 def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext, n_steps: int,
                  pos_off: int = 2) -> DecodeState:
     """Run up to `n_steps` decode iterations, stopping early when every row
     has emitted stop_mel_token or the code buffer is full. Token g_{i+1} is
-    decoded at cache slot p+i and mel position i+pos_off."""
+    decoded at cache slot p+i and mel position i+pos_off; under capture its
+    final-norm hidden goes to lat[:, i+1]."""
     max_new = state.codes.shape[1]
     positions = torch.arange(ctx.prefill_valid.shape[1], device=state.codes.device)[None, :]
     stop = state.i + n_steps
     rows = torch.arange(state.codes.shape[0], device=state.codes.device)
+    capture = state.lat is not None
     while state.i < max_new - 1 and state.i < stop and not bool(state.done.all()):
         i = state.i
         write_pos = ctx.p + i
         valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions < write_pos))
-        logits = _decode_step(model, cfg, state.cur, i + pos_off, state.cache, write_pos, valid)
+        logits = _decode_step(model, cfg, state.cur, i + pos_off, state.cache, write_pos, valid,
+                              return_hidden=capture)
+        if capture:
+            logits, state.lat[:, i + 1] = logits
         nxt = ctx.sample(logits, state.seen)
         nxt = torch.where(state.done, torch.full_like(nxt, cfg.stop_mel_token), nxt)
         state.codes[:, i + 1] = nxt
@@ -281,19 +338,265 @@ def generate_speech(
     repetition_penalty: float = 10.0,
     pos_off: int = 2,
     quant_kv: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    typical_mass: float = 0.9,
+    capture_latents: bool = False,
+):
     """Greedy / sampled generation (num_beams == 1). Returns (codes [B,
     max_new_tokens] right-padded with stop_mel_token, lengths [B] counting
     tokens up to and including the stop token), as HF generate() with
     eos = pad = stop_mel_token (model.py:698-703). The loop runs
-    max(lengths) - 1 decode steps. quant_kv: the int8 KV cache."""
+    max(lengths) - 1 decode steps. quant_kv: the int8 KV cache.
+    capture_latents adds lat [B, max_new, D]: lat[:, j] is the final-norm
+    hidden that predicted code j. They equal the teacher-forced latents of
+    the same codes only with pos_off=1 (the consistent-positions mode)."""
     state, ctx = prefill_decode_state(
         model, cfg, gen, conds, text_tokens, text_lengths, generator,
         temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
+        typical_mass=typical_mass, capture_latents=capture_latents,
     )
     max_new = gen.max_new_tokens
     state = decode_steps(model, cfg, state, ctx, max_new - 1, pos_off=pos_off)
     is_stop = state.codes == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
     lengths = torch.where(is_stop.any(dim=1), first_stop + 1, torch.full_like(first_stop, max_new))
+    if capture_latents:
+        return state.codes, lengths, state.lat
     return state.codes, lengths
+
+
+# ---------------------------------------------------------------------------
+# beam search (num_beams > 1): HF beam_search / beam_sample semantics
+# ---------------------------------------------------------------------------
+
+
+def _beam_joint_scores(logits: torch.Tensor, seen: torch.Tensor, beam_scores: torch.Tensor, gen: GenerationConfig,
+                       temperature: float, top_p: float, repetition_penalty: float,
+                       typical_mass: float) -> torch.Tensor:
+    """Joint successor scores [bb, V] float32 with HF beam semantics: the
+    processors (repetition penalty, typical) run on the log-softmaxed
+    per-beam scores, the beam scores are added, and the warpers
+    (temperature, top-k / top-p keeping at least two tokens) run on the joint
+    scores when sampling. On log-probs (always <= 0) the repetition penalty
+    always multiplies. logits, seen: [bb, V]; beam_scores: [bb]."""
+    lf = torch.log_softmax(logits.float(), dim=-1)
+    lf = apply_repetition_penalty(lf, seen, repetition_penalty)
+    if gen.typical_sampling:
+        lf = apply_typical(lf, typical_mass, min_tokens_to_keep=2)
+    joint = lf + beam_scores[:, None]
+    if gen.do_sample:
+        joint = apply_warpers(joint, temperature, gen.top_k, top_p, min_tokens_to_keep=2)
+    return joint
+
+
+def beam_uniforms(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """The uniforms of one sampled successor draw (the tests replace this
+    function with a recorded stream)."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lax.top_k along the last axis: the k largest, ties to the lower index."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _select_successors(logp_joint: torch.Tensor, generator: torch.Generator, gen: GenerationConfig,
+                       nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[b, nb*V] joint scores -> (vals, idx) of the 2*nb successors of each
+    row, in descending true score. Sampling draws them by Gumbel top-k (HF
+    beam_sample's multinomial without replacement over softmax(joint)) and
+    sorts the draw by true score; greedy is plain top-k."""
+    k = 2 * nb
+    if gen.do_sample:
+        u = beam_uniforms(logp_joint.shape, generator, logp_joint.device)
+        g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
+        _, idx = _top_k_stable(logp_joint + g, k)
+        vals = torch.gather(logp_joint, 1, idx)
+        order = torch.argsort(-vals, dim=1, stable=True)
+        return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+    return _top_k_stable(logp_joint, k)
+
+
+def _beam_stop_bound_base(length_penalty: float, prefill_len: int, max_new: int, i: int) -> float:
+    """The admissible hypothesis-length base of the early-stop bound: scores
+    divide by (prefill + length) ** length_penalty, so the best reachable
+    finish is at max_new when length_penalty > 0 and at the next step
+    otherwise (HF's BeamHypotheses.is_done switches the same way)."""
+    return float(prefill_len + max_new) if length_penalty > 0 else float(prefill_len + i + 1)
+
+
+@dataclass
+class BeamBest:
+    """The best finished hypothesis of each batch row: score [b], codes [b,
+    max_new], length [b], and under latent capture its latents [b, max_new,
+    D]."""
+
+    score: torch.Tensor
+    codes: torch.Tensor
+    length: torch.Tensor
+    lat: Optional[torch.Tensor] = None
+
+
+def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Tensor, codes: torch.Tensor,
+               beam_scores: torch.Tensor, seen: torch.Tensor, best: BeamBest, joint_fn, select, b: int, nb: int,
+               length_penalty: float = 0.0, prefill_len: int = 0, lat: Optional[torch.Tensor] = None):
+    """One successor selection, shared by generate_speech_beam and the tests.
+    joint_fn(logits, seen, beam_scores) -> [bb, V] (_beam_joint_scores);
+    select(cand [b, nb*V]) -> (vals, idx) (_select_successors). The code
+    chosen here goes to codes[:, si]. An eos candidate among the top nb
+    ranks finishes a hypothesis scored vals / (prefill_len + si) **
+    length_penalty (HF's base: the eos is not yet appended); lower-ranked eos
+    candidates are dropped (HF's rank filter). lat [bb, max_new, D], the
+    beams' latents in the same row order as codes, is snapshotted with a
+    finished hypothesis. Updates `best` in place; returns (codes, beam
+    scores [bb], seen, flat_src [bb], next tokens [bb])."""
+    v = cfg.number_mel_codes
+    dev = logits.device
+    cand = joint_fn(logits, seen, beam_scores).reshape(b, nb * v)
+    vals, idx = select(cand)
+    src_beam = torch.div(idx, v, rounding_mode="floor")
+    tok = idx % v
+    is_eos = tok == cfg.stop_mel_token
+    base = float(prefill_len + si)
+    lp = base ** float(length_penalty) if base > 0 else 1.0
+    ranks = torch.arange(2 * nb, device=dev)[None, :]
+    finished = torch.where(is_eos & (ranks < nb), vals / lp, torch.full_like(vals, NEG_INF))
+    fbest, fargmax = finished.max(dim=1)
+    improve = fbest > best.score
+    fin_beam = torch.gather(src_beam, 1, fargmax[:, None])[:, 0]
+    fin_tok = torch.gather(tok, 1, fargmax[:, None])[:, 0]
+    flat_fin = torch.arange(b, device=dev) * nb + fin_beam
+    fin_codes = codes[flat_fin]
+    fin_codes[:, si] = fin_tok
+    best.codes = torch.where(improve[:, None], fin_codes, best.codes)
+    best.length = torch.where(improve, torch.full_like(best.length, si + 1), best.length)
+    best.score = torch.where(improve, fbest, best.score)
+    if lat is not None:
+        best.lat = torch.where(improve[:, None, None], lat[flat_fin], best.lat)
+    cont = torch.where(is_eos, torch.full_like(vals, NEG_INF), vals)
+    cont_vals, cont_pick = _top_k_stable(cont, nb)
+    new_beam = torch.gather(src_beam, 1, cont_pick)
+    new_tok = torch.gather(tok, 1, cont_pick).reshape(-1)
+    flat_src = (torch.arange(b, device=dev)[:, None] * nb + new_beam).reshape(-1)
+    codes = codes[flat_src]
+    codes[:, si] = new_tok
+    seen = seen[flat_src]
+    seen[torch.arange(b * nb, device=dev), new_tok] = True
+    return codes, cont_vals.reshape(-1), seen, flat_src, new_tok
+
+
+def _beam_finalize(codes: torch.Tensor, beam_scores: torch.Tensor, best: BeamBest, b: int, nb: int, max_new: int,
+                   length_penalty: float, prefill_len: int, lat: Optional[torch.Tensor] = None):
+    """HF finalize: the live beams join the finished hypotheses, normalized
+    by the full final length, and the best of all wins. Returns (codes [b,
+    max_new], lengths [b]) and, with lat [bb, max_new, D], the winner's
+    latents [b, max_new, D]."""
+    live = beam_scores.reshape(b, nb) / float(prefill_len + max_new) ** float(length_penalty)
+    live_val, live_idx = live.max(dim=1)
+    live_flat = torch.arange(b, device=codes.device) * nb + live_idx
+    pick_live = live_val > best.score
+    final_codes = torch.where(pick_live[:, None], codes[live_flat], best.codes)
+    final_len = torch.where(pick_live, torch.full_like(best.length, max_new), best.length)
+    if lat is None:
+        return final_codes, final_len
+    return final_codes, final_len, torch.where(pick_live[:, None, None], lat[live_flat], best.lat)
+
+
+@torch.no_grad()
+def generate_speech_beam(
+    model: UnifiedVoice,
+    cfg: GPTConfig,
+    gen: GenerationConfig,
+    conds: torch.Tensor,
+    text_tokens: torch.Tensor,
+    text_lengths: torch.Tensor,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_p: float = 0.8,
+    repetition_penalty: float = 10.0,
+    length_penalty: float = 0.0,
+    typical_mass: float = 0.9,
+    quant_kv: bool = False,
+    capture_latents: bool = False,
+    pos_off: int = 2,
+    stats: Optional[dict] = None,
+):
+    """Beam search (gen.num_beams = nb > 1): HF beam_search, or beam_sample
+    with gen.do_sample, with JAX's admissible early stop (checked once a
+    step on the host). The prefill runs once per batch row and its cache is
+    repeated to [L, B*nb, H, S, Dh] (row b*nb + m is beam m of row b); after
+    every step the cache rows, both kinds ((k, v) or int8 (k8, ks, v8, vs)),
+    follow their beams by index_select. Iteration i consumes the code at
+    codes[:, i], writes cache slot p+i at mel position i+pos_off and chooses
+    codes[:, i+1].
+
+    Returns (codes [B, max_new], lengths [B]) of the best hypothesis, and
+    with capture_latents its latents [B, max_new, D] (slot j predicted code
+    j; pos_off=1 for the teacher-forced pass's positions): the latent buffer
+    is reordered with the beams, and a finished hypothesis keeps a copy.
+    `stats`, a dict, receives "steps", the decode steps the loop ran."""
+    nb = gen.num_beams
+    b = text_tokens.shape[0]
+    bb = b * nb
+    dev = text_tokens.device
+    max_new = gen.max_new_tokens
+    emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
+    p = emb.shape[1]
+    s_max = p + max_new
+    logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
+                                   return_hidden=capture_latents)
+    cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
+    logits0 = logits0.repeat_interleave(nb, dim=0)
+    prefill_valid = torch.nn.functional.pad(prefill_mask, (0, max_new)).repeat_interleave(nb, dim=0)
+    positions = torch.arange(s_max, device=dev)[None, :]
+    seen = _initial_seen(cfg, bb, dev)
+    lat = None
+    if capture_latents:
+        lat = emb.new_zeros((bb, max_new, emb.shape[-1]))
+        lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
+
+    def joint_fn(logits, seen_, beam_scores_):
+        return _beam_joint_scores(logits, seen_, beam_scores_, gen, temperature, top_p, repetition_penalty,
+                                  typical_mass)
+
+    def select(cand):
+        return _select_successors(cand, generator, gen, nb)
+
+    beam_scores = torch.full((b, nb), NEG_INF, device=dev)
+    beam_scores[:, 0] = 0.0
+    beam_scores = beam_scores.reshape(-1)
+    codes = torch.full((bb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
+    best = BeamBest(score=torch.full((b,), NEG_INF, device=dev),
+                    codes=torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev),
+                    length=torch.zeros((b,), dtype=torch.long, device=dev),
+                    lat=None if lat is None else lat.new_zeros((b,) + lat.shape[1:]))
+
+    def step(si, logits):
+        nonlocal codes, beam_scores, seen, lat
+        codes, beam_scores, seen, flat_src, nxt = _beam_step(
+            cfg, gen, si, logits, codes, beam_scores, seen, best, joint_fn, select, b, nb,
+            length_penalty=length_penalty, prefill_len=p, lat=lat)
+        if lat is not None:
+            lat = lat[flat_src]
+        return flat_src, nxt
+
+    # the beams of a row are copies until the first decode step writes, so
+    # the first selection needs no cache reorder
+    _, cur = step(0, logits0)
+    i = 0
+    while i < max_new - 1:
+        if gen.early_stopping:
+            base = _beam_stop_bound_base(length_penalty, p, max_new, i)
+            bound = beam_scores.reshape(b, nb).max(dim=1).values / base ** float(length_penalty)
+            if not bool((bound > best.score).any()):
+                break
+        valid = prefill_valid | ((positions >= p) & (positions < p + i))
+        logits = _decode_step(model, cfg, cur, i + pos_off, cache, p + i, valid, return_hidden=capture_latents)
+        if capture_latents:
+            logits, lat[:, i + 1] = logits
+        flat_src, cur = step(i + 1, logits)
+        cache = tuple(c.index_select(1, flat_src) for c in cache)
+        i += 1
+    if stats is not None:
+        stats["steps"] = i
+    return _beam_finalize(codes, beam_scores, best, b, nb, max_new, length_penalty, p, lat=lat)

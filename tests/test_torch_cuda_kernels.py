@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
 from indextts_tpu_torch.ops.cuda import antialias as k1
 from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
@@ -52,6 +53,82 @@ def test_k1_raises_instead_of_falling_back():
         k1.fused_anti_alias_snake(torch.zeros(1, 8, 64, device="cuda", dtype=torch.float16), alpha, alpha)
     with pytest.raises(ValueError):
         k1.fused_anti_alias_snake(torch.zeros(1, 64, 8, device="cuda").transpose(1, 2), alpha, alpha)
+
+
+def _k2_inputs(b, c, t, k, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (0.5 * torch.randn(b, c, t, device="cuda", generator=g)).to(dtype)
+    alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
+    beta = 0.3 * torch.randn(c, device="cuda", generator=g)
+    w = (torch.randn(c, c, k, device="cuda", generator=g) / (c * k) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    return x, alpha, beta, w, bias
+
+
+def _assert_within(out, ref, bound):
+    err = (out.float() - ref.float()).abs()
+    worst = int((err / bound).argmax())
+    assert bool((err <= bound).all()), (f"max err {err.max().item():.3e}; worst err/bound at flat index {worst}: "
+                                        f"err {err.flatten()[worst].item():.3e} bound {bound.flatten()[worst].item():.3e} "
+                                        f"out {out.flatten()[worst].item():.6f} ref {ref.flatten()[worst].item():.6f}")
+
+
+K2_KD = [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,t", [(128, 517), (192, 640), (384, 800), (768, 400)])
+@pytest.mark.parametrize("k,d", K2_KD)
+def test_k2_matches_plain(dtype, c, t, k, d):
+    """Every (k, d) of the vocoder at the wide stages' widths; the T's are
+    ragged (not multiples of the 128-frame tile) apart from 640."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, alpha, beta, w, bias = _k2_inputs(1, c, t, k, dtype, seed=k * 10 + d)
+    before = k2.launches
+    out = k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    _assert_within(out, ref, k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,k,d", [(2, 9, 11, 5), (1, 1, 3, 1), (3, 30, 7, 3)])
+def test_k2_short_t_and_batch(dtype, b, t, k, d):
+    """T shorter than the conv's halo (h = 25 at k = 11, d = 5) and than K1's
+    stencil, and B > 1: the conv's zero padding and the replicate clamps of
+    the activation at both ends in one tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, alpha, beta, w, bias = _k2_inputs(b, 128, t, k, dtype, seed=t)
+    out = k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    ref = k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    _assert_within(out, ref, k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True))
+
+
+@pytest.mark.cuda
+def test_k2_raises_instead_of_falling_back():
+    """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, alpha, beta, w, bias = _k2_inputs(1, 128, 64, 3, torch.bfloat16)
+    before = k2.launches
+    with pytest.raises(TypeError):
+        k2.fused_aa_snake_dconv(x.half(), alpha, beta, w.half(), bias.half(), 1)
+    with pytest.raises(TypeError):
+        k2.fused_aa_snake_dconv(x, alpha, beta, w.float(), bias, 1)  # weight not in x's dtype
+    with pytest.raises(ValueError):
+        k2.fused_aa_snake_dconv(x, alpha, beta, w[:, :, :2].contiguous(), bias, 1)  # even k
+    with pytest.raises(ValueError):
+        k2.fused_aa_snake_dconv(x.transpose(1, 2).contiguous().transpose(1, 2), alpha, beta, w, bias, 1)
+    assert k2.launches == before
 
 
 def _k5_inputs(m, k, n, dtype, seed=0):

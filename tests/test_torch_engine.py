@@ -1,8 +1,9 @@
 """The port's engine end to end against the JAX engine: same tiny config,
 same weights (the JAX engine's, bridged), same prompt wav and text; greedy
 codes must be equal and the int16 wav within 1e-4 of full scale (plus one
-unit for the int16 truncation). Also: the port imports no JAX, refuses
-beams loudly, and its CLI runs the single-request path."""
+unit for the int16 truncation). Also: the port imports no JAX, runs the
+reference's default beams instead of downgrading them, and its CLI runs the
+single-request path."""
 
 import os
 import subprocess
@@ -88,10 +89,18 @@ def test_infer_writes_wav_file(engines, tmp_path):
     assert sr == 24000 and audio.shape[-1] > 0
 
 
-def test_beams_raise_instead_of_downgrading(engines):
+def test_beams_raise_instead_of_downgrading(engines, monkeypatch):
+    """The reference default (num_beams=3, sampled) reaches generate_speech_beam
+    with nb = 3, not a greedy or single-beam decode; a misspelt knob still
+    raises."""
+    from indextts_tpu_torch import engine as engine_mod
+
     _, te, _ = engines
-    with pytest.raises(NotImplementedError, match="num_beams=1"):
-        te.infer(audio_prompt=PROMPT, text="HELLO.")  # the reference default is num_beams=3
+    seen = []
+    beam = engine_mod.generate_speech_beam
+    monkeypatch.setattr(engine_mod, "generate_speech_beam", lambda *a, **k: seen.append(a[2]) or beam(*a, **k))
+    sr, wav = te.infer(audio_prompt=PROMPT, text="HELLO.", max_mel_tokens=8)
+    assert [(g.num_beams, g.do_sample, g.top_k) for g in seen] == [(3, True, 30)] and wav.shape[0] > 0
     with pytest.raises(ValueError, match="unknown generation kwargs"):
         te.infer(audio_prompt=PROMPT, text="HELLO.", num_beams=1, top_kk=3)
 
@@ -105,7 +114,8 @@ def test_cli_single_request(engines, tmp_path, capsys):
     assert os.path.getsize(out) > 44
     with pytest.raises(SystemExit):
         main(["--help"])
-    assert "num_beams=1" in capsys.readouterr().out
+    help_text = capsys.readouterr().out
+    assert "num_beams=3" in help_text and "--fast-latents" in help_text
 
 
 def test_port_imports_no_jax():

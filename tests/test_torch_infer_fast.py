@@ -175,9 +175,9 @@ def test_batched_greedy_rows_equal_solo(engines, quant_kv):
                                                        repetition_penalty=1.0))
         args = (gen, dyn["temperature"], dyn["top_p"], dyn["repetition_penalty"])
         rows = [np.asarray([[5, 6, 7, 8, 9]]), np.asarray([[11, 12, 13]]), np.asarray([[20, 21, 22, 23, 24, 25, 26, 27, 28]])]
-        batch, batch_lens = te._gpt_generate(conds, te.pad_tokens_cat(rows), np.asarray([5, 3, 9]), *args)
+        batch, batch_lens, _, _ = te._gpt_generate(conds, te.pad_tokens_cat(rows), np.asarray([5, 3, 9]), *args)
         for i, r in enumerate(rows):
-            solo, solo_lens = te._gpt_generate(conds, r, np.asarray([r.shape[1]]), *args)
+            solo, solo_lens, _, _ = te._gpt_generate(conds, r, np.asarray([r.shape[1]]), *args)
             np.testing.assert_array_equal(batch[i : i + 1], solo)
             np.testing.assert_array_equal(batch_lens[i : i + 1], solo_lens)
         assert batch_lens.min() > 3
@@ -213,6 +213,28 @@ def test_greedy_matches_jax_engine(engines, method, quant_kv, text, split):
     assert np.abs(wav_j.astype(np.int32)).max() > 300  # and an audible wav
     assert np.abs(wav_t.astype(np.int32) - wav_j.astype(np.int32)).max() <= WAV_TOL
     assert te.last_stats["gpt_calls"] == len(codes_t)
+
+
+@pytest.mark.parametrize("method,text,split", [
+    ("infer", "HELLO WORLD. THIS IS A TEST.", 16),
+    ("infer_fast", "HELLO WORLD. THIS IS A TEST. GOOD DAY TO YOU.", 16),
+])
+def test_default_kwargs_greedy_matches_jax_engine(engines, method, text, split):
+    """The reference's default generation kwargs (num_beams=3, top-k 30,
+    top-p 0.8, repetition penalty 10, length penalty 0), made deterministic
+    with do_sample=False: beam codes equal the JAX engine's and the wav is
+    within WAV_TOL."""
+    je, te, _ = engines
+    kw = dict(text=text, do_sample=False, max_mel_tokens=24, max_text_tokens_per_sentence=split)
+    sr_j, wav_j, codes_j = _run_recording_codes(je, method, **kw)
+    sr_t, wav_t, codes_t = _run_recording_codes(te, method, **kw)
+    assert len(codes_t) == len(codes_j) >= 2
+    for a, b in zip(codes_t, codes_j):
+        np.testing.assert_array_equal(a, b)
+    assert sr_t == sr_j and wav_t.shape == wav_j.shape and wav_t.dtype == np.int16
+    assert wav_t.shape[0] > 3 * te._samples_per_code()
+    assert np.abs(wav_j.astype(np.int32)).max() > 300
+    assert np.abs(wav_t.astype(np.int32) - wav_j.astype(np.int32)).max() <= WAV_TOL
 
 
 def test_engine_counts_match_k5_calls(engines, monkeypatch):
@@ -254,3 +276,27 @@ def test_cli_fast_quant_kv(engines, tmp_path, monkeypatch):
     main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", out, "-d", "cpu",
           "--fast", "--quant-kv"])
     assert seen == [True] and os.path.getsize(out) > 44
+
+
+def test_cli_runs_the_engine_default_beams(engines, tmp_path, monkeypatch):
+    """The CLI passes no num_beams (the JAX CLI passes none either): the
+    decode is the engine's default beam search, nb = 3; --fast-latents
+    reaches the engine."""
+    from indextts_tpu_torch import engine as engine_mod
+    from indextts_tpu_torch.cli import main
+
+    _, _, cfg_path = engines
+    gens, flags = [], []
+    beam = engine_mod.generate_speech_beam
+    monkeypatch.setattr(engine_mod, "generate_speech_beam", lambda *a, **k: gens.append(a[2]) or beam(*a, **k))
+
+    class Recording(IndexTTS):
+        def infer(self, **kw):
+            flags.append(self.fast_latents)
+            return super().infer(**kw)
+
+    monkeypatch.setattr(engine_mod, "IndexTTS", Recording)
+    out = str(tmp_path / "beams.wav")
+    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", out, "-d", "cpu",
+          "--fast-latents"])
+    assert flags == [True] and [g.num_beams for g in gens] == [3] and os.path.getsize(out) > 44
