@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1, K2 and K5 kernels from
+  2. build   — nvcc builds the K1, K2, K3 and K5 kernels from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
@@ -15,6 +15,13 @@ Phases, in order; any failure exits non-zero:
                and float32, TF32 off: err against a stated bound, K2's
                profiler and CUDA-event times, the plain version's, and the
                default vocoder path's (K1, then cuDNN's conv);
+     k3      — K3 (anti_alias_snake_tmajor) at the three wide stages, B = 1
+               and 4, bf16 and float32: the CUDA-core and the tensor-core body
+               against their plain versions (err against a stated bound;
+               float32 also within 2e-5 of the composed path), the ident body
+               bit-equal to its input; profiler and CUDA-event times and GB/s
+               of each body with K1's at the same shape; odd shapes (C = 130,
+               T not a multiple of a tile or of a 16-byte vector, T = 5);
   4. k5      — K5 (int8_matmul) against its plain version at the five GPT
                matmul shapes of the published width, M = 1, 4, 8, x bf16 and
                float32, TF32 off; CUDA-event and profiler device times for
@@ -28,8 +35,18 @@ Phases, in order; any failure exits non-zero:
                infer with the engine's default generation kwargs (num_beams
                3, sampled), infer_fast on two sentences, and a greedy
                num_beams=3 infer on the int8 KV cache; K2 must launch 54 and
-               K1 55 times per vocoder call; then one forced beam step at
-               B = 1 profiled (host vs device, the cache reorder alone);
+               K1 55 times per vocoder call; a default-kwargs infer at
+               max_mel_tokens=320, which must take the segmented beam loop
+               (two segments); then one forced beam step at B = 1 profiled
+               (host vs device, the cache reorder alone);
+     stream  — the same width with INDEXTTS_WIDE_TMAJOR=1 (K3 at the 54 wide
+               activations, K1 at the other 55): infer_stream, sampled,
+               max_mel_tokens=200 with the default chunking (24 / 96 / 8),
+               with teacher-forced latents, with fast_latents, and with
+               INDEXTTS_WIDE_TMAJOR_MXU=1; each must yield 3 chunks (25, 96
+               and 79 codes) of finite samples from 3 vocoder calls, K3 162
+               and K1 165 launches; time to first audio and per-chunk times
+               beside one infer (num_beams=1) of the same request;
      int8    — the same width with quant_kv=True: the max |logit| drift of
                prefill + 16 forced decode steps with the int8 KV cache, and
                with int8 KV and int8 weights, against the bf16 cache (int8 KV
@@ -43,13 +60,18 @@ Phases, in order; any failure exits non-zero:
                within tolerance), for infer, for greedy num_beams=3 infer
                with INDEXTTS_WIDE_BRANCH=1 (K2 on the card, its plain version
                on the CPU), the card's captured latents against its
-               teacher-forced pass, and infer_fast on int8 weights with the
-               int8 KV cache;
+               teacher-forced pass, greedy infer_stream under
+               INDEXTTS_WIDE_TMAJOR=1 with and without _MXU (chunk sizes
+               equal, samples within tolerance, K3 on the card), and
+               infer_fast on int8 weights with the int8 KV cache;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
+`--phases a,b` (of kernel, k2, k3, k5, engine, beam, stream, int8, small) runs
+only those phases after the build, for work on one of them: it prints no
+kernels line and no final line, and exits 3.
 """
 
 from __future__ import annotations
@@ -70,6 +92,15 @@ K5_REPLACES = "indextts_tpu/ops/pallas/qmatmul.py:42"
 K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
 K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
 K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
+K3_REPLACES = "indextts_tpu/ops/pallas/antialias_tmajor.py:163"
+K3_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake_tmajor.cu"
+# the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s, dense
+# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# float32 operations of the anti-aliased activation per output element: two
+# 2x-rate samples x (12 for the up taps + 18 for the snake with the polynomial
+# sin) + 24 for the down taps
+ACT_OPS = 84
 # each AMPBlock1 (kernel k, dilations 1, 3, 5) makes per stage 4 half-branch
 # calls at (k, 1), one at (k, 3) and one at (k, 5)
 K2_CALLS = {(k, d): (4 if d == 1 else 1) for k in (3, 7, 11) for d in (1, 3, 5)}
@@ -232,6 +263,95 @@ def k2_phase(card: str) -> dict:
                 del x, w, out, ref, err
     if failures:
         raise AssertionError(f"K2 disagrees with its plain version: {failures}")
+    return {"rows": rows}
+
+
+def k3_phase(card: str) -> dict:
+    """K3's three bodies at the wide stages of a ~100-code vocoder call."""
+    import torch
+
+    from indextts_tpu_torch.ops.antialias import activation1d
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    cases = [(label, b, c, t, dt, True, True) for label, c, t in STAGES[:3] for b in (1, 4)
+             for dt in (torch.bfloat16, torch.float32)]
+    # odd shapes, checked and not timed: C not a multiple of the row tiles and T
+    # of no tile; T of no 16-byte vector (the element-wise path); T shorter than
+    # the stencil; Snake without beta
+    cases += [(label, 1, c, t, dt, wb, False) for label, c, t, wb in
+              (("odd_c130", 130, 1000, True), ("odd_t1003", 130, 1003, True), ("tiny_t5", 8, 5, True),
+               ("snake_no_beta", 192, 777, False)) for dt in (torch.bfloat16, torch.float32)]
+    rows, failures = [], []
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for label, b, c, t, dtype, with_beta, timed in cases:
+        x = torch.randn(b, c, t, device="cuda", generator=g).to(dtype)
+        alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
+        beta = 0.3 * torch.randn(c, device="cuda", generator=g) if with_beta else None
+        logscale = with_beta
+        if not logscale:
+            alpha = alpha.abs() + 0.1
+        row = dict(case=label, B=b, C=c, T=t, dtype=str(dtype).replace("torch.", ""), bodies={})
+        nbytes = 2 * x.numel() * x.element_size()  # the best case: read x once, write z once
+        oks = []
+        for body, kw in (("taps", {}), ("mma", {"mxu": True}), ("ident", {"probe": "ident"})):
+            kern = lambda: k3.fused_anti_alias_snake_tmajor(x, alpha, beta, logscale, **kw)
+            plain = lambda: k3.anti_alias_snake_tmajor_plain(x, alpha, beta, logscale, **kw)
+            out = kern()
+            torch.cuda.synchronize()
+            ref = plain()
+            r = {}
+            if body == "ident":
+                r["bit_equal"] = bool(torch.equal(out, x))
+                r["max_abs_err"] = (out.float() - x.float()).abs().max().item()
+                ok = r["bit_equal"]
+            else:
+                err = (out.float() - ref.float()).abs()
+                bound = k3.anti_alias_snake_tmajor_bound(x, alpha, beta, ref, logscale, mxu=body == "mma")
+                r["max_abs_err"] = err.max().item()
+                r["err_over_bound"] = (err / bound).max().item()
+                ok = r["err_over_bound"] <= 1.0
+                if dtype == torch.float32:  # the contract: the composed path, exact sin, within 2e-5
+                    composed = activation1d(x, alpha, beta, logscale, approx_sin_=False)
+                    r["max_abs_err_vs_composed"] = (out - composed).abs().max().item()
+                    ok = ok and r["max_abs_err_vs_composed"] <= 2e-5
+            if timed:
+                iters = 10
+                r["ms"] = cuda_time_ms(kern, iters)
+                r["device_ms"] = device_time_ms(kern, iters)
+                if body != "ident":
+                    r["plain_ms"] = cuda_time_ms(plain, iters)
+                    r["device_plain_ms"] = device_time_ms(plain, iters)
+                best = r["device_ms"] if r["device_ms"] is not None else r["ms"]
+                r["GBps"] = nbytes / (best * 1e-3) / 1e9
+            r["ok"] = bool(ok)
+            oks.append(ok)
+            row["bodies"][body] = r
+        if timed:
+            k1_fn = lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale)
+            row["k1_ms"], row["k1_device_ms"] = cuda_time_ms(k1_fn, 10), device_time_ms(k1_fn, 10)
+        row["ok"] = all(oks)
+        rows.append(row)
+        bd = row["bodies"]
+        line = (f"[k3] {label:14s} B={b} C={c:4d} T={t:6d} {row['dtype']:8s} taps err={bd['taps']['max_abs_err']:.3e} "
+                f"(err/bound {bd['taps']['err_over_bound']:.3f}) mma err={bd['mma']['max_abs_err']:.3e} "
+                f"(err/bound {bd['mma']['err_over_bound']:.3f}) ident bit-equal {bd['ident']['bit_equal']}")
+        if dtype == torch.float32:
+            line += (f" | vs composed: taps {bd['taps']['max_abs_err_vs_composed']:.2e} "
+                     f"mma {bd['mma']['max_abs_err_vs_composed']:.2e}")
+        if timed:
+            line += (f" | device ms: taps {fmt(bd['taps']['device_ms'])} ({bd['taps']['GBps']:.0f} GB/s) mma "
+                     f"{fmt(bd['mma']['device_ms'])} ({bd['mma']['GBps']:.0f} GB/s) ident {fmt(bd['ident']['device_ms'])} "
+                     f"({bd['ident']['GBps']:.0f} GB/s) K1 {fmt(row['k1_device_ms'])} plain {fmt(bd['taps']['device_plain_ms'])}"
+                     f" | events ms: taps {bd['taps']['ms']:.4f} mma {bd['mma']['ms']:.4f} ident {bd['ident']['ms']:.4f} "
+                     f"K1 {row['k1_ms']:.4f}")
+        log(line + f"  [{card}]")
+        if not row["ok"]:
+            failures.append(row)
+        del x
+    if failures:
+        raise AssertionError(f"K3 disagrees with its plain version: {failures}")
     return {"rows": rows}
 
 
@@ -661,6 +781,8 @@ def beam_phase(card: str) -> dict:
             ("default_infer_fast", "infer_fast", False, dict(text="HELLO WORLD. THIS IS A TEST.", max_mel_tokens=200,
                                                               max_text_tokens_per_sentence=16)),
             ("greedy_int8_kv", "infer", True, dict(text="HELLO WORLD.", do_sample=False, max_mel_tokens=200)),
+            # 320 = two segments of 160: the engine takes generate_speech_beam_segmented
+            ("default_infer_320", "infer", False, dict(text="HELLO WORLD.", max_mel_tokens=320)),
         ]
         spc = engine._samples_per_code()
         results, k1_total, k2_total = [], 0, 0
@@ -679,7 +801,11 @@ def beam_phase(card: str) -> dict:
                 raise AssertionError(f"{name}: returned wav {wav.shape}")
             if method == "infer_fast" and st["decode_batches"] != [2]:
                 raise AssertionError(f"{name}: decode batches {st['decode_batches']}, want one batch of 2")
+            want_segments = 2 if kw["max_mel_tokens"] >= 320 else 0
+            if st["gpt_segments"] != want_segments:
+                raise AssertionError(f"{name}: the decode ran {st['gpt_segments']} segments, want {want_segments}")
             row = dict(request=name, method=method, quant_kv=quant_kv, codes=wav.shape[0] // spc,
+                       segments=st["gpt_segments"],
                        audio_s=st["audio_s"], cond_ms=1e3 * st["cond_s"], decode_steps=st["gpt_steps"],
                        decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1),
                        latent_ms=1e3 * st["gpt_forward_s"], teacher_forced_rows=st["tf_latent_rows"],
@@ -689,7 +815,8 @@ def beam_phase(card: str) -> dict:
             results.append(row)
             log(f"[beam] {name} ({method}, num_beams 3{', int8 KV' if quant_kv else ''}): {row['codes']} codes, "
                 f"{st['audio_s']:.2f} s audio | cond {row['cond_ms']:.1f} ms, decode {row['decode_ms_per_step']:.2f} "
-                f"ms/step over {st['gpt_steps']} steps, latent {row['latent_ms']:.1f} ms (teacher-forced rows "
+                f"ms/step over {st['gpt_steps']} steps in {st['gpt_segments'] or 'no'} segments, latent "
+                f"{row['latent_ms']:.1f} ms (teacher-forced rows "
                 f"{st['tf_latent_rows']}), vocoder {row['vocoder_ms']:.1f} ms in {calls} call(s), total "
                 f"{st['total_s']:.2f} s, RTF {st['rtf']:.4f}; K2 {launches['k2']}, K1 {launches['k1']} launches [{card}]")
         engine.quant_kv = False
@@ -702,6 +829,84 @@ def beam_phase(card: str) -> dict:
         del os.environ["INDEXTTS_WIDE_BRANCH"]
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "forced_step": step,
             "k1_launches": k1_total, "k2_launches": k2_total}
+
+
+def stream_phase(card: str) -> dict:
+    """This slice's main path: infer_stream at the published width with
+    INDEXTTS_WIDE_TMAJOR=1, K3 at the 54 wide activations of every vocoder
+    call and K1 at the other 55."""
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+
+    os.environ["INDEXTTS_WIDE_TMAJOR"] = "1"
+    try:
+        t0 = time.perf_counter()
+        engine = flagship_engine()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        spc = engine._samples_per_code()
+        kw = dict(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=True, max_mel_tokens=200)
+        # a first, cold stream: reported, not part of the measured run
+        t = time.perf_counter()
+        cold = sum(c.size for c in engine.infer_stream(**kw))
+        cold_s = time.perf_counter() - t
+        log(f"[stream] flagship built in {init_s:.1f} s; cold first stream {cold_s:.2f} s, TTFA "
+            f"{engine.last_stats['ttfa_s']:.3f} s, {cold // spc} codes [{card}]")
+        results, k1_total, k3_total = [], 0, 0
+        for name, fast, mxu in (("teacher_forced", False, False), ("fast_latents", True, False),
+                                ("teacher_forced_mxu", False, True)):
+            engine.fast_latents = fast
+            if mxu:
+                os.environ["INDEXTTS_WIDE_TMAJOR_MXU"] = "1"
+            try:
+                k1.launches = k3.launches = 0  # this stream of the main path starts here
+                chunks = list(engine.infer_stream(**kw))
+                launches = {"k1": k1.launches, "k3": k3.launches}
+            finally:
+                os.environ.pop("INDEXTTS_WIDE_TMAJOR_MXU", None)
+            st = dict(engine.last_stats)
+            k1_total += launches["k1"]
+            k3_total += launches["k3"]
+            sizes = [c.size // spc for c in chunks]
+            total = int(sum(c.size for c in chunks))
+            if sizes != [25, 96, 79] or total != 200 * spc or st["vocoder_calls"] != 3:
+                raise AssertionError(f"{name}: chunks of {sizes} codes, {total} samples, {st['vocoder_calls']} vocoder "
+                                     f"calls; want [25, 96, 79], {200 * spc} and 3")
+            if any(c.dtype != np.float32 or not np.isfinite(c).all() for c in chunks):
+                raise AssertionError(f"{name}: a chunk is not finite float32")
+            if launches != {"k1": 165, "k3": 162}:
+                raise AssertionError(f"{name}: launches {launches}, want K3 54 x 3 = 162 and K1 55 x 3 = 165")
+            if st["tf_latent_rows"] != (0 if fast else 3):
+                raise AssertionError(f"{name}: {st['tf_latent_rows']} teacher-forced passes")
+            row = dict(stream=name, fast_latents=fast, mxu=mxu, chunk_codes=sizes, ttfa_ms=1e3 * st["ttfa_s"],
+                       chunk_ms=[1e3 * v for v in st["chunk_s"]], total_s=st["total_s"], audio_s=st["audio_s"],
+                       decode_steps=st["gpt_steps"], k1_launches=launches["k1"], k3_launches=launches["k3"])
+            results.append(row)
+            log(f"[stream] {name}: chunks of {sizes} codes, TTFA {row['ttfa_ms']:.1f} ms, chunk times "
+                f"{[round(v, 1) for v in row['chunk_ms']]} ms, total {st['total_s']:.2f} s for {st['audio_s']:.2f} s "
+                f"audio; K3 {launches['k3']}, K1 {launches['k1']} launches [{card}]")
+        # the same request in one piece, for the total and the wait for any audio
+        engine.fast_latents = False
+        k1.launches = k3.launches = 0
+        sr, wav = engine.infer(num_beams=1, **kw)
+        st = dict(engine.last_stats)
+        if (k1.launches, k3.launches) != (55, 54) or wav.shape[0] != 200 * spc:
+            raise AssertionError(f"infer under INDEXTTS_WIDE_TMAJOR=1: K1 {k1.launches}, K3 {k3.launches} launches, "
+                                 f"wav {wav.shape}")
+        k1_total += k1.launches
+        k3_total += k3.launches
+        one_shot = dict(total_s=st["total_s"], audio_s=st["audio_s"], vocoder_ms=1e3 * st["bigvgan_s"],
+                        decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1))
+        log(f"[stream] infer (num_beams=1) of the same request: total {st['total_s']:.2f} s (all of it before any "
+            f"audio), decode {one_shot['decode_ms_per_step']:.2f} ms/step, vocoder {one_shot['vocoder_ms']:.1f} ms "
+            f"[{card}]")
+    finally:
+        del os.environ["INDEXTTS_WIDE_TMAJOR"]
+    return {"init_s": init_s, "cold_first_stream_s": cold_s, "streams": results, "one_shot": one_shot,
+            "k1_launches": k1_total, "k3_launches": k3_total}
 
 
 def tiny_config():
@@ -805,6 +1010,37 @@ def small_phase(card: str) -> dict:
     if n < 2 or not lat_err <= 1e-4:
         raise AssertionError(f"captured latents differ from the teacher-forced pass by {lat_err} ({n} codes)")
 
+    # greedy streams under INDEXTTS_WIDE_TMAJOR=1, with and without _MXU: stage
+    # 1 is C = 128, so the card runs K3 there (float32 takes the CUDA-core body
+    # either way) and the CPU its plain versions
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+
+    streams = {}
+    os.environ["INDEXTTS_WIDE_TMAJOR"] = "1"
+    try:
+        for mxu in (False, True):
+            if mxu:
+                os.environ["INDEXTTS_WIDE_TMAJOR_MXU"] = "1"
+            skw = dict(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, max_mel_tokens=24,
+                       first_chunk_codes=4, chunk_codes=6, overlap_codes=2)
+            before = k3.launches
+            c_gpu = list(gpu.infer_stream(**skw))
+            k3_calls, voc_calls = k3.launches - before, gpu.last_stats["vocoder_calls"]
+            c_cpu = list(cpu.infer_stream(**skw))
+            sizes_gpu, sizes_cpu = [c.size for c in c_gpu], [c.size for c in c_cpu]
+            diff_s = max((float(np.abs(a - b).max()) * 32767 for a, b in zip(c_gpu, c_cpu) if a.size == b.size),
+                         default=0.0)
+            log(f"[small] tiny f32 greedy infer_stream, INDEXTTS_WIDE_TMAJOR=1{' _MXU=1' if mxu else ''}: chunk "
+                f"samples {sizes_gpu} (CPU {sizes_cpu}), {k3_calls} K3 launches over {voc_calls} vocoder calls, max "
+                f"|gpu - cpu| = {diff_s:.3f} int16 units [{card}]")
+            if sizes_gpu != sizes_cpu or len(sizes_gpu) < 2 or diff_s > 8 or k3_calls != 4 * voc_calls:
+                raise AssertionError("the card's stream / K3 vocoder disagree with the CPU's at tiny width")
+            streams["mxu" if mxu else "taps"] = {"chunk_samples": sizes_gpu, "wav_max_abs_diff_int16": diff_s,
+                                                 "k3_launches": k3_calls, "vocoder_calls": voc_calls}
+    finally:
+        os.environ.pop("INDEXTTS_WIDE_TMAJOR_MXU", None)
+        del os.environ["INDEXTTS_WIDE_TMAJOR"]
+
     # int8 weights and the int8 KV cache; the card decodes the sentences as
     # one batch (K5 at M = 3), the CPU one at a time (K5's plain version)
     for e in (gpu, cpu):
@@ -828,16 +1064,38 @@ def small_phase(card: str) -> dict:
             "beams_wide_branch": {"codes_equal": same_b, "wav_max_abs_diff_int16": diff_b, "k2_launches": k2_calls,
                                   "samples": int(wavb_gpu.shape[0])},
             "captured_latents": {"codes": n, "max_abs_diff_vs_teacher_forced": lat_err},
+            "streams_wide_tmajor": streams,
             "int8_fast": {"codes_equal": same8, "wav_max_abs_diff_int16": diff8, "card_batches": batches,
                           "samples": int(wav8_gpu.shape[0])}}
 
 
-def main() -> int:
+def activation_bound(stages, calls_per_stage: int, extra=()):
+    """The least time the card could take for the anti-aliased activations of
+    one vocoder call (bf16, B = 1): `calls_per_stage` calls at each (label, C,
+    T) of `stages`, one at each of `extra`. The larger of the bytes (x read
+    once, z written once) over the memory rate and ACT_OPS float32 operations
+    per element over the CUDA cores' rate. Returns (ms, "bytes" or
+    "operations")."""
+    elements = sum(calls_per_stage * c * t for _, c, t in stages) + sum(c * t for _, c, t in extra)
+    by_bytes, by_ops = 1e3 * elements * 4 / PEAK_BYTES, 1e3 * elements * ACT_OPS / PEAK_F32
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+PHASES = ("kernel", "k2", "k3", "k5", "engine", "beam", "stream", "int8", "small")
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
+        return 2
+    only = None
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        only = argv[1].split(",")
+    if (argv and only is None) or (only and set(only) - set(PHASES)):
+        print(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     card = device_line()
@@ -848,13 +1106,14 @@ def main() -> int:
 
     from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
     from indextts_tpu_torch.ops.cuda import build
     from indextts_tpu_torch.config import load_config
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
     # one nvcc per source, started together
     t = time.perf_counter()
-    kernels_built = (k1, k2, k5)
+    kernels_built = (k1, k2, k3, k5)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
@@ -865,11 +1124,20 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {src}:", line.strip())
 
+    phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k5": k5_phase, "engine": engine_phase,
+                 "beam": beam_phase, "stream": stream_phase, "int8": int8_phase, "small": small_phase}
+    if only is not None:
+        for name in only:
+            phase_fns[name](card)
+        log(f"[partial] ran only {only}: no result lines")
+        return 3
     kern = kernel_phase(card)
     kern2 = k2_phase(card)
+    kern3 = k3_phase(card)
     kern5 = k5_phase(card)
     eng = engine_phase(card)
     beam = beam_phase(card)
+    stream = stream_phase(card)
     int8 = int8_phase(card)
     small = small_phase(card)
 
@@ -908,33 +1176,80 @@ def main() -> int:
     for s, v in k2_per_stage.items():
         log(f"[k2] {s} per vocoder call (18 half-branches, bf16, B=1): K2 {v['kernel_ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms, K1 + cuDNN conv {v['k1_conv_ms']:.3f} ms [{card}]")
+
+    k3_rows = {r["case"]: r for r in kern3["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
+               {s for s, _, _ in STAGES[:3]}}
+
+    def k3_per_call(body: str, key: str, fallback: str) -> float:
+        """K3 (one body, or its plain version) time of one vocoder call at
+        ~100 codes, bf16, B=1: 18 activations at each wide stage."""
+        pick = lambda r: r[key] if r.get(key) is not None else r[fallback]
+        return sum(18 * pick(k3_rows[s]["bodies"][body]) for s, _, _ in STAGES[:3])
+
+    k3_per_voc = {body: k3_per_call(body, "device_ms", "ms") for body in ("taps", "mma", "ident")}
+    k3_per_voc["k1"] = sum(18 * (k3_rows[s]["k1_device_ms"] if k3_rows[s]["k1_device_ms"] is not None
+                                 else k3_rows[s]["k1_ms"]) for s, _, _ in STAGES[:3])
+    log(f"[k3] per vocoder call (54 activations at the wide stages, bf16, B=1): CUDA-core body "
+        f"{k3_per_voc['taps']:.3f} ms, tensor-core body {k3_per_voc['mma']:.3f} ms, ident {k3_per_voc['ident']:.3f} ms, "
+        f"K1 at the same shapes {k3_per_voc['k1']:.3f} ms [{card}]")
+
+    # the least time the card could take, from the shapes above (bf16)
+    k1_bound, k1_by = activation_bound(STAGES[:6], 18, STAGES[6:])
+    k3_bound, k3_by = activation_bound(STAGES[:3], 18)
+    k2_terms = {
+        "bytes": sum(n * (4 * c * t + 2 * k * c * c) for _, c, t in STAGES[:3] for (k, _), n in K2_CALLS.items()) / PEAK_BYTES,
+        "operations": max(sum(n * 2 * k * c * c * t for _, c, t in STAGES[:3] for (k, _), n in K2_CALLS.items()) / PEAK_BF16,
+                          sum(18 * c * t for _, c, t in STAGES[:3]) * ACT_OPS / PEAK_F32),
+    }
+    k2_by = max(k2_terms, key=k2_terms.get)
+    m = 4
+    step_shapes = [(k, n) for _, k, n in K5_SHAPES[:4]] * layers + [K5_SHAPES[4][1:]]
+    k5_terms = {"bytes": sum(n * k + 2 * m * k + 2 * m * n + 6 * n for k, n in step_shapes) / PEAK_BYTES,
+                "operations": sum(2 * m * k * n for k, n in step_shapes) / PEAK_BF16}
+    k5_by = max(k5_terms, key=k5_terms.get)
+
     report = {
         "device": card,
         "build_seconds": dict(build.build_seconds),
         "kernel": kern,
         "k2": kern2,
         "k2_per_stage": k2_per_stage,
+        "k3": kern3,
+        "k3_per_vocoder_call_ms": k3_per_voc,
         "k5": kern5,
         "engine": eng,
         "beam": beam,
+        "stream": stream,
         "int8": int8,
         "small": small,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"), "w") as f:
         json.dump(report, f, indent=1)
+    # library_ms: no single PyTorch call computes any of these functions (the
+    # activation is a transposed conv, a snake and a strided conv; K2 adds a
+    # conv; K5's plain version dequantizes, then calls F.linear)
     kernels = [{
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": eng["k1_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": per_call("device_ms", "ms"), "plain_ms": per_call("device_plain_ms", "plain_ms"),
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
     }, {
         "name": "aa_snake_dconv", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": beam["k2_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern2["rows"]),
         "ms": per_voc("device_ms", "ms"), "plain_ms": per_voc("device_plain_ms", "plain_ms"),
+        "bound_ms": 1e3 * k2_terms[k2_by], "bound_by": k2_by, "library_ms": None,
+    }, {
+        "name": "fused_anti_alias_snake_tmajor", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+        "launches": stream["k3_launches"],
+        "max_abs_err": max(b["max_abs_err"] for r in kern3["rows"] for b in r["bodies"].values()),
+        "ms": k3_per_voc["taps"], "plain_ms": k3_per_call("taps", "device_plain_ms", "plain_ms"),
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
     }, {
         "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
         "ms": per_step("device_ms", "ms"), "plain_ms": per_step("device_plain_ms", "plain_ms"),
+        "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -944,4 +1259,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "approx_sin.cuh"
+
 namespace {
 
 constexpr int TILE_T = 128;   // output frames per block
@@ -70,17 +72,6 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return __float2bfloat16(v); }
-
-// approx_sin of the JAX package, as in K1
-__device__ __forceinline__ float poly_sin(float u) {
-  const float k = rintf(u * 0.15915494309189535f);
-  const float r = u - k * 6.283185307179586f;
-  const float r2 = r * r;
-  const float p = 9.9999728997e-01f +
-                  r2 * (-1.6665146137e-01f +
-                        r2 * (8.3198438631e-03f + r2 * (-1.9424185428e-04f + r2 * 2.2248903691e-06f)));
-  return r * p;
-}
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~static_cast<size_t>(15); }
 

@@ -32,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "approx_sin.cuh"
+
 namespace {
 
 constexpr int TILE_T = 512;                 // outputs per block
@@ -51,18 +53,6 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
 __device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
   p[i] = __float2bfloat16(v);
-}
-
-// approx_sin of the JAX package: round-half-even range reduction to
-// [-pi, pi], then an odd degree-9 polynomial
-__device__ __forceinline__ float poly_sin(float u) {
-  const float k = rintf(u * 0.15915494309189535f);
-  const float r = u - k * 6.283185307179586f;
-  const float r2 = r * r;
-  const float p = 9.9999728997e-01f +
-                  r2 * (-1.6665146137e-01f +
-                        r2 * (8.3198438631e-03f + r2 * (-1.9424185428e-04f + r2 * 2.2248903691e-06f)));
-  return r * p;
 }
 
 template <typename T, bool POLY_SIN>

@@ -1,10 +1,12 @@
 """The IndexTTS inference engine on PyTorch (port of indextts_tpu/engine.py:
-the single-request `infer` path and the bucketed batch `infer_fast` path).
+the single-request `infer` path, the bucketed batch `infer_fast` path and the
+streaming `infer_stream` path).
 
 Public surface as the reference engine (indextts/infer.py: class IndexTTS):
 __init__(cfg_path, model_dir, is_fp16, device, use_cuda_kernel), infer(),
 infer_fast(), extract_features(), remove_long_silence(), bucket_sentences(),
-pad_tokens_cat(). Underneath, PyTorch runs eagerly on `device` (default
+pad_tokens_cat(), and the JAX engine's infer_stream(), a generator of
+float32 chunks. Underneath, PyTorch runs eagerly on `device` (default
 "cuda"), in bf16 there when `is_fp16`, with the fused anti-aliased activation
 kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
 `quant_kv` selects the int8 KV cache, as in the JAX engine; int8 GPT weights
@@ -14,7 +16,11 @@ decode takes the reference's generation kwargs with their defaults: beam
 search with num_beams=3, sampled (models/gpt_decode.generate_speech_beam);
 `fast_latents` keeps the latents the decode computes and skips the
 teacher-forced pass where silence removal left the codes as they were.
-INDEXTTS_WIDE_BRANCH=1 sends the vocoder's wide half-branches through K2.
+A request with max_mel_tokens >= 320 decodes with a KV cache that grows by
+segments of 160 (generate_speech_segmented / generate_speech_beam_segmented),
+as in the JAX engine. INDEXTTS_WIDE_BRANCH=1 sends the vocoder's wide
+half-branches through K2, INDEXTTS_WIDE_TMAJOR=1 its wide activations through
+K3 (models/bigvgan.py).
 
 The same shape buckets as the JAX engine are kept, because padding changes
 numbers: text is padded with stop_text_token to a multiple of 8, codes to a
@@ -22,8 +28,8 @@ multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
 relative lengths), vocoder latents to a multiple of 16 (32 in the batched
 vocoder of infer_fast).
 
-Not ported yet (see ROADMAP.md): loading checkpoints, segmented decoding,
-streaming, infer_batch, slots and the server.
+Not ported yet (see ROADMAP.md): loading checkpoints, infer_batch, slots,
+warmup and the server.
 """
 
 from __future__ import annotations
@@ -40,10 +46,22 @@ import torch
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
 from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
 from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
-from indextts_tpu_torch.models.gpt_decode import GenerationConfig, generate_speech, generate_speech_beam
+from indextts_tpu_torch.models.gpt_decode import (
+    GenerationConfig,
+    decode_steps,
+    generate_speech,
+    generate_speech_beam,
+    generate_speech_beam_segmented,
+    generate_speech_segmented,
+    prefill_decode_state,
+)
 from indextts_tpu_torch.utils.audio import decode_audio, resample, write_wav
 from indextts_tpu_torch.utils.front import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
+
+
+# a request whose max_mel_tokens reaches two segments decodes with a growing cache
+DECODE_SEGMENT = 160
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,8 +142,10 @@ class IndexTTS:
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._value_cache: Dict[Any, Any] = {}
         self._feature_cache: Dict[Any, np.ndarray] = {}
-        # stage times and counts of the last infer() / infer_fast() call
+        # stage times and counts of the last infer() / infer_fast() / infer_stream() call
         self.last_stats: Dict[str, Any] = {}
+        # segments the segmented decode loops ran since a request last zeroed it
+        self._decode_segments = 0
 
     # ------------------------------------------------------------------
     # features / host helpers (reference: infer.py:82-329)
@@ -251,9 +271,10 @@ class IndexTTS:
     def _gpt_generate(self, conds, text_tokens: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig,
                       temperature, top_p, repetition_penalty, length_penalty=0.0, typical_mass=0.9):
         """The decode over text padded to its bucket: beam search when
-        gen.num_beams > 1, else greedy / sampled. Returns (codes, lengths) in
-        numpy, the captured latents [B, max_new, D] on the device under
-        fast_latents (else None), and the number of decode steps run."""
+        gen.num_beams > 1, else greedy / sampled; with the segment-growing
+        cache from gen.max_new_tokens >= 2 * DECODE_SEGMENT. Returns (codes,
+        lengths) in numpy, the captured latents [B, max_new, D] on the device
+        under fast_latents (else None), and the number of decode steps run."""
         b, l0 = text_tokens.shape
         padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
         padded[:, :l0] = text_tokens
@@ -265,11 +286,18 @@ class IndexTTS:
                   typical_mass=typical_mass, quant_kv=self.quant_kv, capture_latents=capture,
                   pos_off=1 if capture else 2)
         stats = {}
-        if gen.num_beams > 1:
+        if gen.max_new_tokens >= 2 * DECODE_SEGMENT:
+            kw.update(segment=DECODE_SEGMENT, stats=stats)
+            if gen.num_beams > 1:
+                out = generate_speech_beam_segmented(*args, length_penalty=length_penalty, **kw)
+            else:
+                out = generate_speech_segmented(*args, **kw)
+        elif gen.num_beams > 1:
             out = generate_speech_beam(*args, length_penalty=length_penalty, stats=stats, **kw)
         else:
             out = generate_speech(*args, **kw)
         codes, lengths = out[0].cpu().numpy(), out[1].cpu().numpy()
+        self._decode_segments += stats.get("segments", 0)
         steps = stats.get("steps", int(lengths.max()) - 1)
         return codes, lengths, (out[2] if capture else None), steps
 
@@ -442,15 +470,19 @@ class IndexTTS:
                           "clamping.", RuntimeWarning)
         return max(1, min(int(n), cap))
 
-    def _parse_generation_kwargs(self, generation_kwargs):
+    def _parse_generation_kwargs(self, generation_kwargs, force_num_beams: Optional[int] = None):
         """The reference's generation kwargs with its defaults (infer.py:116-124).
-        Returns (gen, dynamic sampling params, max_mel_tokens)."""
+        Returns (gen, dynamic sampling params, max_mel_tokens).
+        `force_num_beams` overrides the num_beams knob (a stream cannot wait
+        for a beam search to pick its winner)."""
         do_sample = generation_kwargs.pop("do_sample", True)
         top_p = generation_kwargs.pop("top_p", 0.8)
         top_k = generation_kwargs.pop("top_k", 30)
         temperature = generation_kwargs.pop("temperature", 1.0)
         length_penalty = generation_kwargs.pop("length_penalty", 0.0)
         num_beams = generation_kwargs.pop("num_beams", 3)
+        if force_num_beams is not None:
+            num_beams = force_num_beams
         repetition_penalty = generation_kwargs.pop("repetition_penalty", 10.0)
         max_mel_tokens = self._clamp_mel_tokens(generation_kwargs.pop("max_mel_tokens", 600))
         typical_sampling = generation_kwargs.pop("typical_sampling", False)
@@ -503,6 +535,7 @@ class IndexTTS:
         wavs = []
         gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
         gpt_tokens = gpt_steps = tf_rows = 0
+        self._decode_segments = 0
         has_warned = False
         for sent in sentences:
             text_tokens = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int64)[None, :]
@@ -554,7 +587,8 @@ class IndexTTS:
         total = end_time - start_time
         self.last_stats = {
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
-            "gpt_calls": len(sentences), "gpt_steps": gpt_steps, "tf_latent_rows": tf_rows,
+            "gpt_calls": len(sentences), "gpt_steps": gpt_steps, "gpt_segments": self._decode_segments,
+            "tf_latent_rows": tf_rows,
             "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(sentences),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),
         }
@@ -566,6 +600,135 @@ class IndexTTS:
         print(f">> Generated audio length: {wav_length:.2f} seconds")
         print(f">> RTF: {total / max(wav_length, 1e-9):.4f}")
         return self._emit(wav, output_path, sampling_rate)
+
+    # ------------------------------------------------------------------
+    # streaming synthesis (the JAX engine's infer_stream; the reference has
+    # none): chunked vocoder calls between runs of decode steps
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _first_chunk(self, conds, tokens0: np.ndarray, gen: GenerationConfig, dyn, n_steps: int,
+                     prompt_mel: np.ndarray):
+        """Prefill + n_steps decode steps give w = n_steps + 1 codes; the
+        first chunk is their waveform. valid_n is the first stop code of the
+        window, or w. The latents (captured under fast_latents, else the
+        teacher-forced pass over the codes stop-padded to lc = round_up(w,
+        16)) are zeroed past valid_n, the vocoder runs on all lc frames and
+        the wav is cut to valid_n codes: a call on valid_n frames alone would
+        give other samples near the end, where the receptive field sees the
+        padding. Returns (wav [samples] float32, valid_n, state, ctx)."""
+        l0 = tokens0.shape[1]
+        padded = np.full((1, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
+        padded[:, :l0] = tokens0
+        fast = self.fast_latents
+        pos_off = 1 if fast else 2
+        state, ctx = prefill_decode_state(
+            self.gpt, self.cfg.gpt, gen, conds.to(self.dtype), torch.from_numpy(padded).to(self.device),
+            torch.tensor([l0], dtype=torch.long, device=self.device), self._generator,
+            temperature=dyn["temperature"], top_p=dyn["top_p"], repetition_penalty=dyn["repetition_penalty"],
+            typical_mass=dyn["typical_mass"], quant_kv=self.quant_kv, capture_latents=fast,
+        )
+        state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, n_steps, pos_off=pos_off)
+        w = n_steps + 1
+        lc = max(_round_up(w, 16), 16)
+        codes_w = state.codes[:, :w].cpu().numpy()
+        stop_pos = np.nonzero(codes_w[0] == self.stop_mel_token)[0]
+        valid_n = int(stop_pos[0]) if stop_pos.size else w
+        if valid_n == 0:
+            return np.zeros((0,), np.float32), 0, state, ctx
+        if fast:
+            latent = state.lat[:, :w]
+        else:
+            latent = self._gpt_latent(conds, tokens0, codes_w, np.asarray([valid_n]))[:, :w]
+        latent = latent.clone()
+        latent[:, valid_n:] = 0
+        latent = torch.nn.functional.pad(latent, (0, 0, 0, lc - latent.shape[1]))
+        return self._vocode(latent, valid_n, prompt_mel)[0], valid_n, state, ctx
+
+    def infer_stream(
+        self,
+        prompt_mel=None,
+        text: str = "",
+        max_text_tokens_per_sentence: int = 120,
+        first_chunk_codes: int = 24,
+        chunk_codes: int = 96,
+        overlap_codes: int = 8,
+        audio_prompt: Optional[str] = None,
+        **generation_kwargs,
+    ):
+        """Generator of float32 wav chunks [samples], yielded as soon as their
+        codes exist: per sentence, the first chunk after first_chunk_codes
+        decode steps, then one after every chunk_codes steps, each from a
+        vocoder call on the new latent window with overlap_codes codes of
+        left context (trimmed from the output). The generation kwargs are
+        infer()'s; num_beams is forced to 1. The cache holds p + max_mel_tokens
+        slots (no segments inside a stream). last_stats is filled as the stream
+        runs: ttfa_s (this call to the first chunk, device synchronized),
+        chunk_s / chunk_codes per chunk, gpt_steps, vocoder_calls, and total_s
+        and audio_s once it is exhausted."""
+        start_time = time.perf_counter()
+        max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
+        prompt_mel = self._resolve_prompt(audio_prompt if prompt_mel is None else prompt_mel)
+        gen, dyn, _ = self._parse_generation_kwargs(generation_kwargs, force_num_beams=1)
+        # the chunk knobs must make progress and fit the codes buffer: the
+        # prefill itself emits one code, so the first chunk covers
+        # first_chunk_codes + 1 slots of max_new_tokens (0 extra steps when
+        # max_new_tokens is 1), and a chunk of no steps would never advance
+        first_chunk_codes = max(0, min(int(first_chunk_codes), gen.max_new_tokens - 1))
+        chunk_codes = max(1, int(chunk_codes))
+        overlap_codes = max(0, int(overlap_codes))
+        conds = self._conds_for(prompt_mel)
+        sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
+        if not sentences:
+            raise ValueError("Text is empty (nothing to synthesize after tokenization).")
+        spc = self._samples_per_code()
+        pos_off = 1 if self.fast_latents else 2
+        stats = self.last_stats = {"ttfa_s": None, "chunk_s": [], "chunk_codes": [], "gpt_calls": 0, "gpt_steps": 0,
+                                   "tf_latent_rows": 0, "vocoder_calls": 0, "total_s": None, "audio_s": 0.0}
+        mark = start_time
+
+        def emitted_chunk(wav: np.ndarray, n_codes: int) -> np.ndarray:
+            nonlocal mark
+            now = time.perf_counter()
+            if stats["ttfa_s"] is None:
+                stats["ttfa_s"] = now - start_time
+            stats["chunk_s"].append(now - mark)
+            stats["chunk_codes"].append(n_codes)
+            stats["vocoder_calls"] += 1
+            stats["audio_s"] += wav.size / 24000
+            mark = now
+            return wav.astype(np.float32)
+
+        for sent in sentences:
+            tokens0 = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int64)[None, :]
+            wav, valid_n, state, ctx = self._first_chunk(conds, tokens0, gen, dyn, first_chunk_codes, prompt_mel)
+            stats["gpt_calls"] += 1
+            stats["tf_latent_rows"] += int(valid_n > 0 and not self.fast_latents)
+            if valid_n > 0:
+                yield emitted_chunk(wav, valid_n)
+            emitted = valid_n
+            while not bool(state.done.all()) and state.i + 1 < gen.max_new_tokens:
+                with torch.no_grad():
+                    state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, chunk_codes, pos_off=pos_off)
+                n_codes = state.i + 1
+                # only completed (non-stop) codes are vocoded
+                codes_np = state.codes[:, :n_codes].cpu().numpy()
+                stop_pos = np.nonzero(codes_np[0] == self.stop_mel_token)[0]
+                valid_n = int(stop_pos[0]) if stop_pos.size else n_codes
+                if valid_n > emitted:
+                    begin = max(emitted - overlap_codes, 0)
+                    if self.fast_latents:
+                        latent = state.lat[:, :valid_n]
+                    else:
+                        latent = self._gpt_latent(conds, tokens0, codes_np[:, :valid_n], np.asarray([valid_n]))
+                        stats["tf_latent_rows"] += 1
+                    wav = self._vocode(latent[:, begin:valid_n], valid_n - begin, prompt_mel)
+                    chunk = wav[0, (emitted - begin) * spc:]  # drop the overlap's samples
+                    if chunk.size:
+                        yield emitted_chunk(chunk, valid_n - emitted)
+                    emitted = valid_n
+            stats["gpt_steps"] += state.i
+        stats["total_s"] = time.perf_counter() - start_time
 
     def infer_fast(
         self,
@@ -611,6 +774,7 @@ class IndexTTS:
         all_sentences = self.bucket_sentences(sentences, bucket_max_size=bucket_max_size)
         all_batch_codes, all_batch_lens, all_batch_lats, all_text_tokens = [], [], [], []
         gpt_steps = 0
+        self._decode_segments = 0
         for bucket in all_sentences:
             item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(item["sent"]), np.int64)[None, :]
                            for item in bucket]
@@ -667,7 +831,8 @@ class IndexTTS:
         gpt_tokens = sum(int(lens.max()) for lens in all_batch_lens)
         self.last_stats = {
             "cond_s": cond_time, "gpt_gen_s": gpt_gen_time, "gpt_tokens": gpt_tokens,
-            "gpt_calls": len(all_sentences), "gpt_steps": gpt_steps, "tf_latent_rows": len(rows),
+            "gpt_calls": len(all_sentences), "gpt_steps": gpt_steps, "gpt_segments": self._decode_segments,
+            "tf_latent_rows": len(rows),
             "decode_batches": [len(b) for b in all_sentences],
             "gpt_forward_s": gpt_forward_time, "bigvgan_s": bigvgan_time, "vocoder_calls": len(self._vocode_batches(chunk_args)),
             "total_s": total, "audio_s": wav_length, "rtf": total / max(wav_length, 1e-9),

@@ -14,9 +14,16 @@ is K1's plain version — and to the composed path otherwise. With
 INDEXTTS_WIDE_BRANCH=1 (read once per bigvgan_apply call, as the JAX
 package's _amp_block1 reads it) and `use_cuda_kernel`, each AMPBlock1
 half-branch of a stage with C >= 128 (activation, then its conv) is one call
-of the fused kernel K2 (ops/cuda/aa_conv_branch.py). The JAX package's phase
-folding and its INDEXTTS_WIDE_TMAJOR/POLY/PHASE, INDEXTTS_FOLD_* and
-INDEXTTS_FUSED_AA knobs are not ported yet or are TPU layouts (ROADMAP.md).
+of the fused kernel K2 (ops/cuda/aa_conv_branch.py). With
+INDEXTTS_WIDE_TMAJOR=1 (read the same way) and `use_cuda_kernel`, every
+activation at C >= 128 that K2 has not taken goes to K3
+(ops/cuda/antialias_tmajor.py): its CUDA-core body, or with
+INDEXTTS_WIDE_TMAJOR_MXU=1 its tensor-core body; INDEXTTS_WIDE_TMAJOR_POLY=1
+forces the polynomial sin. As in the JAX package's _amp_block1, the
+wide-branch switch is tested first, so with both set K3 sees no resblock
+activation. The JAX package's phase folding and its INDEXTTS_WIDE_POLY/PHASE,
+INDEXTTS_FOLD_* and INDEXTTS_FUSED_AA knobs are not ported yet or are TPU
+layouts (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from indextts_tpu_torch.models.ecapa import ECAPA
 from indextts_tpu_torch.ops.antialias import activation1d
 from indextts_tpu_torch.ops.cuda.aa_conv_branch import fused_aa_snake_dconv
 from indextts_tpu_torch.ops.cuda.antialias import fused_anti_alias_snake
+from indextts_tpu_torch.ops.cuda.antialias_tmajor import fused_anti_alias_snake_tmajor
 from indextts_tpu_torch.weights import fan_in, normal_, uniform_
 
 
@@ -151,13 +159,24 @@ def bigvgan_apply(
     lens: ECAPA relative lengths [B]. Returns the waveform [B, T_wav, 1].
     `speaker_embedding` [B, 1, spk_dim] may be given precomputed. With
     `use_cuda_kernel` and INDEXTTS_WIDE_BRANCH=1 the AMPBlock1 half-branches
-    of the C >= 128 stages go through K2, the other activations through K1."""
+    of the C >= 128 stages go through K2; with INDEXTTS_WIDE_TMAJOR=1 the
+    remaining activations at C >= 128 through K3 (INDEXTTS_WIDE_TMAJOR_MXU=1:
+    its tensor-core body; INDEXTTS_WIDE_TMAJOR_POLY=1: the polynomial sin);
+    the other activations through K1."""
     if speaker_embedding is None:
         speaker_embedding = model.speaker_encoder(mel_ref, lens)
     # cast to the trunk dtype, or a bf16 trunk silently turns float32
     spk = speaker_embedding.to(x.dtype).transpose(1, 2)  # [B, spk_dim, 1]
 
+    env = os.environ.get
+    wide_tmajor = use_cuda_kernel and env("INDEXTTS_WIDE_TMAJOR", "") == "1"
+    tmajor_mxu = env("INDEXTTS_WIDE_TMAJOR_MXU", "") == "1"
+    tmajor_poly = True if env("INDEXTTS_WIDE_TMAJOR_POLY", "") == "1" else None
+
     def act(p: SnakeParams, y: torch.Tensor) -> torch.Tensor:
+        if wide_tmajor and y.shape[1] >= 128:
+            return fused_anti_alias_snake_tmajor(y, p.alpha, p.beta, h.snake_logscale, mxu=tmajor_mxu,
+                                                 poly_sin=tmajor_poly)
         if use_cuda_kernel:
             return fused_anti_alias_snake(y, p.alpha, p.beta, h.snake_logscale)
         return activation1d(y, p.alpha, p.beta, h.snake_logscale)
@@ -165,7 +184,7 @@ def bigvgan_apply(
     def branch(p: SnakeParams, conv: nn.Conv1d, y: torch.Tensor) -> torch.Tensor:
         return fused_aa_snake_dconv(y, p.alpha, p.beta, conv.weight, conv.bias, conv.dilation[0], h.snake_logscale)
 
-    wide_branch = use_cuda_kernel and os.environ.get("INDEXTTS_WIDE_BRANCH", "") == "1"
+    wide_branch = use_cuda_kernel and env("INDEXTTS_WIDE_BRANCH", "") == "1"
     y = x.transpose(1, 2)  # [B, D, T]
     if h.feat_upsample:
         y = linear_interp_x4(y)

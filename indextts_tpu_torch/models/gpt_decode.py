@@ -1,7 +1,7 @@
 """Autoregressive decode for UnifiedVoice: prefill plus a KV-cached loop
 (port of indextts_tpu/models/gpt_decode.py: greedy, sampled and beam search,
 typical sampling, latent capture, with the bf16 / float32 or the int8 KV
-cache).
+cache, monolithic or with a cache that grows by segments).
 
   * prepare_gpt_inputs builds the left-padded [pad][cond][text][start]
     embedding layout and key mask of model.py:591-654.
@@ -27,12 +27,18 @@ cache).
     H, S, Dh], its rows reordered with index_select after every step (the
     JAX package resolves beam lineage inside attention instead, to avoid a
     TPU relayout). The beam helpers (_beam_joint_scores, _select_successors,
-    _beam_stop_bound_base, _beam_step, _beam_finalize) are one set, shared
-    by generate_speech_beam and the tests.
+    _beam_stop_bound_base, _beam_step, _beam_finalize) are one set, and
+    _BeamLoop is the one loop built on them, shared by generate_speech_beam
+    and generate_speech_beam_segmented.
+  * The segmented loops (generate_speech_segmented,
+    generate_speech_beam_segmented) start with a cache of p + segment slots
+    and grow it by `segment` between runs of steps (grow_cache), so a
+    step's attention reads the slots written so far and not the whole
+    max_new_tokens budget. They give the monolithic loops' codes; PyTorch
+    runs eagerly, so there is nothing to compile per segment and the JAX
+    functions' jit_cache argument has no counterpart.
 
-Not ported yet (see ROADMAP.md): segmented decoding and forced input_tokens
-prefixes. The JAX package's monolithic decode loops are the contract: its
-segmented ones are pinned bit-exact to them.
+Not ported yet (see ROADMAP.md): forced input_tokens prefixes.
 """
 
 from __future__ import annotations
@@ -254,16 +260,19 @@ def prefill_decode_state(
     quant_kv: bool = False,
     typical_mass: float = 0.9,
     capture_latents: bool = False,
+    cache_len: Optional[int] = None,
 ) -> Tuple[DecodeState, DecodeContext]:
     """Prefill + first token. Returns the loop state and its context; the
     cache is int8 with quant_kv. capture_latents gives the state a latent
-    buffer whose slot 0 is the prefill's last final-norm hidden."""
+    buffer whose slot 0 is the prefill's last final-norm hidden. cache_len
+    (default p + max_new_tokens) allocates a shorter cache, to be extended
+    with grow_cache before decode_steps writes past it."""
     b = text_tokens.shape[0]
     dev = text_tokens.device
     emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
     p = emb.shape[1]
     max_new = gen.max_new_tokens
-    s_max = p + max_new
+    s_max = p + max_new if cache_len is None else int(cache_len)
     logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
                                    return_hidden=capture_latents)
     seen = _initial_seen(cfg, b, dev)
@@ -293,6 +302,21 @@ def _initial_seen(cfg: GPTConfig, rows: int, dev) -> torch.Tensor:
     seen[:, 1] = True
     seen[:, cfg.start_mel_token] = True
     return seen
+
+
+def _pad_slots(cache: Tuple[torch.Tensor, ...], extra: int) -> Tuple[torch.Tensor, ...]:
+    """A cache with `extra` zero slots appended: (k, v) [L, B, H, S, Dh] or
+    int8 (k8, ks, v8, vs) with the scales [L, B, H/2, S]."""
+    return tuple(torch.nn.functional.pad(c, (0, 0, 0, extra) if c.dim() == 5 else (0, extra)) for c in cache)
+
+
+def grow_cache(state: DecodeState, ctx: DecodeContext, extra: int) -> Tuple[DecodeState, DecodeContext]:
+    """Extend the state's KV cache, either kind, and the context's key mask
+    by `extra` slots (the transition between two segments: each runs against
+    the smallest cache that fits its steps). Updates both in place."""
+    state.cache = _pad_slots(state.cache, extra)
+    ctx.prefill_valid = torch.nn.functional.pad(ctx.prefill_valid, (0, extra))
+    return state, ctx
 
 
 def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext, n_steps: int,
@@ -354,14 +378,67 @@ def generate_speech(
         temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
         typical_mass=typical_mass, capture_latents=capture_latents,
     )
-    max_new = gen.max_new_tokens
-    state = decode_steps(model, cfg, state, ctx, max_new - 1, pos_off=pos_off)
+    state = decode_steps(model, cfg, state, ctx, gen.max_new_tokens - 1, pos_off=pos_off)
+    return _finish(cfg, state, capture_latents)
+
+
+def _finish(cfg: GPTConfig, state: DecodeState, capture_latents: bool):
+    """(codes, lengths[, lat]) of a finished greedy / sampled state."""
+    max_new = state.codes.shape[1]
     is_stop = state.codes == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
     lengths = torch.where(is_stop.any(dim=1), first_stop + 1, torch.full_like(first_stop, max_new))
     if capture_latents:
         return state.codes, lengths, state.lat
     return state.codes, lengths
+
+
+@torch.no_grad()
+def generate_speech_segmented(
+    model: UnifiedVoice,
+    cfg: GPTConfig,
+    gen: GenerationConfig,
+    conds: torch.Tensor,
+    text_tokens: torch.Tensor,
+    text_lengths: torch.Tensor,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_p: float = 0.8,
+    repetition_penalty: float = 10.0,
+    pos_off: int = 2,
+    quant_kv: bool = False,
+    typical_mass: float = 0.9,
+    capture_latents: bool = False,
+    segment: int = 160,
+    stats: Optional[dict] = None,
+):
+    """generate_speech with a KV cache that grows by segments: the same
+    sampling state machine and outputs, but segment k runs against a cache
+    of p + min(segment * (k + 1), max_new) slots, so a step's attention
+    reads scale with the generated length and not with max_new_tokens. The
+    first segment runs the prefill and segment - 1 steps; between segments
+    the host checks whether every row has stopped and skips the rest.
+    `stats`, a dict, receives "segments", the segments run."""
+    max_new = gen.max_new_tokens
+    n_segments = -(-max_new // segment)
+    p = conds.shape[1] + text_tokens.shape[1] + 2 + 1
+    state, ctx = prefill_decode_state(
+        model, cfg, gen, conds, text_tokens, text_lengths, generator,
+        temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
+        typical_mass=typical_mass, capture_latents=capture_latents, cache_len=p + min(segment, max_new),
+    )
+    state = decode_steps(model, cfg, state, ctx, segment - 1, pos_off=pos_off)
+    ran = 1
+    for k in range(1, n_segments):
+        if bool(state.done.all()):
+            break
+        cache_len = p + min(segment * (k + 1), max_new)
+        grow_cache(state, ctx, cache_len - ctx.prefill_valid.shape[1])
+        state = decode_steps(model, cfg, state, ctx, cache_len - p - segment * k, pos_off=pos_off)
+        ran += 1
+    if stats is not None:
+        stats["segments"] = ran
+    return _finish(cfg, state, capture_latents)
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +579,106 @@ def _beam_finalize(codes: torch.Tensor, beam_scores: torch.Tensor, best: BeamBes
     return final_codes, final_len, torch.where(pick_live[:, None, None], lat[live_flat], best.lat)
 
 
+class _BeamLoop:
+    """The beam search loop, shared by generate_speech_beam and
+    generate_speech_beam_segmented: prefill (once per batch row, the cache
+    repeated to [L, B*nb, H, S, Dh], row b*nb + m is beam m of row b), the
+    first successor choice, then run(n) for up to n decode steps and grow(n)
+    for n more cache and latent slots. After every step the cache rows, both
+    kinds ((k, v) or int8 (k8, ks, v8, vs)), follow their beams by
+    index_select. Iteration i consumes the code at codes[:, i], writes cache
+    slot p+i at mel position i+pos_off and chooses codes[:, i+1]. `gen_slots`
+    is the number of generated-token slots the cache and the latent buffer
+    start with."""
+
+    def __init__(self, model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
+                 repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, gen_slots):
+        self.model, self.cfg, self.gen = model, cfg, gen
+        self.nb = nb = gen.num_beams
+        self.b = b = text_tokens.shape[0]
+        self.length_penalty, self.pos_off, self.capture = length_penalty, pos_off, capture_latents
+        self.max_new = max_new = gen.max_new_tokens
+        bb = b * nb
+        dev = text_tokens.device
+        emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
+        self.p = p = emb.shape[1]
+        logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, p + gen_slots, quant_kv=quant_kv,
+                                       return_hidden=capture_latents)
+        self.cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
+        logits0 = logits0.repeat_interleave(nb, dim=0)
+        self.prefill_valid = torch.nn.functional.pad(prefill_mask, (0, gen_slots)).repeat_interleave(nb, dim=0)
+        self.seen = _initial_seen(cfg, bb, dev)
+        self.lat = None
+        if capture_latents:
+            self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
+            self.lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
+        self.joint_fn = lambda logits, seen, scores: _beam_joint_scores(
+            logits, seen, scores, gen, temperature, top_p, repetition_penalty, typical_mass)
+        self.select = lambda cand: _select_successors(cand, generator, gen, nb)
+        beam_scores = torch.full((b, nb), NEG_INF, device=dev)
+        beam_scores[:, 0] = 0.0
+        self.beam_scores = beam_scores.reshape(-1)
+        self.codes = torch.full((bb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
+        self.best = BeamBest(score=torch.full((b,), NEG_INF, device=dev),
+                             codes=torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev),
+                             length=torch.zeros((b,), dtype=torch.long, device=dev),
+                             lat=None if self.lat is None else self.lat.new_zeros((b,) + self.lat.shape[1:]))
+        self.i = 0
+        # the beams of a row are copies until the first decode step writes, so
+        # the first selection needs no cache reorder
+        _, self.cur = self._select(0, logits0)
+
+    def _select(self, si, logits):
+        self.codes, self.beam_scores, self.seen, flat_src, nxt = _beam_step(
+            self.cfg, self.gen, si, logits, self.codes, self.beam_scores, self.seen, self.best, self.joint_fn,
+            self.select, self.b, self.nb, length_penalty=self.length_penalty, prefill_len=self.p, lat=self.lat)
+        if self.lat is not None:
+            self.lat = self.lat[flat_src]
+        return flat_src, nxt
+
+    def live(self) -> bool:
+        """Whether another step can still change the result: steps are left,
+        and (under early_stopping) some live beam's best reachable score beats
+        the best finished hypothesis. One host check."""
+        if self.i >= self.max_new - 1:
+            return False
+        if not self.gen.early_stopping:
+            return True
+        base = _beam_stop_bound_base(self.length_penalty, self.p, self.max_new, self.i)
+        bound = self.beam_scores.reshape(self.b, self.nb).max(dim=1).values / base ** float(self.length_penalty)
+        return bool((bound > self.best.score).any())
+
+    def run(self, n_steps: int) -> None:
+        stop = self.i + n_steps
+        positions = torch.arange(self.prefill_valid.shape[1], device=self.codes.device)[None, :]
+        while self.i < stop and self.live():
+            i, p = self.i, self.p
+            valid = self.prefill_valid | ((positions >= p) & (positions < p + i))
+            logits = _decode_step(self.model, self.cfg, self.cur, i + self.pos_off, self.cache, p + i, valid,
+                                  return_hidden=self.capture)
+            if self.capture:
+                logits, self.lat[:, i + 1] = logits
+            flat_src, self.cur = self._select(i + 1, logits)
+            self.cache = tuple(c.index_select(1, flat_src) for c in self.cache)
+            self.i = i + 1
+
+    def grow(self, extra: int) -> None:
+        """`extra` more generated-token slots: the cache, the key mask and,
+        under capture, the beams' and the finished hypotheses' latents."""
+        self.cache = _pad_slots(self.cache, extra)
+        self.prefill_valid = torch.nn.functional.pad(self.prefill_valid, (0, extra))
+        if self.lat is not None:
+            self.lat = torch.nn.functional.pad(self.lat, (0, 0, 0, extra))
+            self.best.lat = torch.nn.functional.pad(self.best.lat, (0, 0, 0, extra))
+
+    def finalize(self):
+        if self.lat is not None and self.lat.shape[1] < self.max_new:  # stopped before the last segment
+            pad = (0, 0, 0, self.max_new - self.lat.shape[1])
+            self.lat, self.best.lat = (torch.nn.functional.pad(t, pad) for t in (self.lat, self.best.lat))
+        return _beam_finalize(self.codes, self.beam_scores, self.best, self.b, self.nb, self.max_new,
+                              self.length_penalty, self.p, lat=self.lat)
+
+
 @torch.no_grad()
 def generate_speech_beam(
     model: UnifiedVoice,
@@ -523,80 +700,63 @@ def generate_speech_beam(
 ):
     """Beam search (gen.num_beams = nb > 1): HF beam_search, or beam_sample
     with gen.do_sample, with JAX's admissible early stop (checked once a
-    step on the host). The prefill runs once per batch row and its cache is
-    repeated to [L, B*nb, H, S, Dh] (row b*nb + m is beam m of row b); after
-    every step the cache rows, both kinds ((k, v) or int8 (k8, ks, v8, vs)),
-    follow their beams by index_select. Iteration i consumes the code at
-    codes[:, i], writes cache slot p+i at mel position i+pos_off and chooses
-    codes[:, i+1].
+    step on the host), over a cache of p + max_new_tokens slots (_BeamLoop).
 
     Returns (codes [B, max_new], lengths [B]) of the best hypothesis, and
     with capture_latents its latents [B, max_new, D] (slot j predicted code
     j; pos_off=1 for the teacher-forced pass's positions): the latent buffer
     is reordered with the beams, and a finished hypothesis keeps a copy.
     `stats`, a dict, receives "steps", the decode steps the loop ran."""
-    nb = gen.num_beams
-    b = text_tokens.shape[0]
-    bb = b * nb
-    dev = text_tokens.device
     max_new = gen.max_new_tokens
-    emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
-    p = emb.shape[1]
-    s_max = p + max_new
-    logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
-                                   return_hidden=capture_latents)
-    cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
-    logits0 = logits0.repeat_interleave(nb, dim=0)
-    prefill_valid = torch.nn.functional.pad(prefill_mask, (0, max_new)).repeat_interleave(nb, dim=0)
-    positions = torch.arange(s_max, device=dev)[None, :]
-    seen = _initial_seen(cfg, bb, dev)
-    lat = None
-    if capture_latents:
-        lat = emb.new_zeros((bb, max_new, emb.shape[-1]))
-        lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
-
-    def joint_fn(logits, seen_, beam_scores_):
-        return _beam_joint_scores(logits, seen_, beam_scores_, gen, temperature, top_p, repetition_penalty,
-                                  typical_mass)
-
-    def select(cand):
-        return _select_successors(cand, generator, gen, nb)
-
-    beam_scores = torch.full((b, nb), NEG_INF, device=dev)
-    beam_scores[:, 0] = 0.0
-    beam_scores = beam_scores.reshape(-1)
-    codes = torch.full((bb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
-    best = BeamBest(score=torch.full((b,), NEG_INF, device=dev),
-                    codes=torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev),
-                    length=torch.zeros((b,), dtype=torch.long, device=dev),
-                    lat=None if lat is None else lat.new_zeros((b,) + lat.shape[1:]))
-
-    def step(si, logits):
-        nonlocal codes, beam_scores, seen, lat
-        codes, beam_scores, seen, flat_src, nxt = _beam_step(
-            cfg, gen, si, logits, codes, beam_scores, seen, best, joint_fn, select, b, nb,
-            length_penalty=length_penalty, prefill_len=p, lat=lat)
-        if lat is not None:
-            lat = lat[flat_src]
-        return flat_src, nxt
-
-    # the beams of a row are copies until the first decode step writes, so
-    # the first selection needs no cache reorder
-    _, cur = step(0, logits0)
-    i = 0
-    while i < max_new - 1:
-        if gen.early_stopping:
-            base = _beam_stop_bound_base(length_penalty, p, max_new, i)
-            bound = beam_scores.reshape(b, nb).max(dim=1).values / base ** float(length_penalty)
-            if not bool((bound > best.score).any()):
-                break
-        valid = prefill_valid | ((positions >= p) & (positions < p + i))
-        logits = _decode_step(model, cfg, cur, i + pos_off, cache, p + i, valid, return_hidden=capture_latents)
-        if capture_latents:
-            logits, lat[:, i + 1] = logits
-        flat_src, cur = step(i + 1, logits)
-        cache = tuple(c.index_select(1, flat_src) for c in cache)
-        i += 1
+    loop = _BeamLoop(model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
+                     repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, max_new)
+    loop.run(max_new - 1)
     if stats is not None:
-        stats["steps"] = i
-    return _beam_finalize(codes, beam_scores, best, b, nb, max_new, length_penalty, p, lat=lat)
+        stats["steps"] = loop.i
+    return loop.finalize()
+
+
+@torch.no_grad()
+def generate_speech_beam_segmented(
+    model: UnifiedVoice,
+    cfg: GPTConfig,
+    gen: GenerationConfig,
+    conds: torch.Tensor,
+    text_tokens: torch.Tensor,
+    text_lengths: torch.Tensor,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_p: float = 0.8,
+    repetition_penalty: float = 10.0,
+    length_penalty: float = 0.0,
+    typical_mass: float = 0.9,
+    quant_kv: bool = False,
+    capture_latents: bool = False,
+    pos_off: int = 2,
+    segment: int = 160,
+    stats: Optional[dict] = None,
+):
+    """generate_speech_beam with the generated part of the cache, and the
+    latent buffers, growing by `segment` slots between runs of steps: the
+    index_select reorder and the attention of a step then move the slots
+    written so far, not the whole max_new_tokens budget. The same loop and
+    the same outputs, token for token; between segments the host makes the
+    loop's own early-stop check and skips the rest. `stats` receives "steps"
+    and "segments"."""
+    max_new = gen.max_new_tokens
+    n_segments = -(-max_new // segment)
+    loop = _BeamLoop(model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
+                     repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off,
+                     min(segment, max_new))
+    loop.run(min(segment, max_new) - 1)
+    ran = 1
+    for k in range(1, n_segments):
+        if not loop.live():
+            break
+        slots = min(segment * (k + 1), max_new)
+        loop.grow(slots - segment * k)
+        loop.run(slots - segment * k)
+        ran += 1
+    if stats is not None:
+        stats["steps"], stats["segments"] = loop.i, ran
+    return loop.finalize()

@@ -3,8 +3,8 @@ with ctypes.
 
 Each source has a plain C interface (no PyTorch headers), so nvcc builds it in
 seconds. The library goes to build/kernels/ beside the package, named by a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one loads the existing library. Nothing here runs at import time.
+hash of the source, the headers of csrc/ and the flags, so an edited source
+builds anew and an unchanged one loads the existing library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def load_library(source: str) -> ctypes.CDLL:
         if source in _loaded:
             return _loaded[source]
         src = CSRC_DIR / source
-        digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+        digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
         start = time.perf_counter()
         if not lib_path.exists():

@@ -12,6 +12,7 @@ import torch
 
 from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
 from indextts_tpu_torch.ops.cuda import antialias as k1
+from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
 from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
 # (K, N) of the GPT matmuls at the published IndexTTS-1.5 width: qkv, proj,
@@ -205,3 +206,106 @@ def test_k5_raises_instead_of_falling_back():
     with pytest.raises(ValueError):
         k5.int8_matmul(torch.zeros(64, 2, device="cuda", dtype=torch.bfloat16).t(), wq, scale, bias)
     assert k5.launches == before
+
+
+# K3 at the three wide stages of a ~100-code vocoder call (B = 1 and 4), and at
+# odd shapes: C of no row tile with T of no tile; T of no 16-byte vector; T
+# shorter than the stencil
+K3_SHAPES = [(1, 768, 1600), (4, 768, 1600), (1, 384, 6400), (4, 384, 6400), (1, 192, 12800), (4, 192, 12800),
+             (1, 130, 1000), (2, 130, 1003), (1, 8, 5)]
+
+
+def _k3_inputs(b, c, t, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, c, t, device="cuda", generator=g).to(dtype)
+    return x, 0.3 * torch.randn(c, device="cuda", generator=g), 0.3 * torch.randn(c, device="cuda", generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("b,c,t", K3_SHAPES)
+def test_k3_bodies_match_plain(b, c, t, mxu, dtype):
+    """The CUDA-core and the tensor-core body within
+    anti_alias_snake_tmajor_bound of their plain versions; float32 also within
+    2e-5 of the composed path with the exact sin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from indextts_tpu_torch.ops.antialias import activation1d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, alpha, beta = _k3_inputs(b, c, t, dtype)
+    before = k3.launches
+    out = k3.fused_anti_alias_snake_tmajor(x, alpha, beta, True, mxu=mxu)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1 and out.shape == x.shape and out.dtype == dtype
+    ref = k3.anti_alias_snake_tmajor_plain(x, alpha, beta, True, mxu=mxu)
+    err = (out.float() - ref.float()).abs()
+    ratio = (err / k3.anti_alias_snake_tmajor_bound(x, alpha, beta, ref, True, mxu=mxu)).max().item()
+    assert ratio <= 1.0, (ratio, err.max().item())
+    if dtype == torch.float32:
+        composed = activation1d(x, alpha, beta, True, approx_sin_=False)
+        assert (out - composed).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,t", K3_SHAPES)
+def test_k3_ident_is_bit_equal(b, c, t, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, alpha, beta = _k3_inputs(b, c, t, dtype)
+    before = k3.launches
+    out = k3.fused_anti_alias_snake_tmajor(x, alpha, beta, True, probe="ident")
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1 and torch.equal(out, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mxu", [False, True])
+def test_k3_poly_sin_and_snake_without_beta(mxu):
+    """poly_sin forced on float32 input (within the polynomial's error of the
+    exact sin, and equal to its own plain version), and Snake with beta=None
+    on a contiguous view whose data pointer is not 16-byte aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, alpha, _ = _k3_inputs(2, 192, 777, torch.float32, seed=3)
+    alpha = alpha.abs() + 0.1
+    exact = k3.fused_anti_alias_snake_tmajor(x, alpha, None, False, mxu=mxu)
+    poly = k3.fused_anti_alias_snake_tmajor(x, alpha, None, False, mxu=mxu, poly_sin=True)
+    ref = k3.anti_alias_snake_tmajor_plain(x, alpha, None, False, mxu=mxu, poly_sin=True)
+    torch.cuda.synchronize()
+    assert (poly - ref).abs().max().item() <= 2e-5
+    assert 1e-7 < (poly - exact).abs().max().item() <= 5e-4
+    # a slice whose data pointer is not 16-byte aligned takes the element-wise path
+    xb = torch.randn(16 * 256 + 1, device="cuda").to(torch.bfloat16)[1:].view(1, 16, 256)
+    assert xb.is_contiguous() and xb.data_ptr() % 16 != 0
+    a16 = alpha[:16].contiguous()
+    out = k3.fused_anti_alias_snake_tmajor(xb, a16, None, False, mxu=mxu)
+    refb = k3.anti_alias_snake_tmajor_plain(xb, a16, None, False, mxu=mxu)
+    ratio = ((out.float() - refb.float()).abs() / k3.anti_alias_snake_tmajor_bound(xb, a16, None, refb, False, mxu=mxu))
+    assert ratio.max().item() <= 1.0
+    assert torch.equal(k3.fused_anti_alias_snake_tmajor(xb, a16, None, False, probe="ident"), xb)
+
+
+@pytest.mark.cuda
+def test_k3_raises_instead_of_falling_back():
+    """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    alpha = torch.zeros(8, device="cuda")
+    before = k3.launches
+    with pytest.raises(TypeError):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda", dtype=torch.float16), alpha, alpha)
+    with pytest.raises(ValueError):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 64, 8, device="cuda").transpose(1, 2), alpha, alpha)
+    with pytest.raises(ValueError):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(8, 64, device="cuda"), alpha, alpha)
+    with pytest.raises(ValueError):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda"), alpha[:4], alpha)
+    with pytest.raises(ValueError):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda"), alpha.cpu(), alpha)
+    with pytest.raises(ValueError, match="probe"):
+        k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda"), alpha, alpha, probe="wrapper")
+    assert k3.launches == before
