@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1, K2, K3 and K5 kernels from
+  2. build   — nvcc builds the K1, K2, K3, K4 and K5 kernels from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
@@ -22,6 +22,13 @@ Phases, in order; any failure exits non-zero:
                bit-equal to its input; profiler and CUDA-event times and GB/s
                of each body with K1's at the same shape; odd shapes (C = 130,
                T not a multiple of a tile or of a 16-byte vector, T = 5);
+     k4      — K4 (anti_alias_snake_folded) at the three narrow stages
+               (C = 96, 48, 24), B = 1 and 4, bf16 and float32, against its
+               plain version (err against a stated bound; float32 also within
+               2e-5 of the composed path); Snake without beta, plain
+               parameters and odd shapes (C = 25, T = 1003, 1004, 5, 1);
+               profiler and CUDA-event times and GB/s with K1's and K3's ident
+               body's at the same shape;
   4. k5      — K5 (int8_matmul) against its plain version at the five GPT
                matmul shapes of the published width, M = 1, 4, 8, x bf16 and
                float32, TF32 off; CUDA-event and profiler device times for
@@ -47,6 +54,16 @@ Phases, in order; any failure exits non-zero:
                and 79 codes) of finite samples from 3 vocoder calls, K3 162
                and K1 165 launches; time to first audio and per-chunk times
                beside one infer (num_beams=1) of the same request;
+     serve   — the same width with fast_latents, INDEXTTS_FUSED_AA=1 and
+               INDEXTTS_WIDE_TMAJOR=1 (K4 54, K3 54, K1 1 launches per
+               vocoder call), max_mel_tokens=100: warmup(n_slots=4,
+               streaming=True); one infer_batch call of 4 requests over 2
+               prompts (one of two sentences) with the default generation
+               kwargs and per-request temperatures; a SlotSession of 4 slots
+               and chunk_steps=25 serving 8 sampled requests, one of them
+               streaming and one admitted while others are mid-decode; one
+               forced slot chunk profiled (host vs device); one vocoder call
+               under INDEXTTS_FUSED_AA=1 alone (K4 54, K1 55);
      int8    — the same width with quant_kv=True: the max |logit| drift of
                prefill + 16 forced decode steps with the int8 KV cache, and
                with int8 KV and int8 weights, against the bf16 cache (int8 KV
@@ -62,14 +79,18 @@ Phases, in order; any failure exits non-zero:
                on the CPU), the card's captured latents against its
                teacher-forced pass, greedy infer_stream under
                INDEXTTS_WIDE_TMAJOR=1 with and without _MXU (chunk sizes
-               equal, samples within tolerance, K3 on the card), and
-               infer_fast on int8 weights with the int8 KV cache;
+               equal, samples within tolerance, K3 on the card), greedy
+               infer_batch and infer_slots against per-request infer on both
+               devices, a vocoder call under INDEXTTS_FUSED_AA=1 (K4 on the
+               card, its plain version on the CPU), and infer_fast on int8
+               weights with the int8 KV cache;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
-`--phases a,b` (of kernel, k2, k3, k5, engine, beam, stream, int8, small) runs
+`--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
+small) runs
 only those phases after the build, for work on one of them: it prints no
 kernels line and no final line, and exits 3.
 """
@@ -94,6 +115,8 @@ K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
 K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
 K3_REPLACES = "indextts_tpu/ops/pallas/antialias_tmajor.py:163"
 K3_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake_tmajor.cu"
+K4_REPLACES = "indextts_tpu/ops/pallas/antialias_folded.py:111"
+K4_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake_folded.cu"
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s, dense
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -352,6 +375,85 @@ def k3_phase(card: str) -> dict:
         del x
     if failures:
         raise AssertionError(f"K3 disagrees with its plain version: {failures}")
+    return {"rows": rows}
+
+
+def k4_phase(card: str) -> dict:
+    """K4 at the narrow stages (C <= 96) of a ~100-code vocoder call."""
+    import torch
+
+    from indextts_tpu_torch.ops.antialias import activation1d
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_folded as k4
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+
+    g = torch.Generator(device="cuda").manual_seed(9753)
+    dtypes = (torch.bfloat16, torch.float32)
+    # (label, B, C, T, dtype, beta given, log-scale parameters, timed)
+    cases = [(label, b, c, t, dt, True, True, True) for label, c, t in STAGES[3:6] for b in (1, 4) for dt in dtypes]
+    # checked and not timed: Snake without beta, SnakeBeta with plain parameters,
+    # C of no tile and T of no chunk, T of no 16-byte vector (1003: neither
+    # dtype; 1004: float32 only), T shorter than the stencil, T = 1
+    cases += [(label, 1, c, t, dt, wb, ls, False) for label, c, t, wb, ls in
+              (("snake_no_beta", 96, 777, False, False), ("snakebeta_plain", 48, 2048, True, False),
+               ("odd_c25", 25, 1000, True, True), ("odd_t1003", 25, 1003, True, True),
+               ("odd_t1004", 25, 1004, True, True), ("tiny_t5", 8, 5, True, True), ("tiny_t1", 3, 1, True, True))
+              for dt in dtypes]
+    rows, failures = [], []
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for label, b, c, t, dtype, with_beta, logscale, timed in cases:
+        x = torch.randn(b, c, t, device="cuda", generator=g).to(dtype)
+        alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
+        beta = 0.3 * torch.randn(c, device="cuda", generator=g) if with_beta else None
+        if not logscale:
+            alpha = alpha.abs() + 0.1
+            beta = None if beta is None else beta.abs() + 0.1
+        kern = lambda: k4.fused_folded_aa(x, alpha, beta, logscale)
+        plain = lambda: k4.fused_folded_aa_plain(x, alpha, beta, logscale)
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out.float() - ref.float()).abs()
+        bound = k4.fused_folded_aa_bound(x, alpha, beta, ref, logscale)
+        ratio = (err / bound).max().item()
+        row = dict(case=label, B=b, C=c, T=t, dtype=str(dtype).replace("torch.", ""), beta=with_beta,
+                   logscale=logscale, max_abs_err=err.max().item(), err_over_bound=ratio)
+        if ratio > 1.0:  # where, for the failure message
+            at = int((err / bound).argmax())
+            row["worst"] = dict(index=at, out=out.flatten()[at].item(), ref=ref.flatten()[at].item(),
+                                bound=bound.flatten()[at].item(), channel=(at // t) % c,
+                                alpha=alpha[(at // t) % c].item(), beta=None if beta is None else beta[(at // t) % c].item())
+        ok = ratio <= 1.0
+        if dtype == torch.float32:  # the contract: the composed path, exact sin, within 2e-5
+            composed = activation1d(x, alpha, beta, logscale, approx_sin_=False)
+            row["max_abs_err_vs_composed"] = (out - composed).abs().max().item()
+            ok = ok and row["max_abs_err_vs_composed"] <= 2e-5
+        if timed:
+            iters = 10
+            others = {"k1": lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale),
+                      "k3_ident": lambda: k3.fused_anti_alias_snake_tmajor(x, alpha, beta, logscale, probe="ident")}
+            row["ms"], row["device_ms"] = cuda_time_ms(kern, iters), device_time_ms(kern, iters)
+            row["plain_ms"], row["device_plain_ms"] = cuda_time_ms(plain, iters), device_time_ms(plain, iters)
+            for name, fn in others.items():
+                row[f"{name}_ms"], row[f"{name}_device_ms"] = cuda_time_ms(fn, iters), device_time_ms(fn, iters)
+            best = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+            row["GBps"] = 2 * x.numel() * x.element_size() / (best * 1e-3) / 1e9  # x read once, z written once
+        row["ok"] = bool(ok)
+        rows.append(row)
+        line = (f"[k4] {label:15s} B={b} C={c:3d} T={t:6d} {row['dtype']:8s} beta={with_beta!s:5s} log={logscale!s:5s} "
+                f"err={row['max_abs_err']:.3e} (err/bound {ratio:.3f})")
+        if dtype == torch.float32:
+            line += f" vs composed {row['max_abs_err_vs_composed']:.2e}"
+        if timed:
+            line += (f" | device ms: K4 {fmt(row['device_ms'])} ({row['GBps']:.0f} GB/s) K1 {fmt(row['k1_device_ms'])} "
+                     f"K3 ident {fmt(row['k3_ident_device_ms'])} plain {fmt(row['device_plain_ms'])} | events ms: K4 "
+                     f"{row['ms']:.4f} K1 {row['k1_ms']:.4f} K3 ident {row['k3_ident_ms']:.4f} plain {row['plain_ms']:.4f}")
+        log(line + f"  [{card}]")
+        if not row["ok"]:
+            failures.append(row)
+        del x
+    if failures:
+        raise AssertionError(f"K4 disagrees with its plain version: {failures}")
     return {"rows": rows}
 
 
@@ -909,6 +1011,217 @@ def stream_phase(card: str) -> dict:
             "k1_launches": k1_total, "k3_launches": k3_total}
 
 
+def forced_slot_chunk(engine, steps: int = 16, n_slots: int = 4, cache_len: int = 256, max_new: int = 100) -> dict:
+    """Admit `n_slots` sampled rows into a slot state and run chunks of
+    `steps` slot steps, as SlotSession.tick runs them (per-row knob columns,
+    captured latents): host ms per step (second chunk, synchronized), device
+    ms and kernels per step (third chunk, torch.profiler)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+    from indextts_tpu_torch.models import gpt_slots as tslots
+
+    cfg, dev = engine.cfg.gpt, engine.device
+    gen = tdec.GenerationConfig(do_sample=True, num_beams=1, top_k=30, max_new_tokens=max_new)
+    g = torch.Generator(device=dev).manual_seed(0)
+    r = np.random.default_rng(11)
+    conds = engine._conds_for(engine.extract_features(PROMPT)).to(engine.dtype)
+    state = tslots.slot_state_init(cfg, gen, n_slots, cache_len, engine.dtype, device=dev, capture_latents=True)
+    for slot, n in enumerate((12, 9, 16, 5)[:n_slots]):
+        text = np.full((1, 16), cfg.stop_text_token, np.int64)
+        text[0, :n] = r.integers(0, cfg.number_text_tokens - 1, n)
+        prod = tslots.slot_prefill(engine.gpt, cfg, gen, conds, torch.from_numpy(text).to(dev),
+                                   torch.tensor([n], device=dev), g, capture_latents=True)
+        state = tslots.slot_admit(state, prod, slot, cfg)
+    col = lambda v: torch.full((n_slots,), v, device=dev)
+    knobs = dict(temperature=col(1.0), top_p=col(0.8), repetition_penalty=col(10.0), typical_mass=col(0.9))
+
+    def chunk():
+        nonlocal state
+        before = state.tick
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state = tslots.slot_steps(engine.gpt, cfg, gen, state, steps, g, pos_off=1, **knobs)
+        torch.cuda.synchronize()
+        if state.tick - before != steps or not bool(state.active.all()):
+            raise AssertionError(f"the forced slot chunk ran {state.tick - before} of {steps} steps")
+        return 1e3 * (time.perf_counter() - t) / steps
+
+    chunk()
+    host_ms = chunk()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk()
+    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    return {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+            "device_kernels_per_step": sum(e.count for e in events) / steps,
+            "device_idle_share": 1.0 - device_ms / host_ms, "rows": n_slots, "cache_slots": cache_len}
+
+
+def serve_phase(card: str) -> dict:
+    """This slice's main path: the serving entry points at the published
+    width, fast_latents, with INDEXTTS_FUSED_AA=1 and INDEXTTS_WIDE_TMAJOR=1:
+    every vocoder call launches K4 54, K3 54 and K1 1 times."""
+    import numpy as np
+    import torch
+
+    import indextts_tpu_torch.engine as engine_mod
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_folded as k4
+    from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+
+    voc = {"calls": 0}
+    apply = engine_mod.bigvgan_apply
+
+    def counting_apply(*a, **kw):
+        voc["calls"] += 1
+        return apply(*a, **kw)
+
+    def start():
+        k1.launches = k3.launches = k4.launches = voc["calls"] = 0
+
+    def launched(what: str, want=(54, 54, 1)) -> dict:
+        got = {"k4": k4.launches, "k3": k3.launches, "k1": k1.launches, "vocoder_calls": voc["calls"]}
+        if voc["calls"] < 1 or (got["k4"], got["k3"], got["k1"]) != tuple(n * voc["calls"] for n in want):
+            raise AssertionError(f"{what}: launches {got}, want K4 {want[0]}, K3 {want[1]}, K1 {want[2]} per vocoder call")
+        return got
+
+    engine_mod.bigvgan_apply = counting_apply
+    os.environ["INDEXTTS_FUSED_AA"] = os.environ["INDEXTTS_WIDE_TMAJOR"] = "1"
+    try:
+        t0 = time.perf_counter()
+        engine = flagship_engine(fast_latents=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        spc = engine._samples_per_code()
+        max_new = 100
+
+        # (a) what a server pays before it binds its port
+        start()
+        warm_s = engine.warmup(n_slots=4, streaming=True, verbose=False, max_mel_tokens=max_new)
+        warm = launched("warmup")
+        log(f"[serve] flagship built in {init_s:.1f} s; warmup(n_slots=4, streaming=True) at max_mel_tokens {max_new}: "
+            f"{warm_s:.2f} s, {warm['vocoder_calls']} vocoder calls [{card}]")
+
+        # (b) four requests over two prompts in one infer_batch call, beams, per-request temperature
+        mel = engine.extract_features(PROMPT)
+        half = np.ascontiguousarray(mel[..., : mel.shape[-1] // 2])
+        items = [(mel, "HELLO WORLD."), (half, "GOOD DAY."), (mel, "HELLO WORLD. THIS IS A TEST."), (half, "A TEST.")]
+        sentences = [len(engine.tokenizer.split_sentences(engine.tokenizer.tokenize(text), 16)) for _, text in items]
+        if sentences != [1, 1, 2, 1]:
+            raise AssertionError(f"the requests split into {sentences} sentences, want [1, 1, 2, 1]")
+        start()
+        out = engine.infer_batch(items, max_text_tokens_per_sentence=16, max_mel_tokens=max_new,
+                                 per_request_kwargs=[{"temperature": 0.8}, {"temperature": 1.0}, {}, {"temperature": 1.2}])
+        batch_launches = launched("infer_batch")
+        st = dict(engine.last_stats)
+        if len(out) != len(items):
+            raise AssertionError(f"infer_batch returned {len(out)} results for {len(items)} requests")
+        for i, ((sr, wav), n) in enumerate(zip(out, sentences)):
+            # a beam may end on a finished hypothesis: at most the budget, and whole codes
+            if (sr != 24000 or wav.dtype != np.int16 or wav.ndim != 2 or wav.shape[1] != 1 or wav.shape[0] % spc
+                    or not n * spc <= wav.shape[0] <= n * max_new * spc):
+                raise AssertionError(f"infer_batch request {i}: wav {wav.shape} {wav.dtype}, want at most {n} x "
+                                     f"{max_new} codes")
+        if (sum(st["decode_batches"]) != sum(sentences) or st["tf_latent_rows"] != 0
+                or st["vocoder_calls"] != batch_launches["vocoder_calls"]):
+            raise AssertionError(f"infer_batch: decode batches {st['decode_batches']}, teacher-forced rows "
+                                 f"{st['tf_latent_rows']}, {st['vocoder_calls']} vocoder calls; want {sum(sentences)} "
+                                 f"rows, 0 and {batch_launches['vocoder_calls']}")
+        batch = dict(requests=len(items), rows=sum(sentences), decode_batches=st["decode_batches"],
+                     decode_steps=st["gpt_steps"], cond_ms=1e3 * st["cond_s"],
+                     decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1),
+                     vocoder_ms=1e3 * st["bigvgan_s"], total_s=st["total_s"],
+                     audio_s=st["audio_s"], rtf=st["rtf"], codes=[int(w.shape[0]) // spc for _, w in out],
+                     **batch_launches)
+        log(f"[serve] infer_batch, 4 requests over 2 prompts, num_beams 3, per-request temperature: {batch['codes']} codes, decode "
+            f"batches {st['decode_batches']}, {st['gpt_steps']} steps at {batch['decode_ms_per_step']:.2f} ms/step, cond "
+            f"{batch['cond_ms']:.1f} ms, vocoder {batch['vocoder_ms']:.1f} ms in {st['vocoder_calls']} call(s), total "
+            f"{st['total_s']:.2f} s for {st['audio_s']:.2f} s audio, RTF {st['rtf']:.4f}; K4 {batch_launches['k4']}, K3 "
+            f"{batch_launches['k3']}, K1 {batch_launches['k1']} launches [{card}]")
+
+        # (c) a slot session: a streaming request and three others fill the four
+        # slots, three more wait for the slots to free (reuse), and one is
+        # submitted two ticks into the second wave, which has one slot free: it
+        # is admitted while the other three are mid-decode
+        start()
+        sess = engine.slot_session(n_slots=4, chunk_steps=25, do_sample=True, max_mel_tokens=max_new)
+        chunks, chunk_at = [], []
+        t_submit = time.perf_counter()
+        rid_stream = sess.submit(mel, "HELLO WORLD.", on_chunk=lambda rid, c: (chunks.append(c.copy()),
+                                                                                chunk_at.append(time.perf_counter())))
+        texts = ["GOOD DAY TO YOU.", "THIS IS A TEST.", "THE QUICK BROWN FOX.", "HELLO AGAIN.", "GOOD DAY.", "A TEST."]  # one row each
+        rids = [rid_stream] + [sess.submit(half if i % 2 else mel, t) for i, t in enumerate(texts)]
+        done, tick_ms = {}, []
+        late = None
+        while sess.busy and len(tick_ms) < 40:
+            t = time.perf_counter()
+            done.update(sess.tick())
+            tick_ms.append(1e3 * (time.perf_counter() - t))
+            if len(tick_ms) == 6:
+                if sum(r is not None for r in sess.slots) != 3:
+                    raise AssertionError(f"the second wave holds {sum(r is not None for r in sess.slots)} rows, want 3")
+                late = sess.submit(mel, "ONE MORE.")
+                rids.append(late)
+            elif len(tick_ms) == 7:
+                row = next(r for r in sess.slots if r is not None and r["rid"] == late)
+                others = [r["admit_seq"] for r in sess.slots if r is not None and r["rid"] != late]
+                if row["admit_seq"] != 7 or others != [5, 5, 5]:
+                    raise AssertionError(f"the late request was not admitted mid-decode: admit_seq {row['admit_seq']}, "
+                                         f"the others {others}")
+        rest = sess.drain()
+        if rest or sess.busy or set(done) != set(rids):
+            raise AssertionError(f"slot session: completed {sorted(done)} of {sorted(rids)}; left after the loop {sorted(rest)}")
+        slot_launches = launched("slot session")
+        for rid in rids:
+            sr, wav = done[rid]
+            if sr != 24000 or wav.dtype != np.int16 or wav.shape != (max_new * spc, 1):
+                raise AssertionError(f"slot request {rid}: wav {wav.shape} {wav.dtype}, want {max_new} codes")
+        if not np.array_equal(np.concatenate(chunks), done[rid_stream][1].reshape(-1)):
+            raise AssertionError("the streamed chunks do not concatenate to the streaming request's result")
+        first_chunk_s = chunk_at[0] - t_submit
+        slots = dict(requests=len(rids), ticks=len(tick_ms), tick_ms=tick_ms, chunk_ms=[1e3 * s for s in sess.chunk_s],
+                     stream_chunks=[c.size // spc for c in chunks], first_chunk_s=first_chunk_s,
+                     tf_latent_rows=sess.tf_latent_rows, cache_len=sess.cache_len, **slot_launches)
+        log(f"[serve] slot session, 4 slots x {sess.cache_len} cache slots, chunk_steps 25, {len(rids)} sampled requests "
+            f"(one streaming, one admitted mid-decode): {len(tick_ms)} ticks of {[round(v) for v in tick_ms]} ms "
+            f"(decode chunks {[round(v) for v in slots['chunk_ms']]} ms), streamed chunks of {slots['stream_chunks']} "
+            f"codes, first chunk {first_chunk_s:.3f} s after submit; K4 {slot_launches['k4']}, K3 {slot_launches['k3']}, "
+            f"K1 {slot_launches['k1']} launches over {slot_launches['vocoder_calls']} vocoder calls [{card}]")
+        if sum(slots["stream_chunks"]) != max_new or sess.tf_latent_rows != 0:
+            raise AssertionError(f"slot session: streamed {slots['stream_chunks']} codes, teacher-forced rows "
+                                 f"{sess.tf_latent_rows}")
+
+        # (e) one forced slot chunk under the profiler
+        step = forced_slot_chunk(engine, cache_len=sess.cache_len, max_new=max_new)
+        log(f"[serve] forced slot chunk, 4 active rows x 16 steps, {step['cache_slots']} cache slots: host "
+            f"{step['host_ms_per_step']:.2f} ms/step, device {step['device_ms_per_step']:.3f} ms/step in "
+            f"{step['device_kernels_per_step']:.0f} kernels, device idle {100 * step['device_idle_share']:.1f} % [{card}]")
+
+        # (d) one vocoder call under INDEXTTS_FUSED_AA=1 alone: K4 at the narrow stages, K1 at the rest
+        del os.environ["INDEXTTS_WIDE_TMAJOR"]
+        latent = torch.randn(1, 100, engine.cfg.gpt.model_dim, device="cuda", dtype=engine.dtype,
+                             generator=torch.Generator(device="cuda").manual_seed(5))
+        start()
+        wav = engine._vocode(latent, 100, mel)
+        fused_only = launched("vocoder call under INDEXTTS_FUSED_AA=1 alone", want=(54, 0, 55))
+        if wav.shape != (1, 100 * spc) or not np.isfinite(wav).all():
+            raise AssertionError(f"vocoder call under INDEXTTS_FUSED_AA=1 alone: wav {wav.shape}")
+        log(f"[serve] one vocoder call under INDEXTTS_FUSED_AA=1 alone: K4 {fused_only['k4']}, K1 {fused_only['k1']} "
+            f"launches [{card}]")
+    finally:
+        engine_mod.bigvgan_apply = apply
+        os.environ.pop("INDEXTTS_FUSED_AA", None)
+        os.environ.pop("INDEXTTS_WIDE_TMAJOR", None)
+    return {"init_s": init_s, "warmup_s": warm_s, "warmup": warm, "infer_batch": batch, "slots": slots,
+            "forced_slot_chunk": step, "fused_aa_alone": fused_only,
+            "k4_launches": warm["k4"] + batch_launches["k4"] + slot_launches["k4"],
+            "k3_launches": warm["k3"] + batch_launches["k3"] + slot_launches["k3"],
+            "k1_launches": warm["k1"] + batch_launches["k1"] + slot_launches["k1"]}
+
+
 def tiny_config():
     from indextts_tpu_torch.config import (BigVGANConfig, ConditionModuleConfig, GPTConfig,
                                            IndexTTSConfig)
@@ -1041,6 +1354,61 @@ def small_phase(card: str) -> dict:
         os.environ.pop("INDEXTTS_WIDE_TMAJOR_MXU", None)
         del os.environ["INDEXTTS_WIDE_TMAJOR"]
 
+    # greedy infer_batch and infer_slots (3 requests over 2 prompts, 2 slots, so
+    # one slot is reused) against per-request infer, on the card and on the CPU;
+    # the code rows are read where each path hands them to the silence removal
+    mel = gpu.extract_features(PROMPT)
+    items = [(mel, "HELLO WORLD."), (np.ascontiguousarray(mel[..., : mel.shape[-1] // 2]), "GOOD DAY."), (mel, "A TEST.")]
+    kw = dict(do_sample=False, num_beams=1, max_mel_tokens=24)
+    served = {}
+    for name, e in (("gpu", gpu), ("cpu", cpu)):
+        rows, rls = [], e.remove_long_silence
+        e.remove_long_silence = lambda c, _rls=rls, _rows=rows, **k: (_rows.append(np.asarray(c).copy()), _rls(c, **k))[1]
+        try:
+            for method, run in (("infer", lambda: [e.infer(m, t, None, **kw) for m, t in items]),
+                                ("infer_batch", lambda: e.infer_batch(items, **kw)),
+                                ("infer_slots", lambda: e.infer_slots(items, n_slots=2, **kw))):
+                rows.clear()
+                wavs = [w.astype(np.int64) for _, w in run()]
+                served[name, method] = (sorted(tuple(r.reshape(-1).tolist()) for r in rows), wavs)
+        finally:
+            del e.remove_long_silence
+    solo_codes, solo_wavs = served["gpu", "infer"]
+    serve_diffs = {}
+    for (name, method), (rows, wavs) in served.items():
+        if rows != solo_codes or len(rows) != len(items) or min(len(r) for r in rows) < 2:
+            raise AssertionError(f"{method} on the {name}: code rows {rows} differ from the card's per-request infer "
+                                 f"{solo_codes}")
+        if [w.shape for w in wavs] != [w.shape for w in solo_wavs]:
+            raise AssertionError(f"{method} on the {name}: wav shapes {[w.shape for w in wavs]}")
+        serve_diffs[f"{name}_{method}"] = max(int(np.abs(a - b).max()) for a, b in zip(wavs, solo_wavs))
+    log(f"[small] tiny f32 greedy infer / infer_batch / infer_slots (3 requests, 2 prompts, 2 slots) on the card and "
+        f"the CPU: code rows equal ({[len(r) for r in solo_codes]} codes), max |wav - the card's per-request infer| "
+        f"in int16 units {serve_diffs} [{card}]")
+    if max(serve_diffs.values()) > 8:
+        raise AssertionError("infer_batch / infer_slots disagree with per-request infer at tiny width")
+
+    # one vocoder call under INDEXTTS_FUSED_AA=1: stage 2 is C = 64, so the card
+    # runs K4 at its 4 resblock activations and the CPU K4's plain version
+    from indextts_tpu_torch.ops.cuda import antialias_folded as k4
+
+    lat = torch.randn(1, 24, gpu.cfg.gpt.model_dim, generator=torch.Generator().manual_seed(3))
+    os.environ["INDEXTTS_FUSED_AA"] = "1"
+    try:
+        before = k4.launches
+        wavf_gpu = gpu._vocode(lat.cuda(), 24, mel)
+        k4_calls = k4.launches - before
+        wavf_cpu = cpu._vocode(lat, 24, mel)
+    finally:
+        del os.environ["INDEXTTS_FUSED_AA"]
+    wavf_default = gpu._vocode(lat.cuda(), 24, mel)
+    diff_f = float(np.abs(wavf_gpu - wavf_cpu).max()) * 32767
+    diff_fd = float(np.abs(wavf_gpu - wavf_default).max()) * 32767
+    log(f"[small] tiny f32 vocoder call, INDEXTTS_FUSED_AA=1: {k4_calls} K4 launches on the card, wav {wavf_gpu.shape} "
+        f"max |gpu - cpu| = {diff_f:.4f}, max |K4 - default route| = {diff_fd:.4f} int16 units [{card}]")
+    if wavf_gpu.shape != wavf_cpu.shape or k4_calls != 4 or not max(diff_f, diff_fd) <= 1.0:
+        raise AssertionError("the card's K4 vocoder disagrees with the CPU's at tiny width")
+
     # int8 weights and the int8 KV cache; the card decodes the sentences as
     # one batch (K5 at M = 3), the CPU one at a time (K5's plain version)
     for e in (gpu, cpu):
@@ -1065,6 +1433,9 @@ def small_phase(card: str) -> dict:
                                   "samples": int(wavb_gpu.shape[0])},
             "captured_latents": {"codes": n, "max_abs_diff_vs_teacher_forced": lat_err},
             "streams_wide_tmajor": streams,
+            "serving_wav_max_abs_diff_int16": serve_diffs,
+            "fused_aa_vocoder": {"k4_launches": k4_calls, "wav_max_abs_diff_int16": diff_f,
+                                 "wav_max_abs_diff_vs_default_int16": diff_fd},
             "int8_fast": {"codes_equal": same8, "wav_max_abs_diff_int16": diff8, "card_batches": batches,
                           "samples": int(wav8_gpu.shape[0])}}
 
@@ -1081,7 +1452,7 @@ def activation_bound(stages, calls_per_stage: int, extra=()):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-PHASES = ("kernel", "k2", "k3", "k5", "engine", "beam", "stream", "int8", "small")
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small")
 
 
 def main(argv) -> int:
@@ -1098,6 +1469,7 @@ def main(argv) -> int:
         print(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    t_start = time.perf_counter()
     card = device_line()
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
@@ -1106,6 +1478,7 @@ def main(argv) -> int:
 
     from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_folded as k4
     from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
     from indextts_tpu_torch.ops.cuda import build
     from indextts_tpu_torch.config import load_config
@@ -1113,7 +1486,7 @@ def main(argv) -> int:
 
     # one nvcc per source, started together
     t = time.perf_counter()
-    kernels_built = (k1, k2, k3, k5)
+    kernels_built = (k1, k2, k3, k4, k5)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
@@ -1124,8 +1497,9 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {src}:", line.strip())
 
-    phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k5": k5_phase, "engine": engine_phase,
-                 "beam": beam_phase, "stream": stream_phase, "int8": int8_phase, "small": small_phase}
+    phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
+                 "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
+                 "int8": int8_phase, "small": small_phase}
     if only is not None:
         for name in only:
             phase_fns[name](card)
@@ -1134,10 +1508,12 @@ def main(argv) -> int:
     kern = kernel_phase(card)
     kern2 = k2_phase(card)
     kern3 = k3_phase(card)
+    kern4 = k4_phase(card)
     kern5 = k5_phase(card)
     eng = engine_phase(card)
     beam = beam_phase(card)
     stream = stream_phase(card)
+    serve = serve_phase(card)
     int8 = int8_phase(card)
     small = small_phase(card)
 
@@ -1193,9 +1569,26 @@ def main(argv) -> int:
         f"{k3_per_voc['taps']:.3f} ms, tensor-core body {k3_per_voc['mma']:.3f} ms, ident {k3_per_voc['ident']:.3f} ms, "
         f"K1 at the same shapes {k3_per_voc['k1']:.3f} ms [{card}]")
 
+    k4_rows = {r["case"]: r for r in kern4["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
+               {s for s, _, _ in STAGES[3:6]}}
+
+    def k4_per_call(name: str) -> float:
+        """K4 ("", or "plain", "k1", "k3_ident" at the same shapes) time of
+        one vocoder call at ~100 codes, bf16, B=1: 18 activations at each
+        narrow stage. Device time where the profiler saw it, else events."""
+        dk, ek = {"": ("device_ms", "ms"), "plain": ("device_plain_ms", "plain_ms")}.get(
+            name, (f"{name}_device_ms", f"{name}_ms"))
+        return sum(18 * (r[dk] if r[dk] is not None else r[ek]) for r in k4_rows.values())
+
+    k4_per_voc = {name or "k4": k4_per_call(name) for name in ("", "plain", "k1", "k3_ident")}
+    log(f"[k4] per vocoder call (54 activations at the narrow stages, bf16, B=1): K4 {k4_per_voc['k4']:.3f} ms, K1 at "
+        f"the same shapes {k4_per_voc['k1']:.3f} ms, K3's ident body {k4_per_voc['k3_ident']:.3f} ms, plain "
+        f"{k4_per_voc['plain']:.3f} ms [{card}]")
+
     # the least time the card could take, from the shapes above (bf16)
     k1_bound, k1_by = activation_bound(STAGES[:6], 18, STAGES[6:])
     k3_bound, k3_by = activation_bound(STAGES[:3], 18)
+    k4_bound, k4_by = activation_bound(STAGES[3:6], 18)
     k2_terms = {
         "bytes": sum(n * (4 * c * t + 2 * k * c * c) for _, c, t in STAGES[:3] for (k, _), n in K2_CALLS.items()) / PEAK_BYTES,
         "operations": max(sum(n * 2 * k * c * c * t for _, c, t in STAGES[:3] for (k, _), n in K2_CALLS.items()) / PEAK_BF16,
@@ -1216,10 +1609,13 @@ def main(argv) -> int:
         "k2_per_stage": k2_per_stage,
         "k3": kern3,
         "k3_per_vocoder_call_ms": k3_per_voc,
+        "k4": kern4,
+        "k4_per_vocoder_call_ms": k4_per_voc,
         "k5": kern5,
         "engine": eng,
         "beam": beam,
         "stream": stream,
+        "serve": serve,
         "int8": int8,
         "small": small,
     }
@@ -1246,11 +1642,17 @@ def main(argv) -> int:
         "ms": k3_per_voc["taps"], "plain_ms": k3_per_call("taps", "device_plain_ms", "plain_ms"),
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
     }, {
+        "name": "fused_folded_aa", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+        "launches": serve["k4_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern4["rows"]),
+        "ms": k4_per_voc["k4"], "plain_ms": k4_per_voc["plain"],
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+    }, {
         "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
         "ms": per_step("device_ms", "ms"), "plain_ms": per_step("device_plain_ms", "plain_ms"),
         "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
     }]
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """The IndexTTS inference engine on PyTorch (port of indextts_tpu/engine.py:
-the single-request `infer` path, the bucketed batch `infer_fast` path and the
-streaming `infer_stream` path).
+the single-request `infer` path, the bucketed batch `infer_fast` path, the
+streaming `infer_stream` path, and the serving paths: cross-request batches
+in `infer_batch`, continuous batching in `slot_session` / `infer_slots`, and
+`warmup`).
 
 Public surface as the reference engine (indextts/infer.py: class IndexTTS):
 __init__(cfg_path, model_dir, is_fp16, device, use_cuda_kernel), infer(),
 infer_fast(), extract_features(), remove_long_silence(), bucket_sentences(),
 pad_tokens_cat(), and the JAX engine's infer_stream(), a generator of
-float32 chunks. Underneath, PyTorch runs eagerly on `device` (default
+float32 chunks, infer_batch(), slot_session(), infer_slots() and warmup().
+Underneath, PyTorch runs eagerly on `device` (default
 "cuda"), in bf16 there when `is_fp16`, with the fused anti-aliased activation
 kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
 `quant_kv` selects the int8 KV cache, as in the JAX engine; int8 GPT weights
@@ -20,7 +23,8 @@ A request with max_mel_tokens >= 320 decodes with a KV cache that grows by
 segments of 160 (generate_speech_segmented / generate_speech_beam_segmented),
 as in the JAX engine. INDEXTTS_WIDE_BRANCH=1 sends the vocoder's wide
 half-branches through K2, INDEXTTS_WIDE_TMAJOR=1 its wide activations through
-K3 (models/bigvgan.py).
+K3, INDEXTTS_FUSED_AA=1 its narrow stages' resblock activations through K4
+(models/bigvgan.py).
 
 The same shape buckets as the JAX engine are kept, because padding changes
 numbers: text is padded with stop_text_token to a multiple of 8, codes to a
@@ -28,8 +32,7 @@ multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
 relative lengths), vocoder latents to a multiple of 16 (32 in the batched
 vocoder of infer_fast).
 
-Not ported yet (see ROADMAP.md): loading checkpoints, infer_batch, slots,
-warmup and the server.
+Not ported yet (see ROADMAP.md): loading checkpoints and the web server.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import hashlib
 import os
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -238,6 +241,47 @@ class IndexTTS:
         digest = hashlib.sha1(np.ascontiguousarray(prompt_mel)).hexdigest()
         return self._cache_value(("condval", digest), make, 128)
 
+    @torch.no_grad()
+    def _conds_for_many(self, prompt_mels: List[np.ndarray]) -> List[torch.Tensor]:
+        """Conditioning latents for several [1, 100, frames] prompts with ONE
+        batched call per frame bucket, for cache misses only; hits come from
+        the per-prompt value cache shared with _conds_for (and its bound of
+        128). Prompts are de-duplicated by digest. Misses group by the SAME
+        frame bucket _conds_for uses: the conformer's conv module is not
+        pad-invariant (as in the reference), so padding a prompt to a larger
+        shared bucket would change its latents against the solo path. Batch
+        rows pad to a power of two."""
+        digests = [hashlib.sha1(np.ascontiguousarray(m)).hexdigest() for m in prompt_mels]
+        out: Dict[str, torch.Tensor] = {}
+        groups: Dict[int, List[Tuple[str, int]]] = {}
+        seen = set()
+        for i, d in enumerate(digests):
+            if d in seen:
+                continue
+            seen.add(d)
+            cached = self._value_cache.get(("condval", d))
+            if cached is not None:
+                out[d] = cached
+                continue
+            groups.setdefault(max(_round_up(prompt_mels[i].shape[-1], 100), 100), []).append((d, i))
+        for bucket, entries in groups.items():
+            if len(entries) == 1:
+                d, i = entries[0]
+                out[d] = self._conds_for(prompt_mels[i])
+                continue
+            nb = 1 << (len(entries) - 1).bit_length()
+            mel = np.zeros((nb, bucket, prompt_mels[entries[0][1]].shape[1]), np.float32)
+            lens = np.ones((nb,), np.int64)
+            for r, (d, i) in enumerate(entries):
+                f = prompt_mels[i].shape[-1]
+                mel[r, :f] = prompt_mels[i][0].T
+                lens[r] = f
+            conds = get_conditioning(self.gpt, self.cfg.gpt, torch.from_numpy(mel).to(self.device, self.dtype),
+                                     torch.from_numpy(lens).to(self.device))
+            for r, (d, i) in enumerate(entries):
+                out[d] = self._cache_value(("condval", d), lambda r=r: conds[r : r + 1].clone(), 128)
+        return [out[d] for d in digests]
+
     def _text_bucket(self, n: int) -> int:
         """Text length rounded up to 8, clamped to the text positional table."""
         return min(max(_round_up(n, 8), 8), max(self.cfg.gpt.max_text_tokens, n))
@@ -272,13 +316,19 @@ class IndexTTS:
                       temperature, top_p, repetition_penalty, length_penalty=0.0, typical_mass=0.9):
         """The decode over text padded to its bucket: beam search when
         gen.num_beams > 1, else greedy / sampled; with the segment-growing
-        cache from gen.max_new_tokens >= 2 * DECODE_SEGMENT. Returns (codes,
+        cache from gen.max_new_tokens >= 2 * DECODE_SEGMENT. conds is [1, C, D]
+        or one row per text row; each dynamic knob a float or a numpy [B]
+        with one value per row. Returns (codes,
         lengths) in numpy, the captured latents [B, max_new, D] on the device
         under fast_latents (else None), and the number of decode steps run."""
         b, l0 = text_tokens.shape
         padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
         padded[:, :l0] = text_tokens
         capture = self.fast_latents
+        # a knob given per row (infer_batch's per_request_kwargs) goes in as a [B] tensor
+        temperature, top_p, repetition_penalty, length_penalty, typical_mass = (
+            torch.as_tensor(v, dtype=torch.float32, device=self.device) if isinstance(v, np.ndarray) else v
+            for v in (temperature, top_p, repetition_penalty, length_penalty, typical_mass))
         args = (self.gpt, self.cfg.gpt, gen, conds.expand(b, -1, -1).to(self.dtype),
                 torch.from_numpy(padded).to(self.device),
                 torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device), self._generator)
@@ -848,6 +898,237 @@ class IndexTTS:
               f"bucket_count: {len(all_sentences)}" if bucket_max_size > 1 else "")
         print(f">> [fast] RTF: {total / max(wav_length, 1e-9):.4f}")
         return self._emit(wav, output_path, sampling_rate)
+
+    # the generation params that may differ per request inside one decode
+    # batch: they enter only elementwise score / logit math, as floats or [B]
+    # tensors (ops/sampling._colp, gpt_decode._length_norm). Everything else
+    # shapes the loop and must match across a batch.
+    BATCH_DYNAMIC_PARAMS = ("temperature", "top_p", "repetition_penalty", "length_penalty", "typical_mass")
+
+    def infer_batch(
+        self,
+        items,
+        output_paths=None,
+        max_text_tokens_per_sentence: int = 120,
+        sentences_bucket_max_size: int = 8,
+        verbose: bool = False,
+        per_request_kwargs=None,
+        **generation_kwargs,
+    ):
+        """Cross-request batched synthesis (the JAX engine's infer_batch; the
+        reference serializes whole requests). `items`: (prompt, text) pairs,
+        each request with its OWN reference prompt (mel array or audio path).
+        Returns one `(sampling_rate, wav)` per request, or the written path
+        where `output_paths[i]` is given, in input order.
+
+        Sentence rows of DIFFERENT requests share decode batches: rows carry
+        their own conditioning latents and are length-bucketed across
+        requests as infer_fast buckets one request's sentences. The decode's
+        invariance to padding and batching makes that transparent: greedy
+        batched == per-request infer (tests/test_torch_infer_batch.py).
+
+        `per_request_kwargs`: optionally one dict per request of sampling
+        overrides, BATCH_DYNAMIC_PARAMS only. They enter the decode as
+        per-row tensors, so requests with different knobs share a batch; the
+        static params (do_sample / num_beams / top_k / typical_sampling /
+        max_mel_tokens) must be uniform. last_stats holds the stage times
+        and counts that infer_fast records."""
+        max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
+        print(f">> start batched inference... ({len(items)} requests)")
+        start_time = time.perf_counter()
+        if output_paths is not None and len(output_paths) != len(items):
+            raise ValueError("output_paths must match items length")
+        gen, base_dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        sampling_rate = 24000
+        if per_request_kwargs is not None:
+            if len(per_request_kwargs) != len(items):
+                raise ValueError("per_request_kwargs must match items length")
+            bad = set().union(*(set(d or {}) for d in per_request_kwargs)) - set(self.BATCH_DYNAMIC_PARAMS)
+            if bad:
+                raise ValueError(
+                    f"per-request overrides are allowed only for {self.BATCH_DYNAMIC_PARAMS} "
+                    f"(static/shape params must match across a batch); got {sorted(bad)}")
+
+        # per-request front end and conditioning (cached per prompt; the cache
+        # misses of one frame bucket share one batched conditioning call)
+        req_mels = [self._resolve_prompt(prompt) for prompt, _ in items]
+        req_conds = self._conds_for_many(req_mels)
+        self._sync()
+        t_cond = time.perf_counter()
+        flat_sents, flat_req = [], []
+        for r, (_prompt, text) in enumerate(items):
+            sents = self.tokenizer.split_sentences(self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
+            if not sents:
+                raise ValueError(f"Request {r}: text is empty (nothing to synthesize).")
+            flat_req.extend([r] * len(sents))
+            flat_sents.extend(sents)
+        if verbose:
+            print(f">> {len(flat_sents)} sentence rows across {len(items)} requests")
+
+        # cross-request length buckets (idx is the flat row index, which gives the owning request)
+        buckets = self.bucket_sentences(flat_sents, bucket_max_size=sentences_bucket_max_size)
+        row_latents: Dict[int, Tuple[torch.Tensor, int]] = {}
+        pending_latents = []  # (flat row, conds, text tokens, codes, code_lens)
+        has_warned = False
+        gpt_steps = gpt_tokens = 0
+        self._decode_segments = 0
+        for bucket in buckets:
+            item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(it["sent"]), np.int64)[None, :]
+                           for it in bucket]
+            reqs = [flat_req[it["idx"]] for it in bucket]
+            conds_rows = torch.cat([req_conds[r] for r in reqs], dim=0)
+            if per_request_kwargs is None:
+                dyn = base_dyn
+            else:  # rows of one bucket may come from requests with different knobs
+                dyn = {name: np.asarray([(per_request_kwargs[r] or {}).get(name, base_dyn[name]) for r in reqs],
+                                        np.float32) for name in self.BATCH_DYNAMIC_PARAMS}
+            codes_b, lens_b, cap_lat, steps = self._gpt_generate(
+                conds_rows, self.pad_tokens_cat(item_tokens), np.asarray([t.shape[1] for t in item_tokens]), gen,
+                **dyn)
+            gpt_steps += steps
+            gpt_tokens += int(lens_b.max())
+            for i, it in enumerate(bucket):
+                if (not has_warned and lens_b[i] >= gen.max_new_tokens and codes_b[i, -1] != self.stop_mel_token):
+                    warnings.warn(f"WARN: generation stopped due to exceeding `max_mel_tokens` ({max_mel_tokens}).",
+                                  category=RuntimeWarning)
+                    has_warned = True
+                code_row = codes_b[i : i + 1, : max(int(lens_b[i]), 1)]
+                codes, code_lens = self.remove_long_silence(code_row, silent_token=52, max_consecutive=30)
+                if cap_lat is not None and np.array_equal(codes, code_row[:, : codes.shape[1]]):
+                    row_latents[it["idx"]] = (cap_lat[i : i + 1, : codes.shape[1]], int(code_lens[0]))
+                else:  # teacher-forced rows are batched across the whole request set below
+                    pending_latents.append((it["idx"], req_conds[reqs[i]], item_tokens[i], codes, code_lens))
+        self._sync()
+        t_decode = time.perf_counter()
+        if pending_latents:
+            lats = self._gpt_latent_many([(c, t, cd, cl) for _, c, t, cd, cl in pending_latents])
+            for (gidx, _c, _t, _cd, cl), lat in zip(pending_latents, lats):
+                row_latents[gidx] = (lat, int(np.asarray(cl).reshape(-1)[0]))
+        self._sync()
+        t_latent = time.perf_counter()
+
+        # vocode and assemble per request: rows back in sentence order, paired
+        # in chunks of two WITHIN a request as infer_fast pairs them, the chunks
+        # run through the vocoder in batches ACROSS requests
+        chunk_size = 2
+        per_req_rows: List[List[int]] = [[] for _ in items]
+        for gidx, r in enumerate(flat_req):
+            per_req_rows[r].append(gidx)
+        chunk_list, chunk_req = [], []
+        for r in range(len(items)):
+            rows = [row_latents[g] for g in per_req_rows[r]]
+            for k in range(0, len(rows), chunk_size):
+                part = rows[k : k + chunk_size]
+                chunk_list.append((torch.cat([lat for lat, _ in part], dim=1), sum(n for _, n in part), req_mels[r]))
+                chunk_req.append(r)
+        chunk_wavs = self._vocode_many(chunk_list)  # int16, scaled and clipped on the device
+        t_vocode = time.perf_counter()
+        results = []
+        audio_s = 0.0
+        for r in range(len(items)):
+            wav = np.concatenate([w for w, cr in zip(chunk_wavs, chunk_req) if cr == r], axis=1)
+            audio_s += wav.shape[-1] / sampling_rate
+            results.append(self._emit(wav, output_paths[r] if output_paths else None, sampling_rate))
+        total = time.perf_counter() - start_time
+        self.last_stats = {
+            "cond_s": t_cond - start_time, "gpt_gen_s": t_decode - t_cond, "gpt_tokens": gpt_tokens,
+            "gpt_calls": len(buckets), "gpt_steps": gpt_steps, "gpt_segments": self._decode_segments,
+            "tf_latent_rows": len(pending_latents), "decode_batches": [len(b) for b in buckets],
+            "gpt_forward_s": t_latent - t_decode, "bigvgan_s": t_vocode - t_latent,
+            "vocoder_calls": len(self._vocode_batches(chunk_list)),
+            "total_s": total, "audio_s": audio_s, "rtf": total / max(audio_s, 1e-9),
+        }
+        print(f">> Batched inference: {len(items)} requests, {len(flat_sents)} rows, {total:.2f}s total"
+              + (f", RTF: {total / audio_s:.4f}" if audio_s else ""))
+        if verbose:
+            print(f">> stage wall: cond {t_cond - start_time:.2f}s, frontend+decode(+silence scan) "
+                  f"{t_decode - t_cond:.2f}s, latent {t_latent - t_decode:.2f}s, vocode {t_vocode - t_latent:.2f}s, "
+                  f"emit {time.perf_counter() - t_vocode:.2f}s")
+        return results
+
+    def slot_session(self, n_slots: int = 8, **kwargs):
+        """Open a continuous-batching SlotSession (rolling admission): a
+        persistent decode batch whose finished rows are refilled with new
+        requests WHILE the others keep decoding: no waiting behind a running
+        batch, unlike infer_batch. num_beams is fixed at 1. See serving.py."""
+        from indextts_tpu_torch.serving import SlotSession
+
+        return SlotSession(self, n_slots=n_slots, **kwargs)
+
+    def infer_slots(self, items, output_paths=None, n_slots: int = 8, per_request_kwargs=None, **generation_kwargs):
+        """Batch convenience over slot_session: submit every (prompt, text)
+        request, drain, return the results in input order (infer_batch's
+        contract; greedy output == per-request infer)."""
+        if output_paths is not None and len(output_paths) != len(items):
+            raise ValueError("output_paths must match items length")
+        if per_request_kwargs is not None and len(per_request_kwargs) != len(items):
+            raise ValueError("per_request_kwargs must match items length")
+        sess = self.slot_session(n_slots=n_slots, **generation_kwargs)
+        rids = []
+        for r, (prompt, text) in enumerate(items):
+            over = (per_request_kwargs[r] or {}) if per_request_kwargs else {}
+            rids.append(sess.submit(prompt, text, output_path=output_paths[r] if output_paths else None, **over))
+        done = sess.drain()
+        return [done[rid] for rid in rids]
+
+    def warmup(self, texts: Sequence[str] = ("WARM UP.",), prompt=None, batch: int = 1, n_slots: int = 0,
+               streaming: bool = False, verbose: bool = True, **generation_kwargs) -> float:
+        """Pay a serving process's first-call costs in advance by synthesizing
+        each text against a silent synthetic prompt through the same public
+        entry points serving uses (results discarded). In the JAX engine
+        those costs are compilations; here nothing is compiled per shape, and
+        what the first call of a shape pays is the kernels' build and load
+        (ops/cuda/build.py), cuDNN's and cuBLAS's set-up for each new shape
+        and the allocator's first blocks. Same routing as the JAX engine:
+        the slot session when n_slots > 0 (num_beams forced to 1; with
+        streaming on a fast_latents engine also a streaming request per text
+        and a window vocoder call at every power-of-two batch up to n_slots,
+        which concurrent streams would hit), infer_batch when batch > 1
+        (bucketed like a full wave, sentences_bucket_max_size = max(8,
+        batch)), else infer; and infer_stream when streaming without slots.
+        Pass the generation kwargs that production requests will use.
+
+        Returns the seconds spent."""
+        t0 = time.perf_counter()
+        if prompt is None:
+            prompt = np.zeros((1, self.cfg.bigvgan.num_mels, 100), np.float32)
+        texts = list(texts)
+        not_for_slots = ("num_beams", "sentences_bucket_max_size")
+        if n_slots:
+            kw = {k: v for k, v in generation_kwargs.items() if k not in not_for_slots}
+            sess = self.slot_session(n_slots=n_slots, **kw)
+            stream_too = streaming and self.fast_latents
+            for t in texts:
+                sess.submit(prompt, t)
+                if stream_too:
+                    sess.submit(prompt, t, on_chunk=lambda r, c: None)
+            sess.drain()
+            if stream_too:
+                mel = self._resolve_prompt(prompt)
+                w, d = sess._win_w, self.cfg.gpt.model_dim
+                b = 1
+                while b <= n_slots:
+                    self._vocode_many([(torch.zeros((1, w, d), dtype=self.dtype, device=self.device), w, mel)] * b)
+                    b *= 2
+        elif batch > 1:
+            items = [(prompt, texts[i % len(texts)]) for i in range(batch)]
+            gk = dict(generation_kwargs)
+            gk.setdefault("sentences_bucket_max_size", max(8, batch))
+            self.infer_batch(items, **gk)
+        else:
+            for t in texts:
+                self.infer(prompt, t, None, **generation_kwargs)
+        if streaming and not n_slots:
+            kw = {k: v for k, v in generation_kwargs.items() if k not in not_for_slots}
+            for t in texts:
+                for _ in self.infer_stream(prompt, t, **kw):
+                    pass
+        self._sync()
+        dt = time.perf_counter() - t0
+        if verbose:
+            print(f">> warmup done in {dt:.1f}s ({len(texts)} text(s), batch={batch}, n_slots={n_slots}, "
+                  f"streaming={streaming})")
+        return dt
 
     def _emit(self, wav: np.ndarray, output_path: Optional[str], sampling_rate: int):
         if output_path:

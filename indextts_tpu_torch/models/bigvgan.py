@@ -21,9 +21,13 @@ activation at C >= 128 that K2 has not taken goes to K3
 INDEXTTS_WIDE_TMAJOR_MXU=1 its tensor-core body; INDEXTTS_WIDE_TMAJOR_POLY=1
 forces the polynomial sin. As in the JAX package's _amp_block1, the
 wide-branch switch is tested first, so with both set K3 sees no resblock
-activation. The JAX package's phase folding and its INDEXTTS_WIDE_POLY/PHASE,
-INDEXTTS_FOLD_* and INDEXTTS_FUSED_AA knobs are not ported yet or are TPU
-layouts (ROADMAP.md).
+activation. With INDEXTTS_FUSED_AA=1 (read the same way) and
+`use_cuda_kernel`, every resblock activation of a stage with C <= 96 goes to
+K4 (ops/cuda/antialias_folded.py); activation_post does not, as in the JAX
+package, where it never reaches the folded stages' activation. The JAX
+package's phase folding itself and its INDEXTTS_WIDE_POLY/PHASE and
+INDEXTTS_FOLD_* knobs are TPU layouts and are not ported (ROADMAP.md): the
+trunk stays [B, C, T].
 """
 
 from __future__ import annotations
@@ -41,8 +45,13 @@ from indextts_tpu_torch.models.ecapa import ECAPA
 from indextts_tpu_torch.ops.antialias import activation1d
 from indextts_tpu_torch.ops.cuda.aa_conv_branch import fused_aa_snake_dconv
 from indextts_tpu_torch.ops.cuda.antialias import fused_anti_alias_snake
+from indextts_tpu_torch.ops.cuda.antialias_folded import fused_folded_aa
 from indextts_tpu_torch.ops.cuda.antialias_tmajor import fused_anti_alias_snake_tmajor
 from indextts_tpu_torch.weights import fan_in, normal_, uniform_
+
+# the widest stage whose resblock activations K4 takes under INDEXTTS_FUSED_AA=1
+# (the JAX package's _FOLDED_MAX_CHANNELS)
+FOLDED_MAX_CHANNELS = 96
 
 
 def linear_interp_x4(x: torch.Tensor) -> torch.Tensor:
@@ -162,6 +171,7 @@ def bigvgan_apply(
     of the C >= 128 stages go through K2; with INDEXTTS_WIDE_TMAJOR=1 the
     remaining activations at C >= 128 through K3 (INDEXTTS_WIDE_TMAJOR_MXU=1:
     its tensor-core body; INDEXTTS_WIDE_TMAJOR_POLY=1: the polynomial sin);
+    with INDEXTTS_FUSED_AA=1 the resblock activations at C <= 96 through K4;
     the other activations through K1."""
     if speaker_embedding is None:
         speaker_embedding = model.speaker_encoder(mel_ref, lens)
@@ -173,7 +183,11 @@ def bigvgan_apply(
     tmajor_mxu = env("INDEXTTS_WIDE_TMAJOR_MXU", "") == "1"
     tmajor_poly = True if env("INDEXTTS_WIDE_TMAJOR_POLY", "") == "1" else None
 
-    def act(p: SnakeParams, y: torch.Tensor) -> torch.Tensor:
+    fused_aa = use_cuda_kernel and env("INDEXTTS_FUSED_AA", "") == "1"
+
+    def act(p: SnakeParams, y: torch.Tensor, resblock: bool = True) -> torch.Tensor:
+        if fused_aa and resblock and y.shape[1] <= FOLDED_MAX_CHANNELS:
+            return fused_folded_aa(y, p.alpha, p.beta, h.snake_logscale)
         if wide_tmajor and y.shape[1] >= 128:
             return fused_anti_alias_snake_tmajor(y, p.alpha, p.beta, h.snake_logscale, mxu=tmajor_mxu,
                                                  poly_sin=tmajor_poly)
@@ -196,5 +210,5 @@ def bigvgan_apply(
             y = y + model.conds[i](spk)
         blocks = model.resblocks[i * n_kernels : (i + 1) * n_kernels]
         y = sum(rb(y, act, branch if wide_branch else None) for rb in blocks) / n_kernels
-    y = model.conv_post(act(model.activation_post, y))
+    y = model.conv_post(act(model.activation_post, y, resblock=False))
     return torch.tanh(y).transpose(1, 2)

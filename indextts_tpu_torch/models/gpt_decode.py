@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -53,6 +53,7 @@ from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, gpt2_apply
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
+    Knob,
     apply_repetition_penalty,
     apply_typical,
     apply_warpers,
@@ -98,16 +99,17 @@ class DecodeState:
 @dataclass
 class DecodeContext:
     """What the loop needs besides the state: the prefill length p, the
-    prefill key mask padded to the cache length, and the sampling settings."""
+    prefill key mask padded to the cache length, and the sampling settings
+    (each dynamic knob a float, or a [B] tensor with one value per row)."""
 
     p: int
     prefill_valid: torch.Tensor
     gen: GenerationConfig
     generator: torch.Generator
-    temperature: float
-    top_p: float
-    repetition_penalty: float
-    typical_mass: float = 0.9
+    temperature: Knob
+    top_p: Knob
+    repetition_penalty: Knob
+    typical_mass: Knob = 0.9
 
     def sample(self, logits: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
         lf = process_logits(
@@ -227,13 +229,15 @@ def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: tor
     return block._mlp(x + block.attn_proj(a.reshape(b, d)))
 
 
-def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: int, cache, pos: int,
-                 valid: torch.Tensor, return_hidden: bool = False):
-    """One step: token [B] at mel position `mel_pos`, its K/V written into
-    cache slot `pos` (in place). valid: [B, S] bool, the cache slots already
-    written that the token attends, `pos` excluded (JAX's base_mask). The
-    cache is (k, v) or int8 (k8, ks, v8, vs). Returns logits [B, V], and
-    with return_hidden also the final-norm hidden [B, D]."""
+def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: Union[int, torch.Tensor], cache,
+                 pos: int, valid: torch.Tensor, return_hidden: bool = False):
+    """One step: token [B] at mel position `mel_pos` (an int, or a [B] long
+    tensor where the rows sit at different ages, as slot rows do), its K/V
+    written into the one shared cache slot `pos` (in place). valid: [B, S]
+    bool, the cache slots already written that the token attends, `pos`
+    excluded (JAX's base_mask). The cache is (k, v) or int8 (k8, ks, v8, vs).
+    Returns logits [B, V], and with return_hidden also the final-norm hidden
+    [B, D]."""
     x = model.mel_embedding[token] + model.mel_pos_embedding[mel_pos]
     bias = torch.where(valid, torch.zeros((), device=x.device), NEG)[:, None, :]  # [B, 1, S]
     for layer, block in enumerate(model.gpt.blocks):
@@ -254,17 +258,18 @@ def prefill_decode_state(
     text_tokens: torch.Tensor,
     text_lengths: torch.Tensor,
     generator: torch.Generator,
-    temperature: float = 1.0,
-    top_p: float = 0.8,
-    repetition_penalty: float = 10.0,
+    temperature: Knob = 1.0,
+    top_p: Knob = 0.8,
+    repetition_penalty: Knob = 10.0,
     quant_kv: bool = False,
-    typical_mass: float = 0.9,
+    typical_mass: Knob = 0.9,
     capture_latents: bool = False,
     cache_len: Optional[int] = None,
 ) -> Tuple[DecodeState, DecodeContext]:
     """Prefill + first token. Returns the loop state and its context; the
-    cache is int8 with quant_kv. capture_latents gives the state a latent
-    buffer whose slot 0 is the prefill's last final-norm hidden. cache_len
+    cache is int8 with quant_kv. The dynamic knobs are floats or [B] tensors.
+    capture_latents gives the state a latent buffer whose slot 0 is the
+    prefill's last final-norm hidden. cache_len
     (default p + max_new_tokens) allocates a shorter cache, to be extended
     with grow_cache before decode_steps writes past it."""
     b = text_tokens.shape[0]
@@ -278,8 +283,8 @@ def prefill_decode_state(
     seen = _initial_seen(cfg, b, dev)
     ctx = DecodeContext(
         p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
-        generator=generator, temperature=float(temperature), top_p=float(top_p),
-        repetition_penalty=float(repetition_penalty), typical_mass=float(typical_mass),
+        generator=generator, temperature=_knob(temperature), top_p=_knob(top_p),
+        repetition_penalty=_knob(repetition_penalty), typical_mass=_knob(typical_mass),
     )
     tok1 = ctx.sample(logits0, seen)
     codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
@@ -292,6 +297,11 @@ def prefill_decode_state(
     state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1,
                         lat=lat)
     return state, ctx
+
+
+def _knob(v: Knob) -> Knob:
+    """A dynamic knob as given per row ([B] tensor), else as a float."""
+    return v if isinstance(v, torch.Tensor) and v.dim() == 1 else float(v)
 
 
 def _initial_seen(cfg: GPTConfig, rows: int, dev) -> torch.Tensor:
@@ -447,14 +457,15 @@ def generate_speech_segmented(
 
 
 def _beam_joint_scores(logits: torch.Tensor, seen: torch.Tensor, beam_scores: torch.Tensor, gen: GenerationConfig,
-                       temperature: float, top_p: float, repetition_penalty: float,
-                       typical_mass: float) -> torch.Tensor:
+                       temperature: Knob, top_p: Knob, repetition_penalty: Knob,
+                       typical_mass: Knob) -> torch.Tensor:
     """Joint successor scores [bb, V] float32 with HF beam semantics: the
     processors (repetition penalty, typical) run on the log-softmaxed
     per-beam scores, the beam scores are added, and the warpers
     (temperature, top-k / top-p keeping at least two tokens) run on the joint
     scores when sampling. On log-probs (always <= 0) the repetition penalty
-    always multiplies. logits, seen: [bb, V]; beam_scores: [bb]."""
+    always multiplies. logits, seen: [bb, V]; beam_scores: [bb]; the knobs
+    are floats or [bb] tensors (a request's value repeated for its beams)."""
     lf = torch.log_softmax(logits.float(), dim=-1)
     lf = apply_repetition_penalty(lf, seen, repetition_penalty)
     if gen.typical_sampling:
@@ -494,12 +505,26 @@ def _select_successors(logp_joint: torch.Tensor, generator: torch.Generator, gen
     return _top_k_stable(logp_joint, k)
 
 
-def _beam_stop_bound_base(length_penalty: float, prefill_len: int, max_new: int, i: int) -> float:
+def _beam_stop_bound_base(length_penalty: Knob, prefill_len: int, max_new: int, i: int):
     """The admissible hypothesis-length base of the early-stop bound: scores
     divide by (prefill + length) ** length_penalty, so the best reachable
     finish is at max_new when length_penalty > 0 and at the next step
-    otherwise (HF's BeamHypotheses.is_done switches the same way)."""
+    otherwise (HF's BeamHypotheses.is_done switches the same way). A float,
+    or [b] for a length_penalty with one value per request."""
+    if isinstance(length_penalty, torch.Tensor):
+        far = torch.full_like(length_penalty, float(prefill_len + max_new))
+        return torch.where(length_penalty > 0, far, torch.full_like(far, float(prefill_len + i + 1)))
     return float(prefill_len + max_new) if length_penalty > 0 else float(prefill_len + i + 1)
+
+
+def _length_norm(base, length_penalty: Knob, column: bool = False):
+    """base ** length_penalty, the divisor of a hypothesis score: a float for
+    a float penalty, else float32 per request, [b] or as a column [b, 1]."""
+    if isinstance(length_penalty, torch.Tensor):
+        lp = length_penalty.float()
+        norm = torch.as_tensor(base, dtype=torch.float32, device=lp.device) ** lp
+        return norm[:, None] if column else norm
+    return base ** float(length_penalty)
 
 
 @dataclass
@@ -516,13 +541,14 @@ class BeamBest:
 
 def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Tensor, codes: torch.Tensor,
                beam_scores: torch.Tensor, seen: torch.Tensor, best: BeamBest, joint_fn, select, b: int, nb: int,
-               length_penalty: float = 0.0, prefill_len: int = 0, lat: Optional[torch.Tensor] = None):
+               length_penalty: Knob = 0.0, prefill_len: int = 0, lat: Optional[torch.Tensor] = None):
     """One successor selection, shared by generate_speech_beam and the tests.
     joint_fn(logits, seen, beam_scores) -> [bb, V] (_beam_joint_scores);
     select(cand [b, nb*V]) -> (vals, idx) (_select_successors). The code
     chosen here goes to codes[:, si]. An eos candidate among the top nb
     ranks finishes a hypothesis scored vals / (prefill_len + si) **
-    length_penalty (HF's base: the eos is not yet appended); lower-ranked eos
+    length_penalty (HF's base: the eos is not yet appended; length_penalty a
+    float, or [b] with one value per request); lower-ranked eos
     candidates are dropped (HF's rank filter). lat [bb, max_new, D], the
     beams' latents in the same row order as codes, is snapshotted with a
     finished hypothesis. Updates `best` in place; returns (codes, beam
@@ -535,7 +561,7 @@ def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Ten
     tok = idx % v
     is_eos = tok == cfg.stop_mel_token
     base = float(prefill_len + si)
-    lp = base ** float(length_penalty) if base > 0 else 1.0
+    lp = _length_norm(base, length_penalty, column=True) if base > 0 else 1.0
     ranks = torch.arange(2 * nb, device=dev)[None, :]
     finished = torch.where(is_eos & (ranks < nb), vals / lp, torch.full_like(vals, NEG_INF))
     fbest, fargmax = finished.max(dim=1)
@@ -563,12 +589,12 @@ def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Ten
 
 
 def _beam_finalize(codes: torch.Tensor, beam_scores: torch.Tensor, best: BeamBest, b: int, nb: int, max_new: int,
-                   length_penalty: float, prefill_len: int, lat: Optional[torch.Tensor] = None):
+                   length_penalty: Knob, prefill_len: int, lat: Optional[torch.Tensor] = None):
     """HF finalize: the live beams join the finished hypotheses, normalized
     by the full final length, and the best of all wins. Returns (codes [b,
     max_new], lengths [b]) and, with lat [bb, max_new, D], the winner's
     latents [b, max_new, D]."""
-    live = beam_scores.reshape(b, nb) / float(prefill_len + max_new) ** float(length_penalty)
+    live = beam_scores.reshape(b, nb) / _length_norm(float(prefill_len + max_new), length_penalty, column=True)
     live_val, live_idx = live.max(dim=1)
     live_flat = torch.arange(b, device=codes.device) * nb + live_idx
     pick_live = live_val > best.score
@@ -596,7 +622,7 @@ class _BeamLoop:
         self.model, self.cfg, self.gen = model, cfg, gen
         self.nb = nb = gen.num_beams
         self.b = b = text_tokens.shape[0]
-        self.length_penalty, self.pos_off, self.capture = length_penalty, pos_off, capture_latents
+        self.length_penalty, self.pos_off, self.capture = _knob(length_penalty), pos_off, capture_latents
         self.max_new = max_new = gen.max_new_tokens
         bb = b * nb
         dev = text_tokens.device
@@ -612,6 +638,10 @@ class _BeamLoop:
         if capture_latents:
             self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
             self.lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
+        # a knob with one value per request repeats for the request's beams
+        temperature, top_p, repetition_penalty, typical_mass = (
+            v.repeat_interleave(nb) if isinstance(v, torch.Tensor) and v.dim() == 1 else v
+            for v in (temperature, top_p, repetition_penalty, typical_mass))
         self.joint_fn = lambda logits, seen, scores: _beam_joint_scores(
             logits, seen, scores, gen, temperature, top_p, repetition_penalty, typical_mass)
         self.select = lambda cand: _select_successors(cand, generator, gen, nb)
@@ -645,7 +675,7 @@ class _BeamLoop:
         if not self.gen.early_stopping:
             return True
         base = _beam_stop_bound_base(self.length_penalty, self.p, self.max_new, self.i)
-        bound = self.beam_scores.reshape(self.b, self.nb).max(dim=1).values / base ** float(self.length_penalty)
+        bound = self.beam_scores.reshape(self.b, self.nb).max(dim=1).values / _length_norm(base, self.length_penalty)
         return bool((bound > self.best.score).any())
 
     def run(self, n_steps: int) -> None:

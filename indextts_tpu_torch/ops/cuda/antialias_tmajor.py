@@ -129,9 +129,13 @@ def anti_alias_snake_tmajor_bound(
     if mxu:
         flips = []
         for s in (se, so):
-            ulp = _bf16_ulp(s.abs() * (1 + 2.0 ** -8))  # the upper binade's ulp next to a power of two
-            to_midpoint = ulp / 2 - (s - s.to(torch.bfloat16).float()).abs()
-            flips.append(torch.where(to_midpoint <= 2e-5 + 2.0 ** -17 * s.abs(), ulp, torch.zeros((), device=x.device)))
+            # the two bf16 neighbours of |s|: lo by truncating the float32 bits, lo + ulp
+            # (exact also just below a power of two, where the spacing halves)
+            sa = s.abs()
+            lo = (sa.view(torch.int32) & -65536).view(torch.float32)
+            ulp = _bf16_ulp(lo)
+            to_midpoint = (sa - (lo + ulp / 2)).abs()
+            flips.append(torch.where(to_midpoint <= 2e-5 + 2.0 ** -17 * sa, ulp, torch.zeros((), device=x.device)))
         f_abs = torch.as_tensor(kaiser_sinc_filter1d(0.25, 0.3, 12), device=x.device).abs()
         b, c, t = se.shape
         a2 = torch.stack(flips, dim=-1).reshape(b * c, 1, 2 * t)

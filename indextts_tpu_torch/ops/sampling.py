@@ -4,36 +4,50 @@
 HF generate() order (model.py:698-703 of the reference): the processors
 (repetition penalty, typical) first, then the warpers temperature, top-k,
 top-p when sampling; with num_beams > 1 the warpers keep at least two tokens.
-All compute in float32 over [B, V] logits. Sampling parameters are Python
-scalars: one request per decode batch.
+All compute in float32 over [B, V] logits. Every dynamic knob (temperature,
+top_p, repetition_penalty, typical_mass) is a Python float or a [B] tensor
+with one value per row, so that requests with different knobs share a decode
+batch (infer_batch's per_request_kwargs, the slot rows).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 NEG_INF = -1e30
 
-
-def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:
-    return logits / max(float(temperature), 1e-6)
+Knob = Union[float, torch.Tensor]
 
 
-def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor, penalty: float) -> torch.Tensor:
+def _colp(p: Knob, like: torch.Tensor) -> Knob:
+    """A sampling knob as a float, or per row as a float32 column [B, 1] on
+    `like`'s device, which broadcasts against [B, V] and [B, k]."""
+    if isinstance(p, torch.Tensor) and p.dim() == 1:
+        return p.to(device=like.device, dtype=torch.float32)[:, None]
+    return float(p)
+
+
+def apply_temperature(logits: torch.Tensor, temperature: Knob) -> torch.Tensor:
+    t = _colp(temperature, logits)
+    return logits / (t.clamp(min=1e-6) if isinstance(t, torch.Tensor) else max(t, 1e-6))
+
+
+def apply_repetition_penalty(logits: torch.Tensor, seen_mask: torch.Tensor, penalty: Knob) -> torch.Tensor:
     """HF RepetitionPenaltyLogitsProcessor: for seen tokens, positive logits
     are divided by `penalty`, non-positive multiplied. seen_mask: [B, V] bool."""
+    penalty = _colp(penalty, logits)
     penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
     return torch.where(seen_mask, penalized, logits)
 
 
-def apply_top_p(logits: torch.Tensor, top_p: float, min_tokens_to_keep: int = 1) -> torch.Tensor:
+def apply_top_p(logits: torch.Tensor, top_p: Knob, min_tokens_to_keep: int = 1) -> torch.Tensor:
     """HF TopPLogitsWarper: remove the tail whose cumulative probability
     (ascending order) stays within 1 - top_p; top_p >= 1 keeps everything."""
     sorted_logits = torch.sort(logits, dim=-1).values  # ascending
     cum = torch.cumsum(torch.softmax(sorted_logits.float(), dim=-1), dim=-1)
-    keep_sorted = cum > (1.0 - float(top_p))
+    keep_sorted = cum > (1.0 - _colp(top_p, logits))
     keep_sorted[..., -min_tokens_to_keep:] = True
     # threshold = smallest kept logit
     inf = torch.full_like(sorted_logits, float("inf"))
@@ -41,7 +55,7 @@ def apply_top_p(logits: torch.Tensor, top_p: float, min_tokens_to_keep: int = 1)
     return torch.where(logits < thresh, torch.full_like(logits, NEG_INF), logits)
 
 
-def apply_top_k_top_p(logits: torch.Tensor, top_k: int, top_p: float, min_tokens_to_keep: int = 1) -> torch.Tensor:
+def apply_top_k_top_p(logits: torch.Tensor, top_k: int, top_p: Knob, min_tokens_to_keep: int = 1) -> torch.Tensor:
     """Top-k (every logit >= the k-th largest, ties kept), then top-p,
     without the vocabulary sort, as JAX computes it: of the survivors a
     value level v stays iff the survivor mass at or below v exceeds 1 - top_p;
@@ -56,13 +70,13 @@ def apply_top_k_top_p(logits: torch.Tensor, top_k: int, top_p: float, min_tokens
     z = ex.sum(dim=-1, keepdim=True)
     at_or_below = lf[..., None, :] <= vals[..., :, None]  # [B, k, V]
     c = torch.where(at_or_below, ex[..., None, :], torch.zeros((), device=lf.device)).sum(dim=-1) / z
-    keep = c > (1.0 - float(top_p))
+    keep = c > (1.0 - _colp(top_p, logits))
     keep[..., :min_tokens_to_keep] = True
     thresh = torch.where(keep, vals, torch.full_like(vals, float("inf"))).min(dim=-1, keepdim=True).values
     return torch.where(logits < thresh, torch.full_like(logits, NEG_INF), logits)
 
 
-def apply_typical(logits: torch.Tensor, mass: float = 0.9, min_tokens_to_keep: int = 1) -> torch.Tensor:
+def apply_typical(logits: torch.Tensor, mass: Knob = 0.9, min_tokens_to_keep: int = 1) -> torch.Tensor:
     """Typical sampling (typical_sampling.py:4-30 of the reference): keep the
     tokens whose -log p is closest to the entropy until `mass` cumulative
     probability is covered; the min_tokens_to_keep closest always stay."""
@@ -75,7 +89,7 @@ def apply_typical(logits: torch.Tensor, mass: float = 0.9, min_tokens_to_keep: i
     sorted_logits = torch.gather(lf, -1, order)
     sorted_shifted = torch.gather(shifted, -1, order)
     cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
-    last_ind = (cum < float(mass)).sum(dim=-1, keepdim=True).clamp_(max=lf.shape[-1] - 1)
+    last_ind = (cum < _colp(mass, logits)).sum(dim=-1, keepdim=True).clamp_(max=lf.shape[-1] - 1)
     cutoff = torch.gather(sorted_shifted, -1, last_ind)
     remove = shifted > cutoff
     if min_tokens_to_keep > 1:
@@ -84,7 +98,7 @@ def apply_typical(logits: torch.Tensor, mass: float = 0.9, min_tokens_to_keep: i
     return torch.where(remove, torch.full_like(logits, NEG_INF), logits)
 
 
-def apply_warpers(logits: torch.Tensor, temperature: float, top_k: int, top_p: float,
+def apply_warpers(logits: torch.Tensor, temperature: Knob, top_k: int, top_p: Knob,
                   min_tokens_to_keep: int = 1) -> torch.Tensor:
     """HF's sampling warpers in order: temperature, top-k, top-p, each
     keeping at least min_tokens_to_keep tokens (2 under beam_sample)."""
@@ -96,12 +110,12 @@ def apply_warpers(logits: torch.Tensor, temperature: float, top_k: int, top_p: f
 def process_logits(
     logits: torch.Tensor,
     seen_mask: Optional[torch.Tensor] = None,
-    repetition_penalty: float = 1.0,
+    repetition_penalty: Knob = 1.0,
     typical_sampling: bool = False,
-    typical_mass: float = 0.9,
-    temperature: float = 1.0,
+    typical_mass: Knob = 0.9,
+    temperature: Knob = 1.0,
     top_k: int = 0,
-    top_p: float = 1.0,
+    top_p: Knob = 1.0,
     do_sample: bool = True,
     num_beams: int = 1,
 ) -> torch.Tensor:

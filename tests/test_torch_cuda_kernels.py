@@ -12,6 +12,7 @@ import torch
 
 from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
 from indextts_tpu_torch.ops.cuda import antialias as k1
+from indextts_tpu_torch.ops.cuda import antialias_folded as k4
 from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
 from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
@@ -309,3 +310,80 @@ def test_k3_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="probe"):
         k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda"), alpha, alpha, probe="wrapper")
     assert k3.launches == before
+
+
+# K4 at the three narrow stages of a ~100-code vocoder call (B = 1 and 4), and at
+# odd shapes: C of no tile with T of no 256-frame chunk; T of no 16-byte vector
+# (1003: neither dtype; 1004: float32 only); T shorter than the stencil; T = 1
+K4_SHAPES = [(1, 96, 25600), (4, 96, 25600), (1, 48, 51200), (4, 48, 51200), (1, 24, 102400), (4, 24, 102400),
+             (1, 25, 1000), (2, 25, 1003), (1, 25, 1004), (1, 8, 5), (1, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,t", K4_SHAPES)
+def test_k4_matches_plain(b, c, t, dtype):
+    """Within fused_folded_aa_bound of the plain version; float32 also within
+    2e-5 of the composed path with the exact sin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from indextts_tpu_torch.ops.antialias import activation1d
+
+    x, alpha, beta = _k3_inputs(b, c, t, dtype, seed=4)
+    before = k4.launches
+    out = k4.fused_folded_aa(x, alpha, beta, True)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and out.shape == x.shape and out.dtype == dtype
+    ref = k4.fused_folded_aa_plain(x, alpha, beta, True)
+    err = (out.float() - ref.float()).abs()
+    ratio = (err / k4.fused_folded_aa_bound(x, alpha, beta, ref, True)).max().item()
+    assert ratio <= 1.0, (ratio, err.max().item())
+    if dtype == torch.float32:
+        composed = activation1d(x, alpha, beta, True, approx_sin_=False)
+        assert (out - composed).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_k4_poly_sin_snake_without_beta_and_unaligned_pointer():
+    """poly_sin forced on float32 input (equal to its own plain version, and
+    within the polynomial's error of the exact sin), Snake with beta=None, and
+    a contiguous view whose data pointer is not 16-byte aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, alpha, _ = _k3_inputs(2, 96, 777, torch.float32, seed=5)
+    alpha = alpha.abs() + 0.1
+    exact = k4.fused_folded_aa(x, alpha, None, False)
+    poly = k4.fused_folded_aa(x, alpha, None, False, poly_sin=True)
+    ref = k4.fused_folded_aa_plain(x, alpha, None, False, poly_sin=True)
+    torch.cuda.synchronize()
+    assert (poly - ref).abs().max().item() <= 2e-5
+    assert 1e-7 < (poly - exact).abs().max().item() <= 5e-4
+    xb = torch.randn(16 * 512 + 1, device="cuda").to(torch.bfloat16)[1:].view(1, 16, 512)
+    assert xb.is_contiguous() and xb.data_ptr() % 16 != 0
+    a16 = alpha[:16].contiguous()
+    out = k4.fused_folded_aa(xb, a16, None, False)
+    refb = k4.fused_folded_aa_plain(xb, a16, None, False)
+    ratio = (out.float() - refb.float()).abs() / k4.fused_folded_aa_bound(xb, a16, None, refb, False)
+    assert ratio.max().item() <= 1.0
+
+
+@pytest.mark.cuda
+def test_k4_raises_instead_of_falling_back():
+    """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    alpha = torch.zeros(8, device="cuda")
+    before = k4.launches
+    with pytest.raises(TypeError):
+        k4.fused_folded_aa(torch.zeros(1, 8, 64, device="cuda", dtype=torch.float16), alpha, alpha)
+    with pytest.raises(ValueError):
+        k4.fused_folded_aa(torch.zeros(1, 64, 8, device="cuda").transpose(1, 2), alpha, alpha)
+    with pytest.raises(ValueError):
+        k4.fused_folded_aa(torch.zeros(8, 64, device="cuda"), alpha, alpha)
+    with pytest.raises(ValueError):
+        k4.fused_folded_aa(torch.zeros(1, 8, 0, device="cuda"), alpha, alpha)
+    with pytest.raises(ValueError):
+        k4.fused_folded_aa(torch.zeros(1, 8, 64, device="cuda"), alpha[:4], alpha)
+    with pytest.raises(ValueError):
+        k4.fused_folded_aa(torch.zeros(1, 8, 64, device="cuda"), alpha.cpu(), alpha)
+    assert k4.launches == before

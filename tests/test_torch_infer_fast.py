@@ -44,7 +44,13 @@ def engines(tmp_path_factory):
     te = IndexTTS(cfg_path=cfg_path, model_dir=str(d), is_fp16=False, device="cpu", allow_random_init=True)
     load_jax_params(te.gpt, je.gpt_params)
     load_jax_params(te.bigvgan, je.bigvgan_params)
-    return je, te, cfg_path
+    # one torch thread while these tests run: at this size the eager loops are
+    # thousands of tiny ops, and an intra-op thread pool that shares the cores
+    # with the other test workers slows each of them a hundredfold
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield je, te, cfg_path
+    torch.set_num_threads(threads)
 
 
 def _prompt(seed, frames=40):
