@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero:
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
                times for both;
      k2      — K2 (aa_snake_dconv) against its plain version at the three
-               wide stages of a ~100-code vocoder call, every (k, d), bf16
-               and float32, TF32 off: err against a stated bound, K2's
-               profiler and CUDA-event times, the plain version's, and the
-               default vocoder path's (K1, then cuDNN's conv);
+               wide stages of a ~100-code vocoder call, every (k, d) at B = 1
+               and one (k, d) per stage at B = 4, bf16 and float32, TF32 off:
+               err against a stated bound, K2's profiler and CUDA-event
+               times, the plain version's, and the default vocoder path's
+               (K1, then cuDNN's conv); the wrapper's first call on a weight
+               (it packs the weight) beside its second (it finds it packed);
      k3      — K3 (anti_alias_snake_tmajor) at the three wide stages, B = 1
                and 4, bf16 and float32: the CUDA-core and the tensor-core body
                against their plain versions (err against a stated bound;
@@ -30,10 +32,14 @@ Phases, in order; any failure exits non-zero:
                profiler and CUDA-event times and GB/s with K1's and K3's ident
                body's at the same shape;
   4. k5      — K5 (int8_matmul) against its plain version at the five GPT
-               matmul shapes of the published width, M = 1, 4, 8, x bf16 and
-               float32, TF32 off; CUDA-event and profiler device times for
-               both, with the weights cycled past the L2 cache, and GB/s over
-               the int8 weight bytes;
+               matmul shapes of the published width, M = 1, 3, 4, 8, 15, 16,
+               x bf16 and float32, TF32 off, two runs on one input bit-equal;
+               CUDA-event and profiler device times for both, with the
+               weights cycled past the L2 cache, GB/s over the int8 weight
+               bytes, and F.linear on the bf16 weights at the same shape as a
+               yardstick; then K not a multiple of 16 and a weight view that
+               is not 16-byte aligned; per decode step (97 launches) at every
+               M;
   5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
@@ -172,12 +178,15 @@ def device_time_ms(fn, iters: int):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(2):  # a trace now and then comes back without device records: take it once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
 
 
 def bf16_ulp(x: float) -> float:
@@ -234,8 +243,9 @@ def kernel_phase(card: str) -> dict:
 
 
 def k2_phase(card: str) -> dict:
-    """K2 at the wide stages of a ~100-code vocoder call (B = 1), every (k,
-    d) of the vocoder, bf16 and float32."""
+    """K2 at the wide stages of a ~100-code vocoder call: every (k, d) of the
+    vocoder at B = 1 and one (k, d) per stage at B = 4, bf16 and float32; the
+    wrapper's first call on a weight (which packs it) beside its second."""
     import torch
     import torch.nn.functional as F
 
@@ -247,43 +257,55 @@ def k2_phase(card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(2468)
     rows, failures = [], []
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
-    for label, c, t in STAGES[:3]:
-        for (k, d) in K2_CALLS:
-            for dtype in (torch.bfloat16, torch.float32):
-                x = (0.5 * torch.randn(1, c, t, device="cuda", generator=g)).to(dtype)
-                alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
-                beta = 0.3 * torch.randn(c, device="cuda", generator=g)
-                w = (torch.randn(c, c, k, device="cuda", generator=g) / (c * k) ** 0.5).to(dtype)
-                bias = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
-                pad = (k * d - d) // 2
-                kern = lambda: k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, True)
-                plain = lambda: k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, True)
-                # what the vocoder runs without the switch: K1, then cuDNN's conv in x's dtype
-                default = lambda: F.conv1d(k1.fused_anti_alias_snake(x, alpha, beta, True), w, bias, padding=pad,
-                                           dilation=d)
-                out = kern()
+    # every (k, d) at B = 1; B = 4 at one (k, d) per stage
+    cases = [(label, 1, c, t, k, d) for label, c, t in STAGES[:3] for (k, d) in K2_CALLS]
+    cases += [(label, 4, c, t, k, d) for (label, c, t), (k, d) in zip(STAGES[:3], ((7, 3), (3, 1), (11, 5)))]
+    for label, b, c, t, k, d in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (0.5 * torch.randn(b, c, t, device="cuda", generator=g)).to(dtype)
+            alpha = 0.3 * torch.randn(c, device="cuda", generator=g)
+            beta = 0.3 * torch.randn(c, device="cuda", generator=g)
+            w = (torch.randn(c, c, k, device="cuda", generator=g) / (c * k) ** 0.5).to(dtype)
+            bias = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+            pad = (k * d - d) // 2
+            kern = lambda: k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, True)
+            plain = lambda: k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, True)
+            # what the vocoder runs without the switch: K1, then cuDNN's conv in x's dtype
+            default = lambda: F.conv1d(k1.fused_anti_alias_snake(x, alpha, beta, True), w, bias, padding=pad,
+                                       dilation=d)
+            # the wrapper's first call on this weight packs it; the second finds it packed
+            call_ms = []
+            for _ in range(2):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
-                ref = plain()
-                err = (out.float() - ref.float()).abs()
-                ratio = (err / k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True)).max().item()
-                iters = 5
-                ms, plain_ms, default_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters), cuda_time_ms(default, iters)
-                dev_ms = device_time_ms(kern, iters)
-                dev_plain_ms = device_time_ms(plain, iters)
-                dev_default_ms = device_time_ms(default, iters)
-                tflops = 2 * k * c * c * t / (dev_ms * 1e-3) / 1e12 if dev_ms else None
-                row = dict(case=label, C=c, T=t, k=k, d=d, dtype=str(dtype).replace("torch.", ""),
-                           max_abs_err=err.max().item(), err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
-                           default_ms=default_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms,
-                           device_default_ms=dev_default_ms, conv_TFLOPs=tflops, ok=bool(ratio <= 1.0))
-                rows.append(row)
-                log(f"[k2] {label} C={c:3d} T={t:5d} k={k:2d} d={d} {row['dtype']:8s} err={row['max_abs_err']:.3e} "
-                    f"(err/bound {ratio:.3f}) events: kernel {ms:.4f} plain {plain_ms:.4f} K1+conv {default_ms:.4f} ms"
-                    f" | device: kernel {fmt(dev_ms)} plain {fmt(dev_plain_ms)} K1+conv {fmt(dev_default_ms)} ms, "
-                    f"conv {fmt(tflops)} TFLOP/s  [{card}]")
-                if not row["ok"]:
-                    failures.append(row)
-                del x, w, out, ref, err
+                start.record()
+                out = kern()
+                end.record()
+                torch.cuda.synchronize()
+                call_ms.append(start.elapsed_time(end))
+            ref = plain()
+            err = (out.float() - ref.float()).abs()
+            ratio = (err / k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True)).max().item()
+            iters = 5
+            ms, plain_ms, default_ms = cuda_time_ms(kern, iters), cuda_time_ms(plain, iters), cuda_time_ms(default, iters)
+            dev_ms = device_time_ms(kern, iters)
+            dev_plain_ms = device_time_ms(plain, iters)
+            dev_default_ms = device_time_ms(default, iters)
+            tflops = 2 * k * c * c * t * b / (dev_ms * 1e-3) / 1e12 if dev_ms else None
+            row = dict(case=label, B=b, C=c, T=t, k=k, d=d, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err.max().item(), err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
+                       default_ms=default_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms,
+                       device_default_ms=dev_default_ms, conv_TFLOPs=tflops, first_call_ms=call_ms[0],
+                       second_call_ms=call_ms[1], ok=bool(ratio <= 1.0))
+            rows.append(row)
+            log(f"[k2] {label} B={b} C={c:3d} T={t:5d} k={k:2d} d={d} {row['dtype']:8s} err={row['max_abs_err']:.3e} "
+                f"(err/bound {ratio:.3f}) events: kernel {ms:.4f} plain {plain_ms:.4f} K1+conv {default_ms:.4f} ms"
+                f" | device: kernel {fmt(dev_ms)} plain {fmt(dev_plain_ms)} K1+conv {fmt(dev_default_ms)} ms, "
+                f"conv {fmt(tflops)} TFLOP/s | wrapper's first call {call_ms[0]:.4f} ms, second {call_ms[1]:.4f} ms"
+                f"  [{card}]")
+            if not row["ok"]:
+                failures.append(row)
+            del x, w, out, ref, err
     if failures:
         raise AssertionError(f"K2 disagrees with its plain version: {failures}")
     return {"rows": rows}
@@ -473,10 +495,21 @@ def k5_bound(x, wq, scale, ref):
     return bound
 
 
+K5_MS = (1, 3, 4, 8, 15, 16)  # decode batches: greedy, 3 beams, slots, 5 rows x 3 beams, a full tile
+
+
 def k5_phase(card: str) -> dict:
+    """K5 at the five GPT matmul shapes, M in K5_MS, bf16 and float32: err
+    against k5_bound, two runs on the same input bit-equal (the reduction is
+    in a fixed order), device times with the weights cycled past the L2 cache
+    (bf16 at every M, float32 at M = 4), and F.linear on the dequantized bf16
+    weight at the same shape as a yardstick (another function: twice the
+    bytes). Then tails, checked and not timed: K not a multiple of 16, and a
+    weight view that is not 16-byte aligned."""
     import itertools
 
     import torch
+    import torch.nn.functional as F
 
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
@@ -484,6 +517,15 @@ def k5_phase(card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(4321)
     rows, failures = [], []
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+
+    def check(x, wq, scale, bias):
+        out = k5.int8_matmul(x, wq, scale, bias)
+        again = k5.int8_matmul(x, wq, scale, bias)
+        torch.cuda.synchronize()
+        ref = k5.int8_matmul_plain(x, wq, scale, bias)
+        err = (out.float() - ref.float()).abs()
+        return err.max().item(), (err / k5_bound(x, wq, scale, ref)).max().item(), bool(torch.equal(out, again))
+
     for label, k, n in K5_SHAPES:
         # copies of the weight past the 50 MB L2 cache, cycled: each launch
         # streams its weight from device memory, as in a decode step
@@ -491,36 +533,58 @@ def k5_phase(card: str) -> dict:
         ws = [torch.randint(-127, 128, (n, k), device="cuda", generator=g, dtype=torch.int32).to(torch.int8)
               for _ in range(copies)]
         scale = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-4
-        for m in (1, 4, 8):
+        wb = [(w.float() * scale[:, None]).to(torch.bfloat16) for w in ws]  # the yardstick's bf16 weights
+        for m in K5_MS:
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
                 bias = (0.1 * torch.randn(n, device="cuda", generator=g)).to(dtype)
-                out = k5.int8_matmul(x, ws[0], scale, bias)
-                torch.cuda.synchronize()
-                ref = k5.int8_matmul_plain(x, ws[0], scale, bias)
-                err = (out.float() - ref.float()).abs()
-                ratio = (err / k5_bound(x, ws[0], scale, ref)).max().item()
-                it = itertools.cycle(ws)
+                max_err, ratio, same = check(x, ws[0], scale, bias)
+                it, itb = itertools.cycle(ws), itertools.cycle(wb)
                 kern = lambda: k5.int8_matmul(x, next(it), scale, bias)
                 plain = lambda: k5.int8_matmul_plain(x, next(it), scale, bias)
+                linear = lambda: F.linear(x, next(itb), bias)
                 iters = 2 * copies
-                plain_ms = cuda_time_ms(plain, iters)
                 ms = cuda_time_ms(kern, iters)
-                dev_ms = device_time_ms(kern, iters)
-                dev_plain_ms = device_time_ms(plain, iters)
+                plain_ms = cuda_time_ms(plain, iters)
+                timed = dtype == torch.bfloat16 or m == 4
+                dev_ms = device_time_ms(kern, iters) if timed else None
+                dev_plain_ms = device_time_ms(plain, iters) if timed else None
+                linear_ms = device_time_ms(linear, iters) if dtype == torch.bfloat16 else None
                 gbps = n * k / (dev_ms * 1e-3) / 1e9 if dev_ms else None
                 row = dict(case=label, M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""),
-                           max_abs_err=err.max().item(), err_over_bound=ratio, ms=ms, plain_ms=plain_ms,
-                           device_ms=dev_ms, device_plain_ms=dev_plain_ms, weight_GBps=gbps, ok=bool(ratio <= 1.0))
+                           max_abs_err=max_err, err_over_bound=ratio, bit_equal_runs=same, ms=ms, plain_ms=plain_ms,
+                           device_ms=dev_ms, device_plain_ms=dev_plain_ms, bf16_linear_ms=linear_ms,
+                           weight_GBps=gbps, ok=bool(ratio <= 1.0 and same))
                 rows.append(row)
-                log(f"[k5] {label:8s} M={m} K={k:4d} N={n:4d} {row['dtype']:8s} err={row['max_abs_err']:.3e} "
-                    f"(err/bound {ratio:.3f}) events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms | device: kernel "
-                    f"{fmt(dev_ms)} ms plain {fmt(dev_plain_ms)} ms, {fmt(gbps)} GB/s of int8 weights  [{card}]")
+                log(f"[k5] {label:8s} M={m:2d} K={k:4d} N={n:4d} {row['dtype']:8s} err={max_err:.3e} "
+                    f"(err/bound {ratio:.3f}) two runs bit-equal {same} | events: kernel {ms:.4f} ms plain "
+                    f"{plain_ms:.4f} ms | device: kernel {fmt(dev_ms)} ms plain {fmt(dev_plain_ms)} ms, bf16 F.linear "
+                    f"{fmt(linear_ms)} ms, {fmt(gbps)} GB/s of int8 weights  [{card}]")
                 if not row["ok"]:
                     failures.append(row)
-        del ws
+        del ws, wb
+    # tails: K % 16 != 0 (byte loads of the weight; K = 1288 also has no whole
+    # 64-k step at its end), and a weight view one byte off a 16-byte boundary
+    for label, k, n, offset in (("odd_k1288", 1288, 1280, 0), ("odd_k50_n70", 50, 70, 0), ("unaligned_w", 1280, 1280, 1)):
+        flat = torch.randint(-127, 128, (n * k + offset,), device="cuda", generator=g, dtype=torch.int32).to(torch.int8)
+        wq = flat[offset:].view(n, k)
+        if offset and wq.data_ptr() % 16 == 0:
+            raise AssertionError("the unaligned weight view is aligned")
+        scale = torch.rand(n, device="cuda", generator=g) * 1e-3 + 1e-4
+        for m in (3, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+                bias = (0.1 * torch.randn(n, device="cuda", generator=g)).to(dtype)
+                max_err, ratio, same = check(x, wq, scale, bias)
+                row = dict(case=label, M=m, K=k, N=n, dtype=str(dtype).replace("torch.", ""), max_abs_err=max_err,
+                           err_over_bound=ratio, bit_equal_runs=same, ok=bool(ratio <= 1.0 and same))
+                rows.append(row)
+                log(f"[k5] {label:12s} M={m:2d} K={k:4d} N={n:4d} {row['dtype']:8s} err={max_err:.3e} (err/bound "
+                    f"{ratio:.3f}) two runs bit-equal {same}  [{card}]")
+                if not row["ok"]:
+                    failures.append(row)
     if failures:
-        raise AssertionError(f"K5 disagrees with its plain version: {failures}")
+        raise AssertionError(f"K5 disagrees with its plain version, or two runs differ: {failures}")
     return {"rows": rows}
 
 
@@ -1526,16 +1590,22 @@ def main(argv) -> int:
         pick = lambda r: r[key] if r[key] is not None else r[fallback]
         return sum(18 * pick(main_rows[s]) for s, _, _ in STAGES[:6]) + pick(main_rows["activation_post"])
 
-    k5_rows = {r["case"]: r for r in kern5["rows"] if r["M"] == 4 and r["dtype"] == "bfloat16"}
     layers = load_config(FLAGSHIP).gpt.layers
 
-    def per_step(key: str, fallback: str) -> float:
-        """K5 (or plain) time of one decode step at B = 4, bf16: four block
-        matmuls in each layer plus the mel head."""
+    def per_step(key: str, fallback: str, m: int = 4) -> float:
+        """K5 (or plain, or F.linear on bf16 weights) time of one decode step
+        at M = m, bf16: four block matmuls in each layer plus the mel head."""
+        k5_rows = {r["case"]: r for r in kern5["rows"] if r["M"] == m and r["dtype"] == "bfloat16"}
         pick = lambda r: r[key] if r[key] is not None else r[fallback]
         return layers * sum(pick(k5_rows[c]) for c in ("qkv", "proj", "fc", "mlp_proj")) + pick(k5_rows["head"])
 
-    k2_rows = {(r["case"], r["k"], r["d"]): r for r in kern2["rows"] if r["dtype"] == "bfloat16"}
+    k5_per_step = {m: {"kernel_ms": per_step("device_ms", "ms", m), "plain_ms": per_step("device_plain_ms", "plain_ms", m),
+                       "bf16_linear_ms": per_step("bf16_linear_ms", "bf16_linear_ms", m)} for m in K5_MS}
+    for m, v in k5_per_step.items():
+        log(f"[k5] per decode step (97 launches, bf16) M={m:2d}: K5 {v['kernel_ms']:.4f} ms ({v['kernel_ms'] / k5_per_step[4]['kernel_ms']:.2f}x "
+            f"M=4), plain {v['plain_ms']:.4f} ms, F.linear on bf16 weights {v['bf16_linear_ms']} ms [{card}]")
+
+    k2_rows = {(r["case"], r["k"], r["d"]): r for r in kern2["rows"] if r["dtype"] == "bfloat16" and r["B"] == 1}
 
     def per_voc(key: str, fallback: str) -> float:
         """K2 (or plain, or K1 + conv) time of one vocoder call at ~100
@@ -1612,6 +1682,7 @@ def main(argv) -> int:
         "k4": kern4,
         "k4_per_vocoder_call_ms": k4_per_voc,
         "k5": kern5,
+        "k5_per_decode_step_ms": {str(m): v for m, v in k5_per_step.items()},
         "engine": eng,
         "beam": beam,
         "stream": stream,
@@ -1651,6 +1722,7 @@ def main(argv) -> int:
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
         "ms": per_step("device_ms", "ms"), "plain_ms": per_step("device_plain_ms", "plain_ms"),
         "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
+        "bf16_linear_ms": k5_per_step[4]["bf16_linear_ms"],  # another function (bf16 weights): a yardstick only
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

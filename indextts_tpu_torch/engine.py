@@ -6,9 +6,11 @@ in `infer_batch`, continuous batching in `slot_session` / `infer_slots`, and
 
 Public surface as the reference engine (indextts/infer.py: class IndexTTS):
 __init__(cfg_path, model_dir, is_fp16, device, use_cuda_kernel), infer(),
-infer_fast(), extract_features(), remove_long_silence(), bucket_sentences(),
+infer_fast(), extract_features(), set_gr_progress_callback(),
+torch_empty_cache(), remove_long_silence(), bucket_sentences(),
 pad_tokens_cat(), and the JAX engine's infer_stream(), a generator of
-float32 chunks, infer_batch(), slot_session(), infer_slots() and warmup().
+float32 chunks, infer_batch(), slot_session(), infer_slots(), warmup() and
+start_profiling() / stop_profiling() (a torch.profiler trace).
 Underneath, PyTorch runs eagerly on `device` (default
 "cuda"), in bf16 there when `is_fp16`, with the fused anti-aliased activation
 kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
@@ -41,7 +43,7 @@ import hashlib
 import os
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -142,6 +144,9 @@ class IndexTTS:
                 normalizer=self.normalizer,
             )
         self.wav2mel = MelSpectrogramFeatures()
+        self.gr_progress: Optional[Callable[[float, str], None]] = None
+        self._profiler = None
+        self._trace_dir: Optional[str] = None
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._value_cache: Dict[Any, Any] = {}
         self._feature_cache: Dict[Any, np.ndarray] = {}
@@ -157,6 +162,47 @@ class IndexTTS:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def set_gr_progress_callback(self, _callback):
+        """`_callback(value, description)` is called at the stages of infer,
+        infer_fast and infer_batch (the reference's Gradio progress hook)."""
+        self.gr_progress = _callback
+
+    def _set_gr_progress(self, value, desc):
+        if self.gr_progress is not None:
+            self.gr_progress(value, desc)
+
+    def torch_empty_cache(self):
+        """Hand the CUDA allocator's cached blocks back to the device
+        (reference: infer.py:320-329); nothing to do on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def start_profiling(self, logdir: str = "/tmp/indextts_trace"):
+        """Trace the synthesis calls that follow with torch.profiler (host
+        activity, and the device's kernels on a CUDA engine) until
+        stop_profiling, which writes a Chrome trace under `logdir`."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if self._profiler is not None:
+            raise RuntimeError("start_profiling: a trace is already running; call stop_profiling first")
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        os.makedirs(logdir, exist_ok=True)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._trace_dir = logdir
+
+    def stop_profiling(self) -> Optional[str]:
+        """End the trace: `logdir`/indextts_trace_<n>.json (chrome://tracing,
+        Perfetto). Returns the directory, None when no trace was running."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return self._trace_dir
+        self._sync()
+        prof.stop()
+        n = sum(1 for f in os.listdir(self._trace_dir) if f.startswith("indextts_trace_"))
+        prof.export_chrome_trace(os.path.join(self._trace_dir, f"indextts_trace_{n}.json"))
+        return self._trace_dir
 
     def extract_features(self, audio_prompt_path: str) -> np.ndarray:
         """Prompt audio -> log-mel [1, 100, frames] (reference: infer.py:82-93):
@@ -561,6 +607,7 @@ class IndexTTS:
         Returns output_path when given, else (sampling_rate, int16 wav [T, 1])."""
         max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
         print(">> start inference...")
+        self._set_gr_progress(0, "start inference...")
         if verbose:
             print(f"origin text:{text}")
         start_time = time.perf_counter()
@@ -587,11 +634,15 @@ class IndexTTS:
         gpt_tokens = gpt_steps = tf_rows = 0
         self._decode_segments = 0
         has_warned = False
+        progress = 0
         for sent in sentences:
             text_tokens = np.asarray(self.tokenizer.convert_tokens_to_ids(sent), np.int64)[None, :]
             if verbose:
                 print(text_tokens)
                 print(f"text_tokens shape: {text_tokens.shape}")
+            progress += 1
+            self._set_gr_progress(0.2 + 0.4 * (progress - 1) / len(sentences),
+                                  f"gpt inference latent... {progress}/{len(sentences)}")
             m_start = time.perf_counter()
             codes, code_lens, cap_lat, steps = self._gpt_generate(
                 conds, text_tokens, np.asarray([text_tokens.shape[1]]), gen, **dyn)
@@ -612,6 +663,8 @@ class IndexTTS:
             codes, code_lens = self.remove_long_silence(codes_orig)
             if verbose:
                 print(f"fix codes shape: {codes.shape}, code_lens: {code_lens}")
+            self._set_gr_progress(0.2 + 0.4 * progress / len(sentences),
+                                  f"gpt inference speech... {progress}/{len(sentences)}")
             m_start = time.perf_counter()
             # captured latents are indexed by the decode's code positions:
             # valid only where silence removal did not compact the row
@@ -632,6 +685,7 @@ class IndexTTS:
             wavs.append(wav)
 
         end_time = time.perf_counter()
+        self._set_gr_progress(0.9, "save audio...")
         wav = np.concatenate(wavs, axis=1)
         wav_length = wav.shape[-1] / sampling_rate
         total = end_time - start_time
@@ -799,6 +853,7 @@ class IndexTTS:
         Returns output_path when given, else (sampling_rate, int16 wav [T, 1])."""
         max_text_tokens_per_sentence = self._clamp_split_len(max_text_tokens_per_sentence)
         print(">> start fast inference...")
+        self._set_gr_progress(0, "start fast inference...")
         if verbose:
             print(f"origin text:{text}")
         start_time = time.perf_counter()
@@ -820,15 +875,20 @@ class IndexTTS:
         self._sync()
         cond_time = time.perf_counter() - m_start
         gpt_gen_time = gpt_forward_time = bigvgan_time = 0.0
+        self._set_gr_progress(0.1, "text processing...")
         bucket_max_size = sentences_bucket_max_size if self.device.type != "cpu" else 1
         all_sentences = self.bucket_sentences(sentences, bucket_max_size=bucket_max_size)
+        all_batch_num = sum(len(b) for b in all_sentences)
         all_batch_codes, all_batch_lens, all_batch_lats, all_text_tokens = [], [], [], []
-        gpt_steps = 0
+        gpt_steps = processed_num = 0
         self._decode_segments = 0
         for bucket in all_sentences:
             item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(item["sent"]), np.int64)[None, :]
                            for item in bucket]
             all_text_tokens.append(item_tokens)
+            processed_num += len(bucket)
+            self._set_gr_progress(0.2 + 0.3 * processed_num / all_batch_num,
+                                  f"gpt inference speech... {processed_num}/{all_batch_num}")
             m_start = time.perf_counter()
             codes, lens, cap_lat, steps = self._gpt_generate(
                 conds, self.pad_tokens_cat(item_tokens), np.asarray([t.shape[1] for t in item_tokens]), gen, **dyn)
@@ -838,6 +898,7 @@ class IndexTTS:
             all_batch_lens.append(lens)
             all_batch_lats.append(cap_lat)
 
+        self._set_gr_progress(0.5, "gpt inference latents...")
         all_idxs, all_latents, rows, pending = [], [], [], []
         has_warned = False
         for batch_codes, batch_lens, batch_lat, batch_tokens, bucket in zip(
@@ -870,11 +931,13 @@ class IndexTTS:
         chunks = [all_latents[i : i + chunk_size] for i in range(0, len(all_latents), chunk_size)]
         chunk_args = [(torch.cat([lat for lat, _ in items], dim=1), sum(n for _, n in items), prompt_mel)
                       for items in chunks]
+        self._set_gr_progress(0.7, "bigvgan decode...")
         m_start = time.perf_counter()
         wavs = self._vocode_many(chunk_args)  # int16, scaled and clipped on the device
         bigvgan_time += time.perf_counter() - m_start
 
         end_time = time.perf_counter()
+        self._set_gr_progress(0.9, "save audio...")
         wav = np.concatenate(wavs, axis=1)
         wav_length = wav.shape[-1] / sampling_rate
         total = end_time - start_time
@@ -966,13 +1029,17 @@ class IndexTTS:
             print(f">> {len(flat_sents)} sentence rows across {len(items)} requests")
 
         # cross-request length buckets (idx is the flat row index, which gives the owning request)
+        self._set_gr_progress(0.1, "text processing...")
         buckets = self.bucket_sentences(flat_sents, bucket_max_size=sentences_bucket_max_size)
         row_latents: Dict[int, Tuple[torch.Tensor, int]] = {}
         pending_latents = []  # (flat row, conds, text tokens, codes, code_lens)
         has_warned = False
-        gpt_steps = gpt_tokens = 0
+        gpt_steps = gpt_tokens = processed = 0
         self._decode_segments = 0
         for bucket in buckets:
+            self._set_gr_progress(0.15 + 0.55 * processed / len(flat_sents),
+                                  f"gpt inference speech... {processed}/{len(flat_sents)}")
+            processed += len(bucket)
             item_tokens = [np.asarray(self.tokenizer.convert_tokens_to_ids(it["sent"]), np.int64)[None, :]
                            for it in bucket]
             reqs = [flat_req[it["idx"]] for it in bucket]
@@ -1014,6 +1081,7 @@ class IndexTTS:
         per_req_rows: List[List[int]] = [[] for _ in items]
         for gidx, r in enumerate(flat_req):
             per_req_rows[r].append(gidx)
+        self._set_gr_progress(0.75, "bigvgan decode...")
         chunk_list, chunk_req = [], []
         for r in range(len(items)):
             rows = [row_latents[g] for g in per_req_rows[r]]

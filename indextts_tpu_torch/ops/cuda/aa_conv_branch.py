@@ -5,7 +5,10 @@ its plain PyTorch version.
 Replaces indextts_tpu/ops/pallas/aa_conv_branch.py:fused_aa_snake_dconv_tmajor.
 It is one AMPBlock1 half-branch (models/bigvgan.py under INDEXTTS_WIDE_BRANCH=1,
 stages with C >= 128), on the trunk's [B, C, T] layout with torch's
-[Cout, Cin, k] Conv1d weight.
+[Cout, Cin, k] Conv1d weight. The kernel reads the weight in a packed order
+(pack_weight: 64 x 64 tiles laid out as the tensor cores' shared-memory
+operand); the wrapper packs a weight once and keeps the packed copy for as
+long as the weight tensor lives and is unchanged (packed_weight).
 
 `fused_aa_snake_dconv` takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises.
@@ -14,7 +17,8 @@ for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import weakref
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,8 @@ SOURCE = "aa_snake_dconv.cu"
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+TILE = 64  # the packed weight's tile: 64 output x 64 input channels
 
 
 def aa_snake_dconv_plain(
@@ -91,13 +97,71 @@ def aa_snake_dconv_bound(
     return bound
 
 
+def pack_weight(weight: torch.Tensor) -> torch.Tensor:
+    """torch's Conv1d weight [Cout, Cin, k] in the order the kernel reads it:
+    channels zero-padded to a multiple of 64, then [k, Cout/64, Cin/64] tiles
+    of 64 x 64, each tile as 8 planes (one per 8 input channels) of 64
+    output-channel rows of 8 values, so a tile is one contiguous block laid
+    out as the tensor cores' no-swizzle K-major operand. Returns
+    [k, Cout/64, Cin/64, 8, 64, 8], contiguous."""
+    co, ci, k = weight.shape
+    nco, nci = -(-co // TILE), -(-ci // TILE)
+    w = torch.zeros(k, nco * TILE, nci * TILE, dtype=weight.dtype, device=weight.device)
+    w[:, :co, :ci] = weight.permute(2, 0, 1)
+    # [k, tile_o, o, tile_i, plane, i8] -> [k, tile_o, tile_i, plane, o, i8]
+    return w.view(k, nco, TILE, nci, 8, 8).permute(0, 1, 3, 4, 2, 5).contiguous()
+
+
+# (id(tensor), what) -> (weak reference, data_ptr, version, derived): what the
+# wrapper derives from a parameter, made once per parameter
+_derived: Dict[Tuple[int, str], Tuple[weakref.ref, int, int, torch.Tensor]] = {}
+
+
+def _cached(tensor: torch.Tensor, what: str, make: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """make(tensor), cached. The entry is keyed by the tensor object and holds
+    its data pointer and version counter, so a parameter updated in place
+    (copy_, load_state_dict, the weight bridge), given new storage
+    (.to(dtype), .data = ...) or replaced by another tensor is derived again;
+    the entry goes when the tensor does."""
+    key = (id(tensor), what)
+    hit = _derived.get(key)
+    if (hit is not None and hit[0]() is tensor and hit[1] == tensor.data_ptr() and hit[2] == tensor._version
+            and hit[3].device == tensor.device):
+        return hit[3]
+    made = make(tensor.detach())
+    ref = weakref.ref(tensor, lambda _, key=key: _derived.pop(key, None))
+    _derived[key] = (ref, tensor.data_ptr(), tensor._version, made)
+    return made
+
+
+def packed_weight(weight: torch.Tensor) -> torch.Tensor:
+    """pack_weight(weight), made once per weight (see _cached): a stale packed
+    copy would be a wrong result, so an updated or replaced weight is packed
+    again."""
+    return _cached(weight, "packed", pack_weight)
+
+
+def _snake_parameter(p: torch.Tensor, logscale: bool) -> torch.Tensor:
+    """alpha or beta as the kernel reads it: float32, contiguous, exponentiated
+    for log-scale parameters; made once per parameter."""
+    if logscale:
+        return _cached(p, "exp", lambda t: torch.exp(t.float()).contiguous())
+    return _cached(p, "float", lambda t: t.float().contiguous())
+
+
+_fn = None  # the bound C function, argtypes set once
+
+
 def _library() -> ctypes.CDLL:
+    global _fn
     from indextts_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.indextts_aa_snake_dconv
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _fn is None:
+        fn = lib.indextts_aa_snake_dconv
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
     return lib
 
 
@@ -139,21 +203,19 @@ def fused_aa_snake_dconv(
     for label, p in (("alpha", alpha), ("beta", beta)):
         if p is not None and (p.shape != (c,) or p.device != x.device):
             raise ValueError(f"{name}: {label} must be [{c}] on {x.device}, got {tuple(p.shape)} on {p.device}")
-    a = alpha.float()
-    bt = a if beta is None else beta.float()
-    if alpha_logscale:
-        a, bt = torch.exp(a), torch.exp(bt)
-    a, bt = a.contiguous(), bt.contiguous()
-    wt = weight.permute(2, 0, 1).contiguous()  # [k, Cout, Cin]: the kernel's tap-major rows
+    a = _snake_parameter(alpha, alpha_logscale)
+    bt = a if beta is None else _snake_parameter(beta, alpha_logscale)
+    wp = packed_weight(weight)  # made once per weight
     out = torch.empty_like(x)
-    lib = _library()
-    taps = _taps()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.indextts_aa_snake_dconv(
-            x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
-            b, c, t, k, int(dilation), _DTYPE_CODE[x.dtype], ctypes.addressof(taps), stream,
-        )
+    if _fn is None:
+        _library()
+    args = (x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
+            b, c, t, k, int(dilation), _DTYPE_CODE[x.dtype], ctypes.addressof(_taps()))
+    if x.device.index == torch.cuda.current_device():
+        err = _fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = _fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"aa_snake_dconv kernel launch failed: CUDA error {err} "
                            f"(shape {tuple(x.shape)}, k {k}, dilation {dilation})")

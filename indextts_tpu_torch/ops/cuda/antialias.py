@@ -12,6 +12,7 @@ for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -46,7 +47,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def _taps() -> "ctypes.Array":
+    """The 12 filter taps as a C float array, built once (the kernels only read it)."""
     f = kaiser_sinc_filter1d(0.25, 0.3, 12)
     return (ctypes.c_float * 12)(*[float(v) for v in f])
 

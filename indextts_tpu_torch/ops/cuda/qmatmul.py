@@ -5,7 +5,11 @@ Replaces indextts_tpu/ops/pallas/qmatmul.py:int8_matmul. The quantized GPT
 linears (ops/quant.py:QuantLinear) call it for every
 2-D product: the decode step's four block matmuls per layer and the mel
 head. The weight is in torch Linear's layout, wq [N, K] int8, one output
-channel per row; the JAX kernel takes [K, N].
+channel per row (the JAX kernel takes [K, N]); the kernel reads it as it is,
+no packed copy. chip_smoke.py's k5 phase holds the kernel against the plain
+version and times it (per decode step, M = 1 .. 16, with F.linear on bf16
+weights as a yardstick); the alternatives the source's header note lists
+were timed with the same phase.
 
 `int8_matmul` takes the plain version only for a tensor on the CPU; for a
 CUDA tensor it launches the kernel or raises.
@@ -36,13 +40,19 @@ def int8_matmul_plain(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return out if bias is None else out + bias.to(x.dtype)
 
 
+_fn = None  # the bound C function, argtypes set once
+
+
 def _library() -> ctypes.CDLL:
+    global _fn
     from indextts_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.indextts_int8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _fn is None:
+        fn = lib.indextts_int8_matmul
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
     return lib
 
 
@@ -67,24 +77,29 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul: wq {tuple(wq.shape)} does not take x {tuple(x.shape)} (want [N, {k}])")
     if not (x.is_contiguous() and wq.is_contiguous()):
         raise ValueError("int8_matmul: x and wq must be contiguous")
-    scale = scale.float().reshape(-1).contiguous()
+    # QuantLinear's buffers are already float32 [N] / x's dtype [N], contiguous: no copies then
+    if scale.dtype != torch.float32 or scale.dim() != 1 or not scale.is_contiguous():
+        scale = scale.float().reshape(-1).contiguous()
     if scale.numel() != n:
         raise ValueError(f"int8_matmul: scale has {scale.numel()} entries for N = {n}")
     if bias is not None:
-        bias = bias.to(x.dtype).contiguous()
+        if bias.dtype != x.dtype or not bias.is_contiguous():
+            bias = bias.to(x.dtype).contiguous()
         if bias.shape != (n,):
             raise ValueError(f"int8_matmul: bias must be [{n}], got {tuple(bias.shape)}")
     for name, t in (("wq", wq), ("scale", scale), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"int8_matmul: {name} is on {t.device}, x on {x.device}")
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.indextts_int8_matmul(
-            x.data_ptr(), wq.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            out.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype], stream,
-        )
+    if _fn is None:
+        _library()
+    args = (x.data_ptr(), wq.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            out.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype])
+    if x.device.index == torch.cuda.current_device():
+        err = _fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = _fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} (x {tuple(x.shape)}, "
                            f"wq {tuple(wq.shape)})")

@@ -116,6 +116,48 @@ def test_k2_short_t_and_batch(dtype, b, t, k, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,t,k,d", [(768, 400, 7, 3), (384, 800, 3, 1), (192, 1600, 11, 5), (130, 517, 7, 1)])
+def test_k2_batch_of_four(dtype, c, t, k, d):
+    """B = 4 at the wide stages' widths (64- and 128-frame tiles, blocks in
+    pairs and alone), and at C = 130: zero rows of the packed weight and of
+    the activation, T of no 16-byte vector."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, alpha, beta, w, bias = _k2_inputs(4, c, t, k, dtype, seed=c + k)
+    out = k2.fused_aa_snake_dconv(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    ref = k2.aa_snake_dconv_plain(x, alpha, beta, w, bias, d, alpha_logscale=True)
+    _assert_within(out, ref, k2.aa_snake_dconv_bound(x, alpha, beta, w, d, ref, alpha_logscale=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_repacks_a_changed_weight(dtype):
+    """The packed weight is cached per weight tensor: after an in-place
+    update, and after the tensor is replaced, the kernel must see the new
+    values (a stale cache is a wrong result)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, alpha, beta, w, bias = _k2_inputs(1, 192, 300, 7, dtype, seed=9)
+
+    def check(weight):
+        out = k2.fused_aa_snake_dconv(x, alpha, beta, weight, bias, 3, alpha_logscale=True)
+        ref = k2.aa_snake_dconv_plain(x, alpha, beta, weight, bias, 3, alpha_logscale=True)
+        _assert_within(out, ref, k2.aa_snake_dconv_bound(x, alpha, beta, weight, 3, ref, alpha_logscale=True))
+        return out
+
+    first = check(w)
+    assert k2.packed_weight(w) is k2.packed_weight(w)
+    w.copy_(torch.flip(w, dims=(0,)))
+    second = check(w)
+    assert not torch.equal(first, second)
+    check(_k2_inputs(1, 192, 300, 7, dtype, seed=10)[3])
+
+
+@pytest.mark.cuda
 def test_k2_raises_instead_of_falling_back():
     """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
     if not torch.cuda.is_available():
@@ -158,9 +200,12 @@ def k5_bound(x, wq, scale, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 15, 16])
 @pytest.mark.parametrize("k,n", K5_SHAPES + [(300, 700)])
 def test_k5_matches_plain(dtype, m, k, n):
+    """The decode batches of the engine's paths: greedy (1), three beams (3),
+    slots (4), 8, five rows x three beams (15) and a full pair of x tiles
+    (16); (300, 700) has K of no whole step and not a multiple of 16."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -177,18 +222,56 @@ def test_k5_matches_plain(dtype, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [13, 37])
 @pytest.mark.parametrize("k,n", [(1280, 1280), (300, 700)])
-def test_k5_more_rows_than_a_block(dtype, k, n):
-    """M = 13: a second block of x rows along the grid's y axis, partly
-    filled (a block takes 8 rows)."""
+def test_k5_more_rows_than_a_block(dtype, k, n, m):
+    """M = 13: the second 8-row tile of x, partly filled. M = 37: a block
+    takes 16 rows, so three blocks along the grid's z axis, the last partly
+    filled."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, wq, scale, bias = _k5_inputs(13, k, n, dtype, seed=1)
+    x, wq, scale, bias = _k5_inputs(m, k, n, dtype, seed=1)
     out = k5.int8_matmul(x, wq, scale, bias)
     ref = k5.int8_matmul_plain(x, wq, scale, bias)
     err = (out.float() - ref.float()).abs()
     assert bool((err <= k5_bound(x, wq, scale, ref)).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(4, 1280, 1280), (16, 5120, 1280), (3, 1280, 8194)])
+def test_k5_two_runs_are_bit_equal(dtype, m, k, n):
+    """Split-K sums its partial tiles in a fixed order (no atomics): the same
+    input gives the same bits, launch after launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, wq, scale, bias = _k5_inputs(m, k, n, dtype, seed=2)
+    first = k5.int8_matmul(x, wq, scale, bias)
+    for _ in range(5):
+        assert torch.equal(k5.int8_matmul(x, wq, scale, bias), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("k,n,offset", [(1288, 1280, 0), (50, 70, 0), (1280, 1280, 1), (1280, 70, 3)])
+def test_k5_odd_k_and_unaligned_weight(dtype, m, k, n, offset):
+    """K not a multiple of 16 (rows that no 16-byte load can take), and a
+    contiguous weight view whose pointer is not 16-byte aligned: both take the
+    byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, wq, scale, bias = _k5_inputs(m, k, n, dtype, seed=3)
+    flat = torch.zeros(n * k + offset, dtype=torch.int8, device="cuda")
+    flat[offset:] = wq.reshape(-1)
+    view = flat[offset:].view(n, k)
+    assert view.is_contiguous() and (offset == 0 or view.data_ptr() % 16 != 0)
+    out = k5.int8_matmul(x, view, scale, bias)
+    ref = k5.int8_matmul_plain(x, view, scale, bias)
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= k5_bound(x, view, scale, ref)).all()), err.max().item()
 
 
 @pytest.mark.cuda
