@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
-               times for both;
+               times for both, K1's own device time (profiler events of its
+               __global__ function) beside the whole call's, and K4's kernel
+               at the same shapes;
      k2      — K2 (aa_snake_dconv) against its plain version at the three
                wide stages of a ~100-code vocoder call, every (k, d) at B = 1
                and one (k, d) per stage at B = 4, bf16 and float32, TF32 off:
@@ -21,16 +23,17 @@ Phases, in order; any failure exits non-zero:
                and 4, bf16 and float32: the CUDA-core and the tensor-core body
                against their plain versions (err against a stated bound;
                float32 also within 2e-5 of the composed path), the ident body
-               bit-equal to its input; profiler and CUDA-event times and GB/s
-               of each body with K1's at the same shape; odd shapes (C = 130,
+               bit-equal to its input; own and whole-call profiler times,
+               CUDA-event times and GB/s of each body with K1's at the same
+               shape; odd shapes (C = 130,
                T not a multiple of a tile or of a 16-byte vector, T = 5);
      k4      — K4 (anti_alias_snake_folded) at the three narrow stages
                (C = 96, 48, 24), B = 1 and 4, bf16 and float32, against its
                plain version (err against a stated bound; float32 also within
                2e-5 of the composed path); Snake without beta, plain
                parameters and odd shapes (C = 25, T = 1003, 1004, 5, 1);
-               profiler and CUDA-event times and GB/s with K1's and K3's ident
-               body's at the same shape;
+               own and whole-call profiler times, CUDA-event times and GB/s
+               with K1's and K3's ident body's at the same shape;
   4. k5      — K5 (int8_matmul) against its plain version at the five GPT
                matmul shapes of the published width, M = 1, 3, 4, 8, 15, 16,
                x bf16 and float32, TF32 off, two runs on one input bit-equal;
@@ -43,7 +46,9 @@ Phases, in order; any failure exits non-zero:
   5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
-               launch count must be 109 per vocoder call;
+               launch count must be 109 per vocoder call; then one profiled
+               bigvgan_apply at 100 codes on the default route (host ms,
+               device ms, kernels, device-idle share, K1's own ms);
   6. beam    — the same width with fast_latents and INDEXTTS_WIDE_BRANCH=1:
                infer with the engine's default generation kwargs (num_beams
                3, sampled), infer_fast on two sentences, and a greedy
@@ -69,7 +74,8 @@ Phases, in order; any failure exits non-zero:
                and chunk_steps=25 serving 8 sampled requests, one of them
                streaming and one admitted while others are mid-decode; one
                forced slot chunk profiled (host vs device); one vocoder call
-               under INDEXTTS_FUSED_AA=1 alone (K4 54, K1 55);
+               under INDEXTTS_FUSED_AA=1 alone (K4 54, K1 55), then one
+               profiled as in the engine phase;
      int8    — the same width with quant_kv=True: the max |logit| drift of
                prefill + 16 forced decode steps with the int8 KV cache, and
                with int8 KV and int8 weights, against the bf16 cache (int8 KV
@@ -97,8 +103,10 @@ It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
 small) runs
-only those phases after the build, for work on one of them: it prints no
-kernels line and no final line, and exits 3.
+only those phases after the build, for work on one of them, with the per
+vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
+final line, and exits 3. In the kernels line `ms` is a kernel's own device
+time per main-path unit and `call_ms` its wrappers' whole calls.
 """
 
 from __future__ import annotations
@@ -123,6 +131,9 @@ K3_REPLACES = "indextts_tpu/ops/pallas/antialias_tmajor.py:163"
 K3_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake_tmajor.cu"
 K4_REPLACES = "indextts_tpu/ops/pallas/antialias_folded.py:111"
 K4_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake_folded.cu"
+# the __global__ functions of K1, K3 (every body) and K4: a profiler event whose
+# name holds one of these is that kernel's own time
+K1_KERNEL, K3_KERNEL, K4_KERNEL = "anti_alias_snake_kernel", "tmajor_", "folded_aa_kernel"
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s, dense
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -169,10 +180,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int):
-    """Summed device time of every kernel `fn` launches, per call, from
-    torch.profiler; None when the profiler records no device time. Unlike
-    CUDA events around back-to-back calls, this excludes host enqueue gaps."""
+def device_profile(fn, iters: int, own=()):
+    """torch.profiler's reading of `fn`, per call: "call_ms", the summed device
+    time of every kernel it launches; "kernels", how many it launches; and
+    "own_ms", for each name in `own`, the time of the kernels whose name holds
+    it (a kernel's own __global__ function, without the allocations and
+    elementwise kernels around it). None when the profiler records no device
+    time. Unlike CUDA events around back-to-back calls, this excludes host
+    enqueue gaps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,10 +198,29 @@ def device_time_ms(fn, iters: int):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / 1e3 / iters
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0.0) > 0]
+        if events:
+            ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3 / iters
+            return {"call_ms": ms(events), "kernels": sum(e.count for e in events) / iters,
+                    "own_ms": {name: ms([e for e in events if name in e.key]) for name in own},
+                    "exp_kernels": sum(e.count for e in events if "exp_kernel" in e.key) / iters}
     return None
+
+
+def device_time_ms(fn, iters: int):
+    """Summed device time of every kernel `fn` launches, per call, from
+    torch.profiler; None when the profiler records no device time."""
+    prof = device_profile(fn, iters)
+    return None if prof is None else prof["call_ms"]
+
+
+def own_and_call_ms(fn, iters: int, kernel: str):
+    """(the kernel's own device ms, the whole call's device ms, kernels
+    launched per call) of `fn`; Nones when the profiler saw nothing."""
+    prof = device_profile(fn, iters, (kernel,))
+    if prof is None:
+        return None, None, None
+    return prof["own_ms"][kernel], prof["call_ms"], prof["kernels"]
 
 
 def bf16_ulp(x: float) -> float:
@@ -197,6 +231,7 @@ def kernel_phase(card: str) -> dict:
     import torch
 
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import antialias_folded as k4
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -221,19 +256,23 @@ def kernel_phase(card: str) -> dict:
         iters = 20 if t * b <= 25600 else 10
         plain_ms = cuda_time_ms(lambda: k1.anti_alias_snake_plain(x, alpha, beta, logscale), iters)
         ms = cuda_time_ms(lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale), iters)
-        dev_ms = device_time_ms(lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale), iters)
+        own_ms, dev_ms, n_kernels = own_and_call_ms(lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale),
+                                                    iters, K1_KERNEL)
         dev_plain_ms = device_time_ms(lambda: k1.anti_alias_snake_plain(x, alpha, beta, logscale), iters)
+        # K4's design (a warp walks a row) on K1's shape, for the comparison of the two
+        k4_own_ms = own_and_call_ms(lambda: k4.fused_folded_aa(x, alpha, beta, logscale), iters, K4_KERNEL)[0]
         # moved bytes of the best case: read x once, write z once
         nbytes = 2 * x.numel() * x.element_size()
-        gbps = nbytes / (dev_ms * 1e-3) / 1e9 if dev_ms else None
+        gbps = nbytes / (own_ms * 1e-3) / 1e9 if own_ms else None
         row = dict(case=label, B=b, C=c, T=t, dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-                   bound=bound, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms,
-                   kernel_GBps=gbps, ok=bool(err <= bound))
+                   bound=bound, ms=ms, plain_ms=plain_ms, own_ms=own_ms, device_ms=dev_ms, call_kernels=n_kernels,
+                   device_plain_ms=dev_plain_ms, k4_own_ms=k4_own_ms, kernel_GBps=gbps, ok=bool(err <= bound))
         rows.append(row)
         fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
         log(f"[kernel] {label:16s} B={b} C={c:4d} T={t:6d} {row['dtype']:8s} err={err:.3e} (bound {bound:.3e}) "
-            f"events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms | device: kernel {fmt(dev_ms)} ms "
-            f"plain {fmt(dev_plain_ms)} ms, {fmt(gbps)} GB/s  [{card}]")
+            f"events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms | device: K1 own {fmt(own_ms)} ms, whole call "
+            f"{fmt(dev_ms)} ms in {n_kernels} kernels, plain {fmt(dev_plain_ms)} ms, {fmt(gbps)} GB/s; K4 own at this "
+            f"shape {fmt(k4_own_ms)} ms  [{card}]")
         if not row["ok"]:
             failures.append(row)
         del x, out, ref
@@ -364,18 +403,19 @@ def k3_phase(card: str) -> dict:
             if timed:
                 iters = 10
                 r["ms"] = cuda_time_ms(kern, iters)
-                r["device_ms"] = device_time_ms(kern, iters)
+                r["own_ms"], r["device_ms"], r["call_kernels"] = own_and_call_ms(kern, iters, K3_KERNEL)
                 if body != "ident":
                     r["plain_ms"] = cuda_time_ms(plain, iters)
                     r["device_plain_ms"] = device_time_ms(plain, iters)
-                best = r["device_ms"] if r["device_ms"] is not None else r["ms"]
+                best = r["own_ms"] if r["own_ms"] is not None else r["ms"]
                 r["GBps"] = nbytes / (best * 1e-3) / 1e9
             r["ok"] = bool(ok)
             oks.append(ok)
             row["bodies"][body] = r
         if timed:
             k1_fn = lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale)
-            row["k1_ms"], row["k1_device_ms"] = cuda_time_ms(k1_fn, 10), device_time_ms(k1_fn, 10)
+            row["k1_ms"] = cuda_time_ms(k1_fn, 10)
+            row["k1_own_ms"], row["k1_device_ms"], _ = own_and_call_ms(k1_fn, 10, K1_KERNEL)
         row["ok"] = all(oks)
         rows.append(row)
         bd = row["bodies"]
@@ -386,9 +426,11 @@ def k3_phase(card: str) -> dict:
             line += (f" | vs composed: taps {bd['taps']['max_abs_err_vs_composed']:.2e} "
                      f"mma {bd['mma']['max_abs_err_vs_composed']:.2e}")
         if timed:
-            line += (f" | device ms: taps {fmt(bd['taps']['device_ms'])} ({bd['taps']['GBps']:.0f} GB/s) mma "
-                     f"{fmt(bd['mma']['device_ms'])} ({bd['mma']['GBps']:.0f} GB/s) ident {fmt(bd['ident']['device_ms'])} "
-                     f"({bd['ident']['GBps']:.0f} GB/s) K1 {fmt(row['k1_device_ms'])} plain {fmt(bd['taps']['device_plain_ms'])}"
+            line += (f" | own device ms: taps {fmt(bd['taps']['own_ms'])} ({bd['taps']['GBps']:.0f} GB/s) mma "
+                     f"{fmt(bd['mma']['own_ms'])} ({bd['mma']['GBps']:.0f} GB/s) ident {fmt(bd['ident']['own_ms'])} "
+                     f"({bd['ident']['GBps']:.0f} GB/s) K1 {fmt(row['k1_own_ms'])} | whole call: taps "
+                     f"{fmt(bd['taps']['device_ms'])} in {bd['taps']['call_kernels']} kernels, ident "
+                     f"{fmt(bd['ident']['device_ms'])}, K1 {fmt(row['k1_device_ms'])}, plain {fmt(bd['taps']['device_plain_ms'])}"
                      f" | events ms: taps {bd['taps']['ms']:.4f} mma {bd['mma']['ms']:.4f} ident {bd['ident']['ms']:.4f} "
                      f"K1 {row['k1_ms']:.4f}")
         log(line + f"  [{card}]")
@@ -452,13 +494,16 @@ def k4_phase(card: str) -> dict:
             ok = ok and row["max_abs_err_vs_composed"] <= 2e-5
         if timed:
             iters = 10
-            others = {"k1": lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale),
-                      "k3_ident": lambda: k3.fused_anti_alias_snake_tmajor(x, alpha, beta, logscale, probe="ident")}
-            row["ms"], row["device_ms"] = cuda_time_ms(kern, iters), device_time_ms(kern, iters)
+            others = {"k1": (lambda: k1.fused_anti_alias_snake(x, alpha, beta, logscale), K1_KERNEL),
+                      "k3_ident": (lambda: k3.fused_anti_alias_snake_tmajor(x, alpha, beta, logscale, probe="ident"),
+                                   K3_KERNEL)}
+            row["ms"] = cuda_time_ms(kern, iters)
+            row["own_ms"], row["device_ms"], row["call_kernels"] = own_and_call_ms(kern, iters, K4_KERNEL)
             row["plain_ms"], row["device_plain_ms"] = cuda_time_ms(plain, iters), device_time_ms(plain, iters)
-            for name, fn in others.items():
-                row[f"{name}_ms"], row[f"{name}_device_ms"] = cuda_time_ms(fn, iters), device_time_ms(fn, iters)
-            best = row["device_ms"] if row["device_ms"] is not None else row["ms"]
+            for name, (fn, kname) in others.items():
+                row[f"{name}_ms"] = cuda_time_ms(fn, iters)
+                row[f"{name}_own_ms"], row[f"{name}_device_ms"], _ = own_and_call_ms(fn, iters, kname)
+            best = row["own_ms"] if row["own_ms"] is not None else row["ms"]
             row["GBps"] = 2 * x.numel() * x.element_size() / (best * 1e-3) / 1e9  # x read once, z written once
         row["ok"] = bool(ok)
         rows.append(row)
@@ -467,8 +512,10 @@ def k4_phase(card: str) -> dict:
         if dtype == torch.float32:
             line += f" vs composed {row['max_abs_err_vs_composed']:.2e}"
         if timed:
-            line += (f" | device ms: K4 {fmt(row['device_ms'])} ({row['GBps']:.0f} GB/s) K1 {fmt(row['k1_device_ms'])} "
-                     f"K3 ident {fmt(row['k3_ident_device_ms'])} plain {fmt(row['device_plain_ms'])} | events ms: K4 "
+            line += (f" | own device ms: K4 {fmt(row['own_ms'])} ({row['GBps']:.0f} GB/s) K1 {fmt(row['k1_own_ms'])} "
+                     f"K3 ident {fmt(row['k3_ident_own_ms'])} | whole call: K4 {fmt(row['device_ms'])} in "
+                     f"{row['call_kernels']} kernels, K1 {fmt(row['k1_device_ms'])}, K3 ident "
+                     f"{fmt(row['k3_ident_device_ms'])}, plain {fmt(row['device_plain_ms'])} | events ms: K4 "
                      f"{row['ms']:.4f} K1 {row['k1_ms']:.4f} K3 ident {row['k3_ident_ms']:.4f} plain {row['plain_ms']:.4f}")
         log(line + f"  [{card}]")
         if not row["ok"]:
@@ -690,8 +737,54 @@ def engine_phase(card: str) -> dict:
     engine.use_cuda_kernel = True
     ab = {"kernel_ms": times[True], "composed_ms": times[False]}
     log(f"[engine] vocoder, 112 codes, {engine.dtype}: K1 {times[True]} ms, composed {times[False]} ms [{card}]")
+    prof = vocoder_profile(engine)
+    log(f"[engine] one profiled bigvgan_apply, {prof['codes']} codes, B=1, {engine.dtype}, default route: "
+        f"{vocoder_profile_line(prof)} [{card}]")
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "k1_launches": launches, "vocoder_calls": vocoder_calls,
-            "vocoder_ab": ab}
+            "vocoder_ab": ab, "vocoder_profile": prof}
+
+
+def vocoder_profile(engine, codes: int = 100) -> dict:
+    """One bigvgan_apply of a `codes`-code latent (the STAGES shapes), B = 1,
+    in the engine's dtype, on the route the environment selects: host ms
+    (synchronized, the least of three), the device ms and kernels of one call
+    under torch.profiler, the device-idle share, and the own device ms of K1,
+    K3 and K4 with the `exp` kernels launched beside them."""
+    import torch
+
+    from indextts_tpu_torch.models import bigvgan
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    latent = torch.randn(1, codes, engine.cfg.gpt.model_dim, device="cuda", dtype=engine.dtype, generator=g)
+    mel_ref, lens = engine._mel_ref_for(engine.extract_features(PROMPT), 1)
+    call = lambda: bigvgan.bigvgan_apply(engine.bigvgan, engine.cfg.bigvgan, latent, mel_ref, lens=lens,
+                                         use_cuda_kernel=True)
+    host = []
+    with torch.no_grad():
+        call()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t))
+        prof = device_profile(call, 1, (K1_KERNEL, K3_KERNEL, K4_KERNEL))
+    out = {"codes": codes, "host_ms": min(host), "host_ms_runs": host}
+    if prof is not None:
+        out.update(device_ms=prof["call_ms"], kernels=prof["kernels"], exp_kernels=prof["exp_kernels"],
+                   device_idle_share=1.0 - prof["call_ms"] / min(host),
+                   own_ms={"k1": prof["own_ms"][K1_KERNEL], "k3": prof["own_ms"][K3_KERNEL],
+                           "k4": prof["own_ms"][K4_KERNEL]})
+    return out
+
+
+def vocoder_profile_line(v: dict) -> str:
+    if "device_ms" not in v:
+        return f"host {v['host_ms']:.2f} ms, device not measured"
+    own = ", ".join(f"{k.upper()} {ms:.4f}" for k, ms in v["own_ms"].items() if ms > 0)
+    return (f"host {v['host_ms']:.2f} ms (runs {[round(h, 2) for h in v['host_ms_runs']]}), device {v['device_ms']:.4f} ms "
+            f"in {v['kernels']:.0f} kernels ({v['exp_kernels']:.0f} exp), device idle {100 * v['device_idle_share']:.1f} %; "
+            f"own device ms {own}")
 
 
 def forced_logits(engine, quant_kv: bool, steps: int = 16):
@@ -1275,12 +1368,15 @@ def serve_phase(card: str) -> dict:
             raise AssertionError(f"vocoder call under INDEXTTS_FUSED_AA=1 alone: wav {wav.shape}")
         log(f"[serve] one vocoder call under INDEXTTS_FUSED_AA=1 alone: K4 {fused_only['k4']}, K1 {fused_only['k1']} "
             f"launches [{card}]")
+        voc_prof = vocoder_profile(engine)
+        log(f"[serve] one profiled bigvgan_apply under INDEXTTS_FUSED_AA=1 alone, {voc_prof['codes']} codes, B=1, "
+            f"{engine.dtype}: {vocoder_profile_line(voc_prof)} [{card}]")
     finally:
         engine_mod.bigvgan_apply = apply
         os.environ.pop("INDEXTTS_FUSED_AA", None)
         os.environ.pop("INDEXTTS_WIDE_TMAJOR", None)
     return {"init_s": init_s, "warmup_s": warm_s, "warmup": warm, "infer_batch": batch, "slots": slots,
-            "forced_slot_chunk": step, "fused_aa_alone": fused_only,
+            "forced_slot_chunk": step, "fused_aa_alone": fused_only, "fused_aa_vocoder_profile": voc_prof,
             "k4_launches": warm["k4"] + batch_launches["k4"] + slot_launches["k4"],
             "k3_launches": warm["k3"] + batch_launches["k3"] + slot_launches["k3"],
             "k1_launches": warm["k1"] + batch_launches["k1"] + slot_launches["k1"]}
@@ -1516,6 +1612,62 @@ def activation_bound(stages, calls_per_stage: int, extra=()):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def _pick(r: dict, key: str, fallback: str) -> float:
+    """r[key], the profiler's device time, or r[fallback], CUDA-event time,
+    where the profiler saw nothing."""
+    return r[key] if r.get(key) is not None else r[fallback]
+
+
+def k1_per_vocoder_call(kern: dict, card: str) -> dict:
+    """K1's time in one vocoder call at ~100 codes, bf16, B = 1: 18
+    activations at each of the six stages plus activation_post. "k1": its own
+    device time; "call": the wrappers' whole calls; "plain"; "k4_design": K4's
+    kernel at the same shapes."""
+    rows = {r["case"]: r for r in kern["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16"}
+
+    def per_call(key: str, fallback: str) -> float:
+        return (sum(18 * _pick(rows[s], key, fallback) for s, _, _ in STAGES[:6])
+                + _pick(rows["activation_post"], key, fallback))
+
+    out = {"k1": per_call("own_ms", "ms"), "call": per_call("device_ms", "ms"),
+           "plain": per_call("device_plain_ms", "plain_ms"), "k4_design": per_call("k4_own_ms", "ms")}
+    log(f"[kernel] per vocoder call (109 activations, bf16, B=1), device ms: K1 own {out['k1']:.4f}, whole calls "
+        f"{out['call']:.4f}, plain {out['plain']:.3f}; K4's kernel at K1's shapes {out['k4_design']:.4f} [{card}]")
+    return out
+
+
+def k3_per_vocoder_call(kern3: dict, card: str) -> dict:
+    """K3's bodies (own device time, and "<body>_call" the whole calls), its
+    plain version and K1 (own) in one vocoder call at ~100 codes, bf16, B =
+    1: 18 activations at each wide stage."""
+    rows = [r for r in kern3["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
+            {s for s, _, _ in STAGES[:3]}]
+    out = {body: sum(18 * _pick(r["bodies"][body], "own_ms", "ms") for r in rows) for body in ("taps", "mma", "ident")}
+    out.update({f"{body}_call": sum(18 * _pick(r["bodies"][body], "device_ms", "ms") for r in rows)
+                for body in ("taps", "mma", "ident")})
+    out["plain"] = sum(18 * _pick(r["bodies"]["taps"], "device_plain_ms", "plain_ms") for r in rows)
+    out["k1"] = sum(18 * _pick(r, "k1_own_ms", "k1_ms") for r in rows)
+    log(f"[k3] per vocoder call (54 activations at the wide stages, bf16, B=1), own device ms: CUDA-core body "
+        f"{out['taps']:.4f}, tensor-core body {out['mma']:.4f}, ident {out['ident']:.4f}, K1 at the same shapes "
+        f"{out['k1']:.4f}; whole calls: {out['taps_call']:.4f}, {out['mma_call']:.4f}, {out['ident_call']:.4f} [{card}]")
+    return out
+
+
+def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
+    """K4 (own device time; "call" the whole calls), its plain version, K1
+    and K3's ident body (own) in one vocoder call at ~100 codes, bf16, B = 1:
+    18 activations at each narrow stage."""
+    rows = [r for r in kern4["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
+            {s for s, _, _ in STAGES[3:6]}]
+    keys = {"k4": ("own_ms", "ms"), "call": ("device_ms", "ms"), "plain": ("device_plain_ms", "plain_ms"),
+            "k1": ("k1_own_ms", "k1_ms"), "k3_ident": ("k3_ident_own_ms", "k3_ident_ms")}
+    out = {name: sum(18 * _pick(r, *kf) for r in rows) for name, kf in keys.items()}
+    log(f"[k4] per vocoder call (54 activations at the narrow stages, bf16, B=1), own device ms: K4 {out['k4']:.4f} "
+        f"(whole calls {out['call']:.4f}), K1 at the same shapes {out['k1']:.4f}, K3's ident body "
+        f"{out['k3_ident']:.4f}; plain {out['plain']:.3f} [{card}]")
+    return out
+
+
 PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small")
 
 
@@ -1565,8 +1717,11 @@ def main(argv) -> int:
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase}
     if only is not None:
+        summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
-            phase_fns[name](card)
+            result = phase_fns[name](card)
+            if name in summaries:
+                summaries[name](result, card)
         log(f"[partial] ran only {only}: no result lines")
         return 3
     kern = kernel_phase(card)
@@ -1580,15 +1735,6 @@ def main(argv) -> int:
     serve = serve_phase(card)
     int8 = int8_phase(card)
     small = small_phase(card)
-
-    main_rows = {r["case"]: r for r in kern["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16"}
-
-    def per_call(key: str, fallback: str) -> float:
-        """K1 (or plain) time of one vocoder call at ~100 codes, bf16, B=1:
-        18 activations per stage plus activation_post. Device time from the
-        profiler where it saw the kernels, else CUDA-event time."""
-        pick = lambda r: r[key] if r[key] is not None else r[fallback]
-        return sum(18 * pick(main_rows[s]) for s, _, _ in STAGES[:6]) + pick(main_rows["activation_post"])
 
     layers = load_config(FLAGSHIP).gpt.layers
 
@@ -1623,37 +1769,9 @@ def main(argv) -> int:
         log(f"[k2] {s} per vocoder call (18 half-branches, bf16, B=1): K2 {v['kernel_ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms, K1 + cuDNN conv {v['k1_conv_ms']:.3f} ms [{card}]")
 
-    k3_rows = {r["case"]: r for r in kern3["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
-               {s for s, _, _ in STAGES[:3]}}
-
-    def k3_per_call(body: str, key: str, fallback: str) -> float:
-        """K3 (one body, or its plain version) time of one vocoder call at
-        ~100 codes, bf16, B=1: 18 activations at each wide stage."""
-        pick = lambda r: r[key] if r.get(key) is not None else r[fallback]
-        return sum(18 * pick(k3_rows[s]["bodies"][body]) for s, _, _ in STAGES[:3])
-
-    k3_per_voc = {body: k3_per_call(body, "device_ms", "ms") for body in ("taps", "mma", "ident")}
-    k3_per_voc["k1"] = sum(18 * (k3_rows[s]["k1_device_ms"] if k3_rows[s]["k1_device_ms"] is not None
-                                 else k3_rows[s]["k1_ms"]) for s, _, _ in STAGES[:3])
-    log(f"[k3] per vocoder call (54 activations at the wide stages, bf16, B=1): CUDA-core body "
-        f"{k3_per_voc['taps']:.3f} ms, tensor-core body {k3_per_voc['mma']:.3f} ms, ident {k3_per_voc['ident']:.3f} ms, "
-        f"K1 at the same shapes {k3_per_voc['k1']:.3f} ms [{card}]")
-
-    k4_rows = {r["case"]: r for r in kern4["rows"] if r["B"] == 1 and r["dtype"] == "bfloat16" and r["case"] in
-               {s for s, _, _ in STAGES[3:6]}}
-
-    def k4_per_call(name: str) -> float:
-        """K4 ("", or "plain", "k1", "k3_ident" at the same shapes) time of
-        one vocoder call at ~100 codes, bf16, B=1: 18 activations at each
-        narrow stage. Device time where the profiler saw it, else events."""
-        dk, ek = {"": ("device_ms", "ms"), "plain": ("device_plain_ms", "plain_ms")}.get(
-            name, (f"{name}_device_ms", f"{name}_ms"))
-        return sum(18 * (r[dk] if r[dk] is not None else r[ek]) for r in k4_rows.values())
-
-    k4_per_voc = {name or "k4": k4_per_call(name) for name in ("", "plain", "k1", "k3_ident")}
-    log(f"[k4] per vocoder call (54 activations at the narrow stages, bf16, B=1): K4 {k4_per_voc['k4']:.3f} ms, K1 at "
-        f"the same shapes {k4_per_voc['k1']:.3f} ms, K3's ident body {k4_per_voc['k3_ident']:.3f} ms, plain "
-        f"{k4_per_voc['plain']:.3f} ms [{card}]")
+    k1_per_voc = k1_per_vocoder_call(kern, card)
+    k3_per_voc = k3_per_vocoder_call(kern3, card)
+    k4_per_voc = k4_per_vocoder_call(kern4, card)
 
     # the least time the card could take, from the shapes above (bf16)
     k1_bound, k1_by = activation_bound(STAGES[:6], 18, STAGES[6:])
@@ -1678,6 +1796,7 @@ def main(argv) -> int:
         "k2": kern2,
         "k2_per_stage": k2_per_stage,
         "k3": kern3,
+        "k1_per_vocoder_call_ms": k1_per_voc,
         "k3_per_vocoder_call_ms": k3_per_voc,
         "k4": kern4,
         "k4_per_vocoder_call_ms": k4_per_voc,
@@ -1699,29 +1818,31 @@ def main(argv) -> int:
     kernels = [{
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": eng["k1_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
-        "ms": per_call("device_ms", "ms"), "plain_ms": per_call("device_plain_ms", "plain_ms"),
-        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "ms": k1_per_voc["k1"], "plain_ms": k1_per_voc["plain"],
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "call_ms": k1_per_voc["call"],
     }, {
         "name": "aa_snake_dconv", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": beam["k2_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern2["rows"]),
         "ms": per_voc("device_ms", "ms"), "plain_ms": per_voc("device_plain_ms", "plain_ms"),
         "bound_ms": 1e3 * k2_terms[k2_by], "bound_by": k2_by, "library_ms": None,
+        "call_ms": per_voc("device_ms", "ms"),  # the wrapper launches nothing but the kernel: ms is the whole call
     }, {
         "name": "fused_anti_alias_snake_tmajor", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": stream["k3_launches"],
         "max_abs_err": max(b["max_abs_err"] for r in kern3["rows"] for b in r["bodies"].values()),
-        "ms": k3_per_voc["taps"], "plain_ms": k3_per_call("taps", "device_plain_ms", "plain_ms"),
-        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+        "ms": k3_per_voc["taps"], "plain_ms": k3_per_voc["plain"],
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None, "call_ms": k3_per_voc["taps_call"],
     }, {
         "name": "fused_folded_aa", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": serve["k4_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern4["rows"]),
         "ms": k4_per_voc["k4"], "plain_ms": k4_per_voc["plain"],
-        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None,
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "call_ms": k4_per_voc["call"],
     }, {
         "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
         "ms": per_step("device_ms", "ms"), "plain_ms": per_step("device_plain_ms", "plain_ms"),
         "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
+        "call_ms": per_step("device_ms", "ms"),  # the wrapper launches nothing but the kernel at bf16
         "bf16_linear_ms": k5_per_step[4]["bf16_linear_ms"],  # another function (bf16 weights): a yardstick only
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -17,14 +17,14 @@ for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import weakref
-from typing import Callable, Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from indextts_tpu_torch.ops.antialias import activation1d
 from indextts_tpu_torch.ops.cuda.antialias import _taps, anti_alias_snake_plain
+from indextts_tpu_torch.ops.cuda.common import _cached, launch, snake_parameters
 
 SOURCE = "aa_snake_dconv.cu"
 
@@ -112,41 +112,11 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
     return w.view(k, nco, TILE, nci, 8, 8).permute(0, 1, 3, 4, 2, 5).contiguous()
 
 
-# (id(tensor), what) -> (weak reference, data_ptr, version, derived): what the
-# wrapper derives from a parameter, made once per parameter
-_derived: Dict[Tuple[int, str], Tuple[weakref.ref, int, int, torch.Tensor]] = {}
-
-
-def _cached(tensor: torch.Tensor, what: str, make: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """make(tensor), cached. The entry is keyed by the tensor object and holds
-    its data pointer and version counter, so a parameter updated in place
-    (copy_, load_state_dict, the weight bridge), given new storage
-    (.to(dtype), .data = ...) or replaced by another tensor is derived again;
-    the entry goes when the tensor does."""
-    key = (id(tensor), what)
-    hit = _derived.get(key)
-    if (hit is not None and hit[0]() is tensor and hit[1] == tensor.data_ptr() and hit[2] == tensor._version
-            and hit[3].device == tensor.device):
-        return hit[3]
-    made = make(tensor.detach())
-    ref = weakref.ref(tensor, lambda _, key=key: _derived.pop(key, None))
-    _derived[key] = (ref, tensor.data_ptr(), tensor._version, made)
-    return made
-
-
 def packed_weight(weight: torch.Tensor) -> torch.Tensor:
     """pack_weight(weight), made once per weight (see _cached): a stale packed
     copy would be a wrong result, so an updated or replaced weight is packed
     again."""
     return _cached(weight, "packed", pack_weight)
-
-
-def _snake_parameter(p: torch.Tensor, logscale: bool) -> torch.Tensor:
-    """alpha or beta as the kernel reads it: float32, contiguous, exponentiated
-    for log-scale parameters; made once per parameter."""
-    if logscale:
-        return _cached(p, "exp", lambda t: torch.exp(t.float()).contiguous())
-    return _cached(p, "float", lambda t: t.float().contiguous())
 
 
 _fn = None  # the bound C function, argtypes set once
@@ -203,19 +173,14 @@ def fused_aa_snake_dconv(
     for label, p in (("alpha", alpha), ("beta", beta)):
         if p is not None and (p.shape != (c,) or p.device != x.device):
             raise ValueError(f"{name}: {label} must be [{c}] on {x.device}, got {tuple(p.shape)} on {p.device}")
-    a = _snake_parameter(alpha, alpha_logscale)
-    bt = a if beta is None else _snake_parameter(beta, alpha_logscale)
+    a, bt = snake_parameters(alpha, beta, alpha_logscale)
     wp = packed_weight(weight)  # made once per weight
     out = torch.empty_like(x)
     if _fn is None:
         _library()
     args = (x.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
             b, c, t, k, int(dilation), _DTYPE_CODE[x.dtype], ctypes.addressof(_taps()))
-    if x.device.index == torch.cuda.current_device():
-        err = _fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):
-            err = _fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch(_fn, x, *args)
     if err != 0:
         raise RuntimeError(f"aa_snake_dconv kernel launch failed: CUDA error {err} "
                            f"(shape {tuple(x.shape)}, k {k}, dilation {dilation})")

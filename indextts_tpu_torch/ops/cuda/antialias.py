@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from indextts_tpu_torch.ops.antialias import activation1d, kaiser_sinc_filter1d
+from indextts_tpu_torch.ops.cuda.common import launch, sm_count, snake_parameters
 
 SOURCE = "anti_alias_snake.cu"
 
@@ -37,13 +38,19 @@ def anti_alias_snake_plain(
     return y.to(x.dtype)
 
 
+_fn = None  # the bound C function, argtypes set once
+
+
 def _library() -> ctypes.CDLL:
+    global _fn
     from indextts_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.indextts_anti_alias_snake
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _fn is None:
+        fn = lib.indextts_anti_alias_snake
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
     return lib
 
 
@@ -58,7 +65,9 @@ def fused_anti_alias_snake(
     x: torch.Tensor, alpha: torch.Tensor, beta: Optional[torch.Tensor] = None, alpha_logscale: bool = False
 ) -> torch.Tensor:
     """x: [B, C, T] float32 or bf16; per-channel alpha [C] (and beta [C] for
-    SnakeBeta; None is Snake). Returns [B, C, T] in x's dtype."""
+    SnakeBeta; None is Snake). Returns [B, C, T] in x's dtype. On the card
+    it launches the kernel and nothing else: alpha and beta as the kernel
+    reads them are made once per parameter (common.snake_parameters)."""
     global launches
     if x.device.type == "cpu":
         return anti_alias_snake_plain(x, alpha, beta, alpha_logscale)
@@ -71,24 +80,19 @@ def fused_anti_alias_snake(
     if not x.is_contiguous():
         raise ValueError("fused_anti_alias_snake: x must be contiguous")
     b, c, t = x.shape
+    if min(b, c, t) < 1:
+        raise ValueError(f"fused_anti_alias_snake: x must have B, C, T >= 1, got shape {tuple(x.shape)}")
     for name, p in (("alpha", alpha), ("beta", beta)):
         if p is not None and (p.shape != (c,) or p.device != x.device):
             raise ValueError(f"fused_anti_alias_snake: {name} must be [{c}] on {x.device}, "
                              f"got {tuple(p.shape)} on {p.device}")
-    a = alpha.float()
-    bt = a if beta is None else beta.float()
-    if alpha_logscale:
-        a, bt = torch.exp(a), torch.exp(bt)
-    a, bt = a.contiguous(), bt.contiguous()
+    a, bt = snake_parameters(alpha, beta, alpha_logscale)
     out = torch.empty_like(x)
-    lib = _library()
-    taps = _taps()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.indextts_anti_alias_snake(
-            x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
-            b, c, t, _DTYPE_CODE[x.dtype], ctypes.addressof(taps), stream,
-        )
+    if _fn is None:
+        _library()
+    args = (x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(), b, c, t, _DTYPE_CODE[x.dtype],
+            sm_count(x.device.index), ctypes.addressof(_taps()))
+    err = launch(_fn, x, *args)
     if err != 0:
         raise RuntimeError(f"anti_alias_snake kernel launch failed: CUDA error {err} (shape {tuple(x.shape)})")
     launches += 1

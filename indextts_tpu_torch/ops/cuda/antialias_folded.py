@@ -20,6 +20,7 @@ its block picker cannot take to the XLA path; the kernel here takes every
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -31,6 +32,7 @@ from indextts_tpu_torch.ops.cuda.antialias_tmajor import (
     _phase_samples,
     anti_alias_snake_tmajor_bound,
 )
+from indextts_tpu_torch.ops.cuda.common import launch, sm_count, snake_parameters
 
 SOURCE = "anti_alias_snake_folded.cu"
 
@@ -81,18 +83,26 @@ def fused_folded_aa_bound(
     return anti_alias_snake_tmajor_bound(x, alpha, beta, ref, alpha_logscale, mxu=True, poly_sin=poly_sin)
 
 
+_fn = None  # the bound C function, argtypes set once
+
+
 def _library() -> ctypes.CDLL:
+    global _fn
     from indextts_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.indextts_anti_alias_snake_folded
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    if _fn is None:
+        fn = lib.indextts_anti_alias_snake_folded
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        _fn = fn
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def _taps(dtype: torch.dtype):
-    """The 12 up taps (2 f) and down taps (f), rounded to `dtype`."""
+    """The 12 up taps (2 f) and down taps (f), rounded to `dtype`, as C float
+    arrays; built once per dtype (the kernel only reads them)."""
     f = torch.as_tensor(kaiser_sinc_filter1d(0.25, 0.3, 12))
     as_c = lambda t: (ctypes.c_float * 12)(*t.to(dtype).float().tolist())
     return as_c(2.0 * f), as_c(f)
@@ -108,7 +118,9 @@ def fused_folded_aa(
     """x: [B, C, T] float32 or bf16, T >= 1; per-channel alpha [C] (and beta
     [C] for SnakeBeta; None is Snake). Returns [B, C, T] in x's dtype.
     poly_sin: None takes the polynomial sin iff x is bf16; True / False force
-    it."""
+    it. On the card it launches the kernel and nothing else: alpha and beta
+    as the kernel reads them are made once per parameter
+    (common.snake_parameters), the taps once per dtype."""
     global launches
     name = "fused_folded_aa"
     if x.device.type == "cpu":
@@ -127,16 +139,14 @@ def fused_folded_aa(
     for label, p in (("alpha", alpha), ("beta", beta)):
         if p is not None and (p.shape != (c,) or p.device != x.device):
             raise ValueError(f"{name}: {label} must be [{c}] on {x.device}, got {tuple(p.shape)} on {p.device}")
-    a, bt = _params(alpha, beta, alpha_logscale)
+    a, bt = snake_parameters(alpha, beta, alpha_logscale)
     out = torch.empty_like(x)
-    lib = _library()
+    if _fn is None:
+        _library()
     up, dn = _taps(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.indextts_anti_alias_snake_folded(
-            x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
-            b, c, t, _DTYPE_CODE[x.dtype], int(_poly(x, poly_sin)), ctypes.addressof(up), ctypes.addressof(dn), stream,
-        )
+    args = (x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(), b, c, t, _DTYPE_CODE[x.dtype],
+            int(_poly(x, poly_sin)), sm_count(x.device.index), ctypes.addressof(up), ctypes.addressof(dn))
+    err = launch(_fn, x, *args)
     if err != 0:
         raise RuntimeError(f"anti_alias_snake_folded kernel launch failed: CUDA error {err} (shape {tuple(x.shape)})")
     launches += 1

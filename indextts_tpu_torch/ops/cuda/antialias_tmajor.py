@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from indextts_tpu_torch.ops.activations import snake_beta
 from indextts_tpu_torch.ops.antialias import activation1d, kaiser_sinc_filter1d
 from indextts_tpu_torch.ops.cuda.antialias import _taps
+from indextts_tpu_torch.ops.cuda.common import launch, snake_parameters
 
 SOURCE = "anti_alias_snake_tmajor.cu"
 
@@ -63,6 +64,8 @@ def _down(se: torch.Tensor, so: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 def _params(alpha, beta, alpha_logscale):
+    """alpha and beta as float32 [C], exponentiated for log-scale parameters,
+    for the plain versions (the wrappers take common.snake_parameters)."""
     a = alpha.float()
     bt = a if beta is None else beta.float()
     if alpha_logscale:
@@ -143,13 +146,19 @@ def anti_alias_snake_tmajor_bound(
     return bound
 
 
+_fn = None  # the bound C function, argtypes set once
+
+
 def _library() -> ctypes.CDLL:
+    global _fn
     from indextts_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.indextts_anti_alias_snake_tmajor
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if _fn is None:
+        fn = lib.indextts_anti_alias_snake_tmajor
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
     return lib
 
 
@@ -188,18 +197,15 @@ def fused_anti_alias_snake_tmajor(
     for label, p in (("alpha", alpha), ("beta", beta)):
         if p is not None and (p.shape != (c,) or p.device != x.device):
             raise ValueError(f"{name}: {label} must be [{c}] on {x.device}, got {tuple(p.shape)} on {p.device}")
-    a, bt = _params(alpha, beta, alpha_logscale)
+    a, bt = snake_parameters(alpha, beta, alpha_logscale)
     poly = x.dtype == torch.bfloat16 if poly_sin is None else bool(poly_sin)
     body = "ident" if probe == "ident" else ("mma" if mxu and x.dtype == torch.bfloat16 else "taps")
     out = torch.empty_like(x)
-    lib = _library()
-    taps = _taps()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.indextts_anti_alias_snake_tmajor(
-            x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(),
-            b, c, t, _DTYPE_CODE[x.dtype], _BODY[body], int(poly), ctypes.addressof(taps), stream,
-        )
+    if _fn is None:
+        _library()
+    args = (x.data_ptr(), out.data_ptr(), a.data_ptr(), bt.data_ptr(), b, c, t, _DTYPE_CODE[x.dtype], _BODY[body],
+            int(poly), ctypes.addressof(_taps()))
+    err = launch(_fn, x, *args)
     if err != 0:
         raise RuntimeError(f"anti_alias_snake_tmajor kernel launch failed: CUDA error {err} "
                            f"(shape {tuple(x.shape)}, body {body})")

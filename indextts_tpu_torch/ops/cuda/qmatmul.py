@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from indextts_tpu_torch.ops.cuda.common import launch
+
 SOURCE = "int8_matmul.cu"
 
 # kernel launches in this process; one per launch, nowhere else
@@ -95,11 +97,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         _library()
     args = (x.data_ptr(), wq.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
             out.data_ptr(), m, n, k, _DTYPE_CODE[x.dtype])
-    if x.device.index == torch.cuda.current_device():
-        err = _fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):
-            err = _fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch(_fn, x, *args)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} (x {tuple(x.shape)}, "
                            f"wq {tuple(wq.shape)})")

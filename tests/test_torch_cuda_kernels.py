@@ -21,9 +21,17 @@ from indextts_tpu_torch.ops.cuda import qmatmul as k5
 K5_SHAPES = [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1280, 8194)]
 
 
+# the vocoder's six stages at ~100 codes, (C, T)
+STAGE_SHAPES = [(768, 1600), (384, 6400), (192, 12800), (96, 25600), (48, 51200), (24, 102400)]
+# T of no 16-byte vector, of no chunk, shorter than the stencil, one frame; on C = 7
+RAGGED_T = [1, 5, 11, 255, 256, 257, 1003, 1600]
+K1_SHAPES = ([(b, c, t) for c, t in STAGE_SHAPES for b in (1, 4)] + [(2, 7, t) for t in RAGGED_T]
+             + [(2, 130, 517)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,t", [(1, 768, 1600), (4, 24, 102400), (2, 130, 517)])
+@pytest.mark.parametrize("b,c,t", K1_SHAPES)
 def test_k1_matches_plain(dtype, b, c, t):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
@@ -398,8 +406,9 @@ def test_k3_raises_instead_of_falling_back():
 # K4 at the three narrow stages of a ~100-code vocoder call (B = 1 and 4), and at
 # odd shapes: C of no tile with T of no 256-frame chunk; T of no 16-byte vector
 # (1003: neither dtype; 1004: float32 only); T shorter than the stencil; T = 1
-K4_SHAPES = [(1, 96, 25600), (4, 96, 25600), (1, 48, 51200), (4, 48, 51200), (1, 24, 102400), (4, 24, 102400),
-             (1, 25, 1000), (2, 25, 1003), (1, 25, 1004), (1, 8, 5), (1, 3, 1)]
+K4_SHAPES = ([(1, 96, 25600), (4, 96, 25600), (1, 48, 51200), (4, 48, 51200), (1, 24, 102400), (4, 24, 102400),
+              (1, 25, 1000), (2, 25, 1003), (1, 25, 1004), (1, 8, 5), (1, 3, 1)]
+             + [(b, c, t) for c, t in STAGE_SHAPES[:3] for b in (1, 4)] + [(2, 7, t) for t in RAGGED_T])
 
 
 @pytest.mark.cuda
@@ -470,3 +479,82 @@ def test_k4_raises_instead_of_falling_back():
     with pytest.raises(ValueError):
         k4.fused_folded_aa(torch.zeros(1, 8, 64, device="cuda"), alpha.cpu(), alpha)
     assert k4.launches == before
+
+
+def _k1_k4_check(kernel, x, alpha, beta, logscale=True):
+    """out, and whether it is within the kernel's tolerance of its plain version."""
+    if kernel == "k1":
+        out = k1.fused_anti_alias_snake(x, alpha, beta, logscale)
+        ref = k1.anti_alias_snake_plain(x, alpha, beta, logscale).float()
+        scale = ref.abs().max().item()
+        bound = 1e-5 * scale if x.dtype == torch.float32 else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+        return out, (out.float() - ref).abs().max().item() <= bound
+    out = k4.fused_folded_aa(x, alpha, beta, logscale)
+    ref = k4.fused_folded_aa_plain(x, alpha, beta, logscale)
+    ratio = (out.float() - ref.float()).abs() / k4.fused_folded_aa_bound(x, alpha, beta, ref, logscale)
+    return out, ratio.max().item() <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("t", [1003, 1600])
+def test_k1_k4_unaligned_input(t, kernel, dtype):
+    """A contiguous input whose data pointer is one element past a 16-byte
+    boundary (a flat buffer sliced at an offset of one): the element-wise
+    loads and stores, within tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    c = 24
+    flat = torch.randn(2 * c * t + 1, device="cuda", generator=torch.Generator(device="cuda").manual_seed(t))
+    x = flat.to(dtype)[1:].view(2, c, t)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _, alpha, beta = _k3_inputs(1, c, 8, torch.float32, seed=t)
+    _, ok = _k1_k4_check(kernel, x, alpha, beta)
+    assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+@pytest.mark.parametrize("b,c,t", [(1, 768, 1600), (4, 96, 25600), (1, 24, 102400), (2, 7, 1003)])
+def test_k1_k4_two_runs_are_bit_equal(b, c, t, kernel, dtype):
+    """No atomics and no order that changes between runs: the same input
+    gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    x, alpha, beta = _k3_inputs(b, c, t, dtype, seed=c)
+    first, ok = _k1_k4_check(kernel, x, alpha, beta)
+    second, _ = _k1_k4_check(kernel, x, alpha, beta)
+    torch.cuda.synchronize()
+    assert ok and torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
+def test_activation_call_launches_one_kernel(kernel, dtype):
+    """On log-scale parameters the wrapper's call is one launch of its own
+    kernel and nothing else (the exp of alpha and beta is made once per
+    parameter): one more on its counter, one kernel under the profiler."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from torch.profiler import ProfilerActivity, profile
+
+    mod, fn, name = {"k1": (k1, k1.fused_anti_alias_snake, "anti_alias_snake_kernel"),
+                     "k3": (k3, k3.fused_anti_alias_snake_tmajor, "tmajor_taps_kernel"),
+                     "k4": (k4, k4.fused_folded_aa, "folded_aa_kernel")}[kernel]
+    x, alpha, beta = _k3_inputs(1, 192, 6400, dtype, seed=1)
+    fn(x, alpha, beta, True)  # the first call on these parameters derives them
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without device records: take it again
+        before = mod.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(x, alpha, beta, True)
+            torch.cuda.synchronize()
+        assert mod.launches == before + 1
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        if events:
+            break
+    assert sum(e.count for e in events) == 1 and name in events[0].key, [(e.key, e.count) for e in events]

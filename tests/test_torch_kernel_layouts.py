@@ -18,6 +18,7 @@ import torch
 
 from indextts_tpu_torch.ops.antialias import activation1d, kaiser_sinc_filter1d
 from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
+from indextts_tpu_torch.ops.cuda import common
 from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
 # ---------------------------------------------------------------------------
@@ -334,18 +335,18 @@ def test_k2_packed_weight_cache():
     assert fifth.dtype == torch.bfloat16 and torch.equal(fifth, k2.pack_weight(w))
     # the snake parameters as the kernel reads them go through the same cache
     alpha = torch.nn.Parameter(torch.randn(128), requires_grad=False)
-    ea = k2._snake_parameter(alpha, True)
-    assert k2._snake_parameter(alpha, True) is ea and torch.equal(ea, torch.exp(alpha))
-    assert torch.equal(k2._snake_parameter(alpha, False), alpha.detach())
+    ea = common._snake_parameter(alpha, True)
+    assert common._snake_parameter(alpha, True) is ea and torch.equal(ea, torch.exp(alpha))
+    assert torch.equal(common._snake_parameter(alpha, False), alpha.detach())
     with torch.no_grad():
         alpha.add_(1.0)
-    assert torch.equal(k2._snake_parameter(alpha, True), torch.exp(alpha))
+    assert torch.equal(common._snake_parameter(alpha, True), torch.exp(alpha))
     other = torch.randn(128, 128, 3)
     assert k2.packed_weight(other) is not fifth
     key = (id(w), "packed")
-    assert key in k2._derived
+    assert key in common._derived
     del w
-    assert key not in k2._derived
+    assert key not in common._derived
 
 
 @pytest.mark.parametrize("cs", [1, 2, 4])
