@@ -25,8 +25,10 @@ Phases, in order; any failure exits non-zero:
                float32 also within 2e-5 of the composed path), the ident body
                bit-equal to its input; own and whole-call profiler times,
                CUDA-event times and GB/s of each body with K1's at the same
-               shape; odd shapes (C = 130,
-               T not a multiple of a tile or of a 16-byte vector, T = 5);
+               shape; odd shapes (C = 130, C = 9, T not a multiple of a tile
+               or of a 16-byte vector, T = 5, 7, 241); each body's bound per
+               vocoder call, and the registers and spills ptxas reports for
+               each of K3's kernels;
      k4      — K4 (anti_alias_snake_folded) at the three narrow stages
                (C = 96, 48, 24), B = 1 and 4, bf16 and float32, against its
                plain version (err against a stated bound; float32 also within
@@ -193,7 +195,7 @@ def device_profile(fn, iters: int, own=()):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace now and then comes back without device records: take it once more
+    for _ in range(5):  # a trace now and then comes back without device records (a few in a row): take it again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -225,6 +227,30 @@ def own_and_call_ms(fn, iters: int, kernel: str):
 
 def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+def ptxas_counts(log_text: str, name: str) -> dict:
+    """From a `-Xptxas -v` build log: registers and spill bytes of each
+    compiled entry function whose (mangled) name holds `name`."""
+    import re
+
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1) if name in m.group(1) else None
+            if entry:
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_phase(card: str) -> dict:
@@ -363,10 +389,13 @@ def k3_phase(card: str) -> dict:
              for dt in (torch.bfloat16, torch.float32)]
     # odd shapes, checked and not timed: C not a multiple of the row tiles and T
     # of no tile; T of no 16-byte vector (the element-wise path); T shorter than
-    # the stencil; Snake without beta
+    # the stencil; T = 4 mod 8 (a tensor-core up n-block ends at sample T - 1);
+    # Snake without beta
     cases += [(label, 1, c, t, dt, wb, False) for label, c, t, wb in
               (("odd_c130", 130, 1000, True), ("odd_t1003", 130, 1003, True), ("tiny_t5", 8, 5, True),
-               ("snake_no_beta", 192, 777, False)) for dt in (torch.bfloat16, torch.float32)]
+               ("odd_t7", 9, 7, True), ("odd_t241", 9, 241, True), ("tiny_t4", 9, 4, True), ("odd_t12", 9, 12, True),
+               ("odd_t244", 9, 244, True), ("odd_t1004", 130, 1004, True), ("snake_no_beta", 192, 777, False))
+              for dt in (torch.bfloat16, torch.float32)]
     rows, failures = [], []
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
     for label, b, c, t, dtype, with_beta, timed in cases:
@@ -439,7 +468,12 @@ def k3_phase(card: str) -> dict:
         del x
     if failures:
         raise AssertionError(f"K3 disagrees with its plain version: {failures}")
-    return {"rows": rows}
+    from indextts_tpu_torch.ops.cuda import build
+
+    ptxas = ptxas_counts(build.build_log(k3.SOURCE), K3_KERNEL)
+    for entry, counts in ptxas.items():
+        log(f"[k3] ptxas {entry}: {counts}")
+    return {"rows": rows, "ptxas": ptxas}
 
 
 def k4_phase(card: str) -> dict:
@@ -1647,10 +1681,30 @@ def k3_per_vocoder_call(kern3: dict, card: str) -> dict:
                 for body in ("taps", "mma", "ident")})
     out["plain"] = sum(18 * _pick(r["bodies"]["taps"], "device_plain_ms", "plain_ms") for r in rows)
     out["k1"] = sum(18 * _pick(r, "k1_own_ms", "k1_ms") for r in rows)
+    out["bound"] = {body: k3_body_bound(body) for body in ("taps", "mma", "ident")}
+    bounds = ", ".join(f"{body} {ms:.4f} ({by})" for body, (ms, by) in out["bound"].items())
     log(f"[k3] per vocoder call (54 activations at the wide stages, bf16, B=1), own device ms: CUDA-core body "
         f"{out['taps']:.4f}, tensor-core body {out['mma']:.4f}, ident {out['ident']:.4f}, K1 at the same shapes "
-        f"{out['k1']:.4f}; whole calls: {out['taps_call']:.4f}, {out['mma_call']:.4f}, {out['ident_call']:.4f} [{card}]")
+        f"{out['k1']:.4f}; whole calls: {out['taps_call']:.4f}, {out['mma_call']:.4f}, {out['ident_call']:.4f}; "
+        f"bounds: {bounds} [{card}]")
     return out
+
+
+def k3_body_bound(body: str):
+    """The least time of one K3 body for a vocoder call's 54 wide activations
+    (bf16, B = 1): (ms, what bounds it). Every body moves 4 bytes an element.
+    The CUDA-core body does ACT_OPS float32 operations an element; the
+    tensor-core body only the snakes' 36 (two samples x 18), and 128 FLOP of
+    banded mma.sync an element (4 products of 16 x 8 x 16 per 128 outputs)
+    on the tensor cores; the pass-through none."""
+    elements = sum(18 * c * t for _, c, t in STAGES[:3])
+    if body == "taps":
+        return activation_bound(STAGES[:3], 18)
+    terms = {"bytes": 1e3 * elements * 4 / PEAK_BYTES}
+    if body == "mma":
+        terms["operations"] = max(1e3 * elements * 36 / PEAK_F32, 1e3 * elements * 128 / PEAK_BF16)
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
@@ -1832,6 +1886,9 @@ def main(argv) -> int:
         "max_abs_err": max(b["max_abs_err"] for r in kern3["rows"] for b in r["bodies"].values()),
         "ms": k3_per_voc["taps"], "plain_ms": k3_per_voc["plain"],
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None, "call_ms": k3_per_voc["taps_call"],
+        # the other bodies' own ms and bounds, beside K1's own ms at the same shapes
+        "bodies_ms": {"mma": k3_per_voc["mma"], "ident": k3_per_voc["ident"], "k1": k3_per_voc["k1"]},
+        "bodies_bound_ms": {body: ms for body, (ms, _) in k3_per_voc["bound"].items()},
     }, {
         "name": "fused_folded_aa", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": serve["k4_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern4["rows"]),

@@ -36,6 +36,9 @@
 // next chunk's frames while it computes the current one; the host picks cpw
 // from the card's SM count so that the grid is about one resident wave
 // (RESIDENT_WARPS warps on each SM).
+//
+// copy() is the same geometry, loads and stores with no arithmetic (out =
+// x): the floor the activation bodies are read against (K3's ident body).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -240,26 +243,56 @@ __device__ __forceinline__ void run(const T* __restrict__ x, T* __restrict__ out
   }
 }
 
-// The work split for `nrows` rows of T_len frames on `sms` SMs: chunks per
-// warp (cpw) and warps per row (segs), so that nrows * segs warps are about
-// one resident wave. The least cpw that spreads the chunks over one wave can
+// The pass-through: run's geometry (warp w takes chunks k0 .. k0 + cpw - 1 of
+// row w / segs; every lane loads its 8 frames, lanes 1-30 store them), with
+// no arithmetic: out = x.
+template <typename T>
+__device__ __forceinline__ void copy(const T* __restrict__ x, T* __restrict__ out, int T_len, int nrows, int cpw,
+                                     int segs, bool vec_ok) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+  const long long row = w / segs;
+  if (row >= nrows) return;
+  const int chunks = (T_len + CHUNK - 1) / CHUNK;
+  const int k0 = static_cast<int>(w - row * segs) * cpw;
+  const int k1 = min(k0 + cpw, chunks);
+  const T* xr = x + row * T_len;
+  T* zr = out + row * T_len;
+  float xc[LANE_F], xn[LANE_F];
+  load8(xr, k0 * CHUNK - LANE_F + lane * LANE_F, T_len, vec_ok, xc);
+  for (int j = k0; j < k1; ++j) {
+    if (j + 1 < k1) load8(xr, (j + 1) * CHUNK - LANE_F + lane * LANE_F, T_len, vec_ok, xn);
+    if (lane != 0 && lane != 31) store8(zr, j * CHUNK - LANE_F + lane * LANE_F, T_len, vec_ok, xc);
+#pragma unroll
+    for (int q = 0; q < LANE_F; ++q) xc[q] = xn[q];
+  }
+}
+
+// The work split of `nrows` rows of `units` work units each (chunks, here)
+// over a wave of `wave` resident warps, `warps` to a block: units per warp
+// (cpw) and warps per row (segs), so that nrows * segs warps are about one
+// resident wave. The least cpw that spreads the units over one wave can
 // overshoot it by a few warps per row (B = 4 at 384 x 6400: 4608 warps for a
-// wave of 4224), and the blocks past the wave then run a whole run of chunks
-// on an almost empty card; so the split takes, of that cpw and the least
-// one that fits every row into one wave, the one with fewer chunk rounds
-// (waves x cpw). Returns the number of blocks, or -1 if it is too many.
-inline long long split(int nrows, int T_len, int sms, int& cpw, int& segs) {
-  const long long chunks = (T_len + CHUNK - 1) / CHUNK;
-  const long long total = static_cast<long long>(nrows) * chunks;
-  const long long wave = static_cast<long long>(std::max(sms, 1)) * RESIDENT_WARPS;
-  long long c = std::min(chunks, std::max(1LL, (total + wave - 1) / wave));
-  const long long waves = (nrows * ((chunks + c - 1) / c) + wave - 1) / wave;
-  const long long fit = wave / std::max(nrows, 1);  // warps a row may have in one wave
-  if (waves > 1 && fit >= 1 && (chunks + fit - 1) / fit < waves * c) c = (chunks + fit - 1) / fit;
+// wave of 4224), and the blocks past the wave then run a whole run of units
+// on an almost empty card; so the split takes, of that cpw and the least one
+// that fits every row into one wave, the one with fewer rounds (waves x
+// cpw). Returns the number of blocks, or -1 if it is too many.
+inline long long split_units(long long nrows, long long units, long long wave, int warps, int& cpw, int& segs) {
+  const long long total = nrows * units;
+  long long c = std::min(units, std::max(1LL, (total + wave - 1) / wave));
+  const long long waves = (nrows * ((units + c - 1) / c) + wave - 1) / wave;
+  const long long fit = wave / std::max(nrows, 1LL);  // warps a row may have in one wave
+  if (waves > 1 && fit >= 1 && (units + fit - 1) / fit < waves * c) c = (units + fit - 1) / fit;
   cpw = static_cast<int>(c);
-  segs = static_cast<int>((chunks + cpw - 1) / cpw);
-  const long long blocks = (static_cast<long long>(nrows) * segs + WARPS - 1) / WARPS;
+  segs = static_cast<int>((units + cpw - 1) / cpw);
+  const long long blocks = (nrows * segs + warps - 1) / warps;
   return blocks > 0x7fffffffLL ? -1 : blocks;
+}
+
+// The lane scheme's split: rows of T_len frames in chunks, on `sms` SMs.
+inline long long split(int nrows, int T_len, int sms, int& cpw, int& segs) {
+  return split_units(nrows, (T_len + CHUNK - 1) / CHUNK, static_cast<long long>(std::max(sms, 1)) * RESIDENT_WARPS,
+                     WARPS, cpw, segs);
 }
 
 // 16-byte vectors are safe when every row starts on a 16-byte boundary

@@ -69,6 +69,22 @@ from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
 DECODE_SEGMENT = 160
 
 
+def make_tokenizer(bpe_path: str, normalizer: TextNormalizer, allow_random_init: bool) -> TextTokenizer:
+    """The BPE tokenizer of `bpe_path`; where that file is missing, the
+    random-init vocabulary (26 upper-case letters, "." and "▁") when
+    `allow_random_init`, else FileNotFoundError, as the JAX engine does."""
+    if os.path.exists(bpe_path):
+        tokenizer = TextTokenizer(bpe_path, normalizer)
+        print(">> bpe model loaded from:", bpe_path)
+        return tokenizer
+    if not allow_random_init:
+        raise FileNotFoundError(bpe_path)
+    from indextts_tpu_torch.utils.spm import SentencePieceProcessor, build_vocab_from_pieces
+
+    pieces = [(chr(65 + i), -float(i)) for i in range(26)] + [(".", -30.0), ("▁", -31.0)]
+    return TextTokenizer(sp_model=SentencePieceProcessor(vocab=build_vocab_from_pieces(pieces)), normalizer=normalizer)
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -131,18 +147,7 @@ class IndexTTS:
         bpe_path = os.path.join(model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
         self.normalizer = TextNormalizer()
         self.normalizer.load()
-        if os.path.exists(bpe_path):
-            self.tokenizer = TextTokenizer(bpe_path, self.normalizer)
-            print(">> bpe model loaded from:", bpe_path)
-        else:
-            from indextts_tpu_torch.utils.spm import SentencePieceProcessor, build_vocab_from_pieces
-
-            # the random-init vocabulary: 26 upper-case letters, "." and "▁"
-            pieces = [(chr(65 + i), -float(i)) for i in range(26)] + [(".", -30.0), ("▁", -31.0)]
-            self.tokenizer = TextTokenizer(
-                sp_model=SentencePieceProcessor(vocab=build_vocab_from_pieces(pieces)),
-                normalizer=self.normalizer,
-            )
+        self.tokenizer = make_tokenizer(bpe_path, self.normalizer, allow_random_init)
         self.wav2mel = MelSpectrogramFeatures()
         self.gr_progress: Optional[Callable[[float, str], None]] = None
         self._profiler = None

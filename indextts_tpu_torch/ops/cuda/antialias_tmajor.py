@@ -7,7 +7,10 @@ Replaces indextts_tpu/ops/pallas/antialias_tmajor.py:
 fused_anti_alias_snake_tmajor. The vocoder calls it at every activation of a
 stage with C >= 128 under INDEXTTS_WIDE_TMAJOR=1 (models/bigvgan.py). The
 layout is the vocoder trunk's [B, C, T]; the JAX kernel's time-major blocking
-is a TPU layout and is not carried over, what each body computes is.
+is a TPU layout and is not carried over, what each body computes is. On the
+card the CUDA-core body and the pass-through are K1's lane scheme
+(csrc/aa_lanes.cuh), and the tensor-core body is a chain of mma.sync whose
+2x-rate samples stay in registers between the up and the down product.
 
 `fused_anti_alias_snake_tmajor` takes the plain version only for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises. The JAX

@@ -302,9 +302,14 @@ def test_k5_raises_instead_of_falling_back():
 
 # K3 at the three wide stages of a ~100-code vocoder call (B = 1 and 4), and at
 # odd shapes: C of no row tile with T of no tile; T of no 16-byte vector; T
-# shorter than the stencil
-K3_SHAPES = [(1, 768, 1600), (4, 768, 1600), (1, 384, 6400), (4, 384, 6400), (1, 192, 12800), (4, 192, 12800),
-             (1, 130, 1000), (2, 130, 1003), (1, 8, 5)]
+# shorter than the stencil; ragged T on C = 7 and 9 (a row tile of 16 mostly
+# past the last row): one frame, odd, one n-block, of no 32-frame step; T = 4
+# mod 8, where a tensor-core up n-block ends at sample T - 1 exactly
+K3_SHAPES = ([(1, 768, 1600), (4, 768, 1600), (1, 384, 6400), (4, 384, 6400), (1, 192, 12800), (4, 192, 12800),
+              (1, 130, 1000), (2, 130, 1003), (2, 130, 1004), (1, 8, 5)] + [(2, 7, t) for t in RAGGED_T]
+             + [(2, 9, t) for t in (7, 8, 241, 4, 12, 244, 1004)])
+# the three bodies as the wrapper's keywords
+K3_BODIES = {"taps": {}, "mma": {"mxu": True}, "ident": {"probe": "ident"}}
 
 
 def _k3_inputs(b, c, t, dtype, seed=0):
@@ -401,6 +406,70 @@ def test_k3_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="probe"):
         k3.fused_anti_alias_snake_tmajor(torch.zeros(1, 8, 64, device="cuda"), alpha, alpha, probe="wrapper")
     assert k3.launches == before
+
+
+def _k3_check(body, x, alpha, beta, logscale=True):
+    """out, and whether it is within the body's tolerance of its plain version
+    (the pass-through: equal to x)."""
+    out = k3.fused_anti_alias_snake_tmajor(x, alpha, beta, logscale, **K3_BODIES[body])
+    if body == "ident":
+        return out, torch.equal(out, x)
+    mxu = body == "mma"
+    ref = k3.anti_alias_snake_tmajor_plain(x, alpha, beta, logscale, mxu=mxu)
+    ratio = (out.float() - ref.float()).abs() / k3.anti_alias_snake_tmajor_bound(x, alpha, beta, ref, logscale, mxu=mxu)
+    return out, ratio.max().item() <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", list(K3_BODIES))
+@pytest.mark.parametrize("t", [241, 244, 1003, 1600])
+def test_k3_unaligned_input(t, body, dtype):
+    """A contiguous input whose data pointer is one element past a 16-byte
+    boundary: every body takes its element-wise loads and stores, within
+    tolerance (the pass-through bit-equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    c = 130
+    flat = torch.randn(2 * c * t + 1, device="cuda", generator=torch.Generator(device="cuda").manual_seed(t))
+    x = flat.to(dtype)[1:].view(2, c, t)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _, alpha, beta = _k3_inputs(1, c, 8, torch.float32, seed=t)
+    _, ok = _k3_check(body, x, alpha, beta)
+    assert ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", list(K3_BODIES))
+@pytest.mark.parametrize("b,c,t", [(1, 768, 1600), (4, 384, 6400), (1, 192, 12800), (2, 9, 1003), (2, 9, 1004)])
+def test_k3_two_runs_are_bit_equal(b, c, t, body, dtype):
+    """No atomics and no order that changes between runs: the same input
+    gives the same bits, from every body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    x, alpha, beta = _k3_inputs(b, c, t, dtype, seed=c)
+    first, ok = _k3_check(body, x, alpha, beta)
+    second, _ = _k3_check(body, x, alpha, beta)
+    torch.cuda.synchronize()
+    assert ok and torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", list(K3_BODIES))
+def test_k3_call_launches_one_kernel(body, dtype):
+    """Each body's call is one launch of its own kernel and nothing else (the
+    tensor-core body on float32 input is the CUDA-core body's kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    name = {"taps": "tmajor_taps_kernel", "ident": "tmajor_ident_kernel",
+            "mma": "tmajor_mma_kernel" if dtype == torch.bfloat16 else "tmajor_taps_kernel"}[body]
+    x, alpha, beta = _k3_inputs(1, 384, 6400, dtype, seed=2)
+    events = _profiled_kernels(k3, lambda: k3.fused_anti_alias_snake_tmajor(x, alpha, beta, True, **K3_BODIES[body]))
+    assert sum(e.count for e in events) == 1 and name in events[0].key, [(e.key, e.count) for e in events]
 
 
 # K4 at the three narrow stages of a ~100-code vocoder call (B = 1 and 4), and at
@@ -540,21 +609,30 @@ def test_activation_call_launches_one_kernel(kernel, dtype):
     parameter): one more on its counter, one kernel under the profiler."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    from torch.profiler import ProfilerActivity, profile
-
     mod, fn, name = {"k1": (k1, k1.fused_anti_alias_snake, "anti_alias_snake_kernel"),
                      "k3": (k3, k3.fused_anti_alias_snake_tmajor, "tmajor_taps_kernel"),
                      "k4": (k4, k4.fused_folded_aa, "folded_aa_kernel")}[kernel]
     x, alpha, beta = _k3_inputs(1, 192, 6400, dtype, seed=1)
-    fn(x, alpha, beta, True)  # the first call on these parameters derives them
+    events = _profiled_kernels(mod, lambda: fn(x, alpha, beta, True))
+    assert sum(e.count for e in events) == 1 and name in events[0].key, [(e.key, e.count) for e in events]
+
+
+def _profiled_kernels(mod, call):
+    """The device events of one `call` under torch.profiler, after a first call
+    that derives the wrapper's parameters; the call adds one to mod.launches.
+    A trace now and then comes back without device records (several in a row
+    in a long test run): it is taken again, up to 8 times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back without device records: take it again
+    for _ in range(8):
         before = mod.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(x, alpha, beta, True)
+            call()
             torch.cuda.synchronize()
         assert mod.launches == before + 1
         events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
         if events:
-            break
-    assert sum(e.count for e in events) == 1 and name in events[0].key, [(e.key, e.count) for e in events]
+            return events
+    return []

@@ -135,3 +135,30 @@ def test_port_imports_no_jax():
                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_tokenizer_needs_bpe_model_or_random_init(tmp_path):
+    """As the JAX engine (indextts_tpu/engine.py, its bpe.model lookup): a
+    missing bpe.model raises FileNotFoundError unless random init was asked
+    for, which builds the 28-piece vocabulary (26 upper-case letters, ".",
+    "▁") that the JAX engine builds."""
+    from indextts_tpu.utils.front import TextNormalizer as JaxNormalizer
+    from indextts_tpu.utils.front import TextTokenizer as JaxTokenizer
+    from indextts_tpu.utils.spm import SentencePieceProcessor, build_vocab_from_pieces
+    from indextts_tpu_torch.engine import make_tokenizer
+    from indextts_tpu_torch.utils.front import TextNormalizer
+
+    missing = str(tmp_path / "bpe.model")
+    normalizer = TextNormalizer()
+    normalizer.load()
+    with pytest.raises(FileNotFoundError, match="bpe.model"):
+        make_tokenizer(missing, normalizer, allow_random_init=False)
+    tok = make_tokenizer(missing, normalizer, allow_random_init=True)
+    pieces = [(chr(65 + i), -float(i)) for i in range(26)] + [(".", -30.0), ("▁", -31.0)]
+    jax_normalizer = JaxNormalizer()
+    jax_normalizer.load()
+    jax_tok = JaxTokenizer(sp_model=SentencePieceProcessor(vocab=build_vocab_from_pieces(pieces)),
+                           normalizer=jax_normalizer)
+    assert {p for p, _ in pieces} <= set(tok.get_vocab()) and tok.get_vocab() == jax_tok.get_vocab()
+    text = "HELLO WORLD. GOOD DAY."
+    assert tok.encode(text) == jax_tok.encode(text)
