@@ -96,15 +96,32 @@ Phases, in order; any failure exits non-zero:
                equal, samples within tolerance, K3 on the card), greedy
                infer_batch and infer_slots against per-request infer on both
                devices, a vocoder call under INDEXTTS_FUSED_AA=1 (K4 on the
-               card, its plain version on the CPU), and infer_fast on int8
-               weights with the int8 KV cache;
+               card, its plain version on the CPU), infer_fast on int8
+               weights with the int8 KV cache, and one tiny reference-format
+               checkpoint directory loaded on both (greedy codes equal, wav
+               within 1 int16 unit);
+     ckpt    — the published width started from a reference-format
+               checkpoint directory written under build/ (tests/
+               make_torch_ckpt.py's seeded state dicts rescaled to the random
+               init's spread, the stop code's bias at -30): engine A
+               converts gpt.pth and bigvgan_generator.pth
+               and writes their .npz caches, engine B loads the caches (bf16,
+               each construction timed); five weights of both against the
+               state dicts with torch alone, bit for bit in bf16; a greedy
+               100-code request on A and B, codes and wav bit-equal; then B
+               behind the port's web server (create_app, slot_requests=4) on a
+               loopback port: the SPA's default form (num_beams 3, sampled,
+               max_mel_tokens 100) followed over its SSE status to the wav, a
+               streaming request, and 4 concurrent num_beams=1 requests through
+               the slot session, each timed; K1 109 launches per vocoder
+               call; the directory is deleted at the end;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
-small) runs
+small, ckpt) runs
 only those phases after the build, for work on one of them, with the per
 vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
 final line, and exits 3. In the kernels line `ms` is a kernel's own device
@@ -1622,7 +1639,34 @@ def small_phase(card: str) -> dict:
         f"wav {wav8_gpu.shape} max |gpu - cpu| = {diff8} int16 units [{card}]")
     if not same8 or wav8_gpu.shape != wav8_cpu.shape or diff8 > 8 or max(batches) < 2:
         raise AssertionError("the card's int8 infer_fast disagrees with the CPU's at tiny width")
+    # one tiny reference-format checkpoint directory loaded on the card and on the CPU
+    with tempfile.TemporaryDirectory() as d:
+        write_checkpoint_dir(tiny_config(), d)
+        loaded = {dev: IndexTTS(cfg_path=os.path.join(d, "config.yaml"), model_dir=d, is_fp16=False, device=dev)
+                  for dev in ("cuda", "cpu")}
+    ckpt_codes, ckpt_wavs = {}, {}
+    for dev, e in loaded.items():
+        gen, got = e._gpt_generate, []
+
+        def rec(*a, _gen=gen, _got=got, **k):
+            out = _gen(*a, **k)
+            _got.append(np.asarray(out[0]))
+            return out
+
+        e._gpt_generate = rec
+        _, ckpt_wavs[dev] = e.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, num_beams=1,
+                                    max_mel_tokens=24)
+        ckpt_codes[dev] = got
+    same_c = len(ckpt_codes["cuda"]) == len(ckpt_codes["cpu"]) and all(
+        np.array_equal(a, b) for a, b in zip(ckpt_codes["cuda"], ckpt_codes["cpu"]))
+    wc, wp = ckpt_wavs["cuda"], ckpt_wavs["cpu"]
+    diff_c = int(np.abs(wc.astype(np.int64) - wp.astype(np.int64)).max()) if wc.size and wc.shape == wp.shape else -1
+    log(f"[small] tiny f32 checkpoint directory on the card and the CPU: greedy codes equal {same_c} "
+        f"({ckpt_codes['cuda'][0][0, :12].tolist()}...), wav {wc.shape} max |gpu - cpu| = {diff_c} int16 units [{card}]")
+    if not same_c or wc.shape != wp.shape or not 0 <= diff_c <= 1:
+        raise AssertionError("the card's engine disagrees with the CPU's on a tiny checkpoint directory")
     return {"codes_equal": same, "wav_max_abs_diff_int16": diff, "samples": int(wav_gpu.shape[0]),
+            "checkpoint_dir": {"codes_equal": same_c, "wav_max_abs_diff_int16": diff_c, "samples": int(wc.shape[0])},
             "beams_wide_branch": {"codes_equal": same_b, "wav_max_abs_diff_int16": diff_b, "k2_launches": k2_calls,
                                   "samples": int(wavb_gpu.shape[0])},
             "captured_latents": {"codes": n, "max_abs_diff_vs_teacher_forced": lat_err},
@@ -1632,6 +1676,348 @@ def small_phase(card: str) -> dict:
                                  "wav_max_abs_diff_vs_default_int16": diff_fd},
             "int8_fast": {"codes_equal": same8, "wav_max_abs_diff_int16": diff8, "card_batches": batches,
                           "samples": int(wav8_gpu.shape[0])}}
+
+
+def like_random_init(sd: dict) -> None:
+    """Rescale, in place, the N(0, 0.05^2) draws of tests/make_torch_ckpt.py
+    to the spread of the engine's random init (weights.default_init_ and the
+    GPT-2 init): 2-D weights to a std of 0.02, conv weights to U(+-1/sqrt(fan_in))'s
+    std 1/sqrt(3 fan_in), each weight-normed conv's g to that init's row norm
+    sqrt(1/3). At 0.05 and g = 1 every weight-normed conv of the published
+    vocoder has ~1.7x the gain, and its output sits at full scale."""
+    for k, v in sd.items():
+        if not v.is_floating_point() or v.ndim < 2 or k.endswith(".weight_v"):
+            continue  # norms, biases, BatchNorm statistics; v only sets a direction
+        if k.endswith(".weight_g"):
+            v.fill_(3 ** -0.5)
+        elif v.ndim >= 3:
+            v.mul_((3 * math.prod(v.shape[1:])) ** -0.5 / 0.05)
+        else:
+            v.mul_(0.02 / 0.05)
+
+
+def write_checkpoint_dir(cfg, d: str, stop_bias=None, scale=False) -> tuple:
+    """A reference-format checkpoint directory for `cfg` (the port's config
+    objects) under `d`: gpt.pth and bigvgan_generator.pth from
+    tests/make_torch_ckpt.py's seeded state dicts (rescaled by
+    like_random_init when `scale`), config.yaml and a bpe.model of upper-case
+    letters and punctuation. `stop_bias`, when given, goes into mel_head.bias
+    at the stop code, so that a request decodes its whole budget. Returns the
+    two state dicts."""
+    import torch
+
+    import importlib.util
+
+    from indextts_tpu_torch.config import save_config
+    from indextts_tpu_torch.utils.spm import build_vocab_from_pieces, serialize_model_proto
+
+    # by its path: `tests` is a namespace package here, and a regular package of
+    # that name elsewhere on sys.path would shadow it
+    spec = importlib.util.spec_from_file_location("make_torch_ckpt", os.path.join(REPO, "tests", "make_torch_ckpt.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    os.makedirs(d, exist_ok=True)
+    gpt_sd = make.make_gpt_state_dict(cfg.gpt)
+    bigvgan_sd = make.make_bigvgan_state_dict(cfg.bigvgan)
+    if scale:
+        like_random_init(gpt_sd)
+        like_random_init(bigvgan_sd)
+    if stop_bias is not None:
+        gpt_sd["mel_head.bias"][cfg.gpt.stop_mel_token] = stop_bias
+    torch.save(gpt_sd, os.path.join(d, cfg.gpt_checkpoint))
+    torch.save({"generator": bigvgan_sd}, os.path.join(d, cfg.bigvgan_checkpoint))
+    save_config(cfg, os.path.join(d, "config.yaml"))
+    pieces = [(chr(65 + i), -float(i + 1)) for i in range(26)]
+    pieces += [("▁", -30.0), (".", -31.0), (",", -32.0), ("!", -33.0), ("?", -34.0), ("-", -35.0), ("'", -36.0)]
+    with open(os.path.join(d, "bpe.model"), "wb") as f:
+        f.write(serialize_model_proto(build_vocab_from_pieces(pieces, model_type=2)))
+    return gpt_sd, bigvgan_sd
+
+
+def _multipart(fields: dict, files: dict) -> tuple:
+    """(body, content type) of a multipart/form-data POST."""
+    boundary = "----chipsmoke" + os.urandom(8).hex()
+    parts = []
+    for k, v in fields.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode())
+    for k, (name, data) in files.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; filename="{name}"\r\n'
+                     f"Content-Type: audio/wav\r\n\r\n".encode() + data + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def ckpt_phase(card: str) -> dict:
+    """This slice's main path: the published IndexTTS-1.5 width started from a
+    reference-format checkpoint directory (convert.py, the engine's load
+    order) and served over HTTP by the port's own server, K1 at every
+    vocoder activation. Engine A converts the .pth files and writes the .npz
+    caches, engine B loads the caches; spot checks of their weights against
+    the state dicts with torch alone; a greedy request bit-equal on A and B;
+    then B behind create_app(slot_requests=4) on a loopback port: the SPA's
+    default form (num_beams 3, sampled) followed to its wav, a streaming
+    request, and 4 concurrent num_beams=1 requests through the slot session."""
+    import http.client
+    import io
+    import shutil
+    import socket
+    import threading
+    import wave
+
+    import numpy as np
+    import torch
+
+    import indextts_tpu_torch.engine as engine_mod
+    from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.engine import IndexTTS
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.server.webui import create_app
+
+    d = os.path.join(REPO, "build", "ckpt_phase")
+    shutil.rmtree(d, ignore_errors=True)
+    voc = {"calls": 0}
+    apply = engine_mod.bigvgan_apply
+
+    def counting_apply(*a, **kw):
+        voc["calls"] += 1
+        return apply(*a, **kw)
+
+    engine_mod.bigvgan_apply = counting_apply
+    app = None
+    try:
+        cfg = load_config(FLAGSHIP)
+        h = cfg.bigvgan
+        per_call = len(h.upsample_rates) * sum(2 * len(d) for d in h.resblock_dilation_sizes) + 1  # 109 published
+        t = time.perf_counter()
+        gpt_sd, bigvgan_sd = write_checkpoint_dir(cfg, d, stop_bias=-30.0, scale=True)
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        log(f"[ckpt] wrote {d}: {sizes} in {time.perf_counter() - t:.1f} s")
+        cfg_path = os.path.join(d, "config.yaml")
+        built = {}
+        for name in ("pth", "npz"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            e = IndexTTS(cfg_path=cfg_path, model_dir=d, is_fp16=True, device="cuda")
+            torch.cuda.synchronize()
+            built[name] = (e, time.perf_counter() - t)
+            log(f"[ckpt] engine from the {name} path built in {built[name][1]:.2f} s [{card}]")
+        (engine_a, pth_s), (engine_b, npz_s) = built["pth"], built["npz"]
+        if not all(os.path.exists(os.path.join(d, f + ".npz")) for f in (cfg.gpt_checkpoint, cfg.bigvgan_checkpoint)):
+            raise AssertionError("the .pth path wrote no .npz cache")
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+
+        # the loaded weights against the state dicts, with torch alone
+        def folded(prefix):  # weight norm folded by torch in float64, then float32 as the engine loads it
+            v, g = bigvgan_sd[prefix + ".weight_v"].double(), bigvgan_sd[prefix + ".weight_g"].double()
+            return torch._weight_norm(v, g, 0).float()
+
+        last = cfg.gpt.condition_module.num_blocks - 1
+        spots = {
+            "gpt.h.0.attn.c_attn.weight (transposed)": (gpt_sd["gpt.h.0.attn.c_attn.weight"].t(),
+                                                        lambda e: e.gpt.gpt.blocks[0].attn_qkv.weight),
+            "text_embedding.weight": (gpt_sd["text_embedding.weight"], lambda e: e.gpt.text_embedding),
+            f"conditioning_encoder.encoders.{last}.feed_forward.w_2.weight": (
+                gpt_sd[f"conditioning_encoder.encoders.{last}.feed_forward.w_2.weight"],
+                lambda e: e.gpt.conditioning_encoder.layers[last].ff["w2"].weight),
+            "ups.0.0 (weight norm folded)": (folded("ups.0.0"), lambda e: e.bigvgan.ups[0].weight),
+            "resblocks.0.convs1.0 (weight norm folded)": (folded("resblocks.0.convs1.0"),
+                                                          lambda e: e.bigvgan.resblocks[0].convs1[0].weight),
+        }
+        spot = {}
+        where = dict(device=engine_a.gpt.text_embedding.device, dtype=engine_a.dtype)  # bf16 on the card
+        for name, (want, get) in spots.items():
+            want = want.to(**where)
+            for tag, e in (("A", engine_a), ("B", engine_b)):
+                have = get(e)
+                if have.dtype != want.dtype or have.shape != want.shape or not torch.equal(have, want):
+                    raise AssertionError(f"engine {tag}'s {name} is not the state dict's value in {want.dtype}")
+            spot[name] = list(want.shape)
+        # a float32 fold rounds otherwise than the converter's float64 norm: how many values that moves
+        v, g = bigvgan_sd["ups.0.0.weight_v"], bigvgan_sd["ups.0.0.weight_g"]
+        f32_moved = int((torch._weight_norm(v, g, 0).to(**where) != engine_a.bigvgan.ups[0].weight).sum())
+        log(f"[ckpt] {len(spot)} weights of engines A and B equal the state dicts' in {where['dtype']}, bit for bit "
+            f"(torch alone): {spot}; a float32 fold of ups.0.0 would move {f32_moved} of its {v.numel()} values")
+        del gpt_sd, bigvgan_sd
+
+        # the main path's run starts here: a greedy request on A and on B, then HTTP on B
+        k1.launches = voc["calls"] = 0
+        greedy = dict(text="HELLO WORLD.", do_sample=False, num_beams=1, max_mel_tokens=100)
+        runs = {}
+        for tag, e in (("A", engine_a), ("B", engine_b)):
+            codes, floats = [], []
+            gen, vocode = e._gpt_generate, e._vocode
+
+            def recording_generate(*ga, _gen=gen, _codes=codes, **gk):
+                out = _gen(*ga, **gk)
+                _codes.append(np.asarray(out[0]))
+                return out
+
+            def recording_vocode(*va, _vocode=vocode, _floats=floats, **vk):
+                wav = _vocode(*va, **vk)
+                _floats.append(wav)
+                return wav
+
+            e._gpt_generate, e._vocode = recording_generate, recording_vocode
+            try:
+                t = time.perf_counter()
+                sr, wav = e.infer(audio_prompt=PROMPT, **greedy)
+                runs[tag] = dict(codes=codes, wav=wav, floats=floats, s=time.perf_counter() - t)
+            finally:
+                del e._gpt_generate, e._vocode
+        a, b = runs["A"], runs["B"]
+        n_codes = sum(int(c.shape[-1]) for c in a["codes"])
+        finite = all(np.isfinite(w).all() for r in (a, b) for w in r["floats"])
+        same_codes = len(a["codes"]) == len(b["codes"]) and all(np.array_equal(x, y) for x, y in zip(a["codes"], b["codes"]))
+        same_wav = a["wav"].shape == b["wav"].shape and np.array_equal(a["wav"], b["wav"])
+        ab_launches, ab_calls = k1.launches, voc["calls"]
+        full_scale = float((np.abs(a["wav"].astype(np.int32)) >= 32767).mean())
+        log(f"[ckpt] greedy num_beams=1, max_mel_tokens 100 on A and B: {n_codes} codes, equal {same_codes}; wav "
+            f"{a['wav'].shape} bit-equal {same_wav}, finite {finite}, {100 * full_scale:.2f} % of samples at full "
+            f"scale, max |sample| {int(np.abs(a['wav'].astype(np.int32)).max())}; {a['s']:.2f} / {b['s']:.2f} s; K1 "
+            f"{ab_launches} launches over {ab_calls} vocoder calls [{card}]")
+        if not (same_codes and same_wav and finite) or n_codes != 100 or a["wav"].shape[0] != 100 * engine_b._samples_per_code():
+            raise AssertionError("engines A (.pth) and B (.npz) disagree, or the request did not decode 100 codes")
+        if ab_calls != 2 or ab_launches != per_call * ab_calls:
+            raise AssertionError(f"K1 launched {ab_launches} times over {ab_calls} vocoder calls, want {per_call} per call")
+
+        # HTTP: the port's server on engine B, a loopback port, slot batching of 4
+        submits, infers = [], []
+        make_session, infer = engine_b.slot_session, engine_b.infer
+
+        def recording_session(*sa, **sk):
+            sess = make_session(*sa, **sk)
+            submit = sess.submit
+
+            def recording_submit(*ra, **rk):
+                rid = submit(*ra, **rk)
+                submits.append(rid)
+                return rid
+
+            sess.submit = recording_submit
+            return sess
+
+        def recording_infer(*ia, **ik):
+            infers.append(ik.get("text"))
+            return infer(*ia, **ik)
+
+        engine_b.slot_session, engine_b.infer = recording_session, recording_infer
+        app = create_app(engine_b, base_dir=os.path.join(d, "www"), slot_requests=4)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        threading.Thread(target=app.run, args=("127.0.0.1", port), daemon=True).start()
+        deadline = time.time() + 30
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1).close()
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        with open(PROMPT, "rb") as f:
+            prompt = {"referenceAudioFile": ("prompt.wav", f.read())}
+
+        def call(method, path, body=None, ctype=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
+            return conn, conn.getresponse()
+
+        def post(path, fields):
+            body, ctype = _multipart(fields, prompt)
+            conn, resp = call("POST", path, body, ctype)
+            data = resp.read()
+            conn.close()
+            if resp.status != 200:
+                raise AssertionError(f"POST {path}: {resp.status} {data[:300]!r}")
+            return data
+
+        def wav_frames(url):
+            conn, resp = call("GET", url)
+            data = resp.read()
+            conn.close()
+            if resp.status != 200:
+                raise AssertionError(f"GET {url}: {resp.status}")
+            with wave.open(io.BytesIO(data)) as w:
+                return w.getnframes()
+
+        spa_form = {"text": "HELLO WORLD.", "infer_mode": "普通推理", "do_sample": "true",
+                    "temperature": "1.0", "top_k": "30", "top_p": "0.8", "repetition_penalty": "10.0",
+                    "num_beams": "3", "length_penalty": "0.0", "max_mel_tokens": "100",
+                    "max_text_tokens_per_sentence": "120", "replacements": "[]"}
+        http_rows = {}
+        # (a) the SPA's default form, followed over the SSE status stream to its wav
+        t = time.perf_counter()
+        tid = json.loads(post("/api/synthesize", spa_form))["task_id"]
+        conn, resp = call("GET", f"/api/synthesize-stream-status/{tid}")
+        last = {}
+        for line in resp:
+            if line.startswith(b"data: "):
+                last = json.loads(line[6:])
+                if last.get("status") in ("completed", "failed", "error"):
+                    break
+        conn.close()
+        if last.get("status") != "completed":
+            raise AssertionError(f"default-form request ended {last}")
+        frames = wav_frames(last["audio_url"])
+        http_rows["default_form"] = dict(s=time.perf_counter() - t, samples=frames)
+        if frames != 100 * engine_b._samples_per_code():
+            raise AssertionError(f"default-form wav has {frames} samples, want 100 codes x {engine_b._samples_per_code()}")
+        # (b) a streaming request: a chunked WAV body
+        t = time.perf_counter()
+        body = post("/api/synthesize-stream", {**spa_form, "infer_mode": "流式"})
+        http_rows["stream"] = dict(s=time.perf_counter() - t, bytes=len(body), samples=(len(body) - 44) // 2)
+        if len(body) <= 44:
+            raise AssertionError(f"the streaming response held {len(body)} bytes: no PCM")
+        # (c) four concurrent num_beams=1 requests through the slot session
+        n_infer = len(infers)
+        rows = [None] * 4
+
+        def client(i):
+            t0 = time.perf_counter()
+            fields = {**spa_form, "text": ["HELLO WORLD.", "GOOD DAY.", "THIS IS A TEST.", "SEE YOU."][i],
+                      "num_beams": "1"}
+            tid = json.loads(post("/api/synthesize", fields))["task_id"]
+            while True:
+                conn, resp = call("GET", f"/api/task-status/{tid}")
+                st = json.loads(resp.read())
+                conn.close()
+                if st.get("status") in ("completed", "failed", "error"):
+                    break
+                time.sleep(0.05)
+            rows[i] = dict(s=time.perf_counter() - t0, status=st["status"],
+                           samples=wav_frames(st["audio_url"]) if st["status"] == "completed" else 0)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        http_rows["slots_4"] = dict(s=time.perf_counter() - t, requests=rows)
+        if any(r is None or r["status"] != "completed" or r["samples"] <= 0 for r in rows):
+            raise AssertionError(f"concurrent num_beams=1 requests: {rows}")
+        if len(submits) != 4 or len(infers) != n_infer:
+            raise AssertionError(f"{len(submits)} requests went through the slot session, {len(infers) - n_infer} "
+                                 f"through infer: want 4 and 0")
+        http_launches, http_calls = k1.launches - ab_launches, voc["calls"] - ab_calls
+        log(f"[ckpt] HTTP on 127.0.0.1 (create_app, slot_requests=4), wall s: default form (num_beams 3, sampled, "
+            f"100 codes) {http_rows['default_form']['s']:.2f} ({frames} samples); stream "
+            f"{http_rows['stream']['s']:.2f} ({http_rows['stream']['bytes']} bytes); 4 concurrent num_beams=1 "
+            f"{http_rows['slots_4']['s']:.2f} ({[round(r['s'], 2) for r in rows]}, {len(submits)} slot submits); "
+            f"K1 {http_launches} launches over {http_calls} vocoder calls [{card}]")
+        if http_calls < 3 or http_launches != per_call * http_calls:
+            raise AssertionError(f"K1 launched {http_launches} times over {http_calls} vocoder calls, want {per_call} "
+                                 "per call")
+        return {"files_bytes": sizes, "build_s": {"pth": pth_s, "npz": npz_s}, "spot_checks": spot,
+                "f32_fold_moved_values": f32_moved, "greedy_ab": {"codes": n_codes, "equal": True,
+                                                                        "s": [a["s"], b["s"]],
+                                                                        "full_scale_share": full_scale},
+                "http": http_rows, "k1_launches": k1.launches, "vocoder_calls": voc["calls"]}
+    finally:
+        if app is not None:
+            app.shutdown()
+        engine_mod.bigvgan_apply = apply
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def activation_bound(stages, calls_per_stage: int, extra=()):
@@ -1722,7 +2108,7 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
     return out
 
 
-PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small")
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt")
 
 
 def main(argv) -> int:
@@ -1769,7 +2155,7 @@ def main(argv) -> int:
 
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
-                 "int8": int8_phase, "small": small_phase}
+                 "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase}
     if only is not None:
         summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
@@ -1789,6 +2175,7 @@ def main(argv) -> int:
     serve = serve_phase(card)
     int8 = int8_phase(card)
     small = small_phase(card)
+    ckpt = ckpt_phase(card)
 
     layers = load_config(FLAGSHIP).gpt.layers
 
@@ -1862,6 +2249,7 @@ def main(argv) -> int:
         "serve": serve,
         "int8": int8,
         "small": small,
+        "ckpt": ckpt,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"), "w") as f:
@@ -1871,7 +2259,8 @@ def main(argv) -> int:
     # conv; K5's plain version dequantizes, then calls F.linear)
     kernels = [{
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": eng["k1_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
+        "launches": ckpt["k1_launches"], "launches_engine_phase": eng["k1_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": k1_per_voc["k1"], "plain_ms": k1_per_voc["plain"],
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "call_ms": k1_per_voc["call"],
     }, {

@@ -3,8 +3,10 @@
 The reference CLI's flags (indextts/cli.py:7-70) plus the JAX CLI's --fast
 (bucketed batch inference, IndexTTS.infer_fast), --fast-latents,
 --quant-kv (the int8 KV cache) and --batch-file (a TSV of jobs run as one
-IndexTTS.infer_batch call). Weights are random (seed 0) until checkpoint
-loading is ported; see ROADMAP.md.
+IndexTTS.infer_batch call). The weights come from --model_dir: the
+reference's gpt.pth, bigvgan_generator.pth and bpe.model, or the .npz caches
+of the converted checkpoints; a missing one raises FileNotFoundError, as the
+JAX CLI does.
 """
 
 import argparse
@@ -15,9 +17,8 @@ _DESCRIPTION = """IndexTTS on PyTorch (single request).
 
 Decoding runs the engine's defaults, as the reference CLI does: beam search
 with num_beams=3, sampled, top-k 30, top-p 0.8, repetition penalty 10.
-Without a bpe.model in --model_dir the random-init tokenizer knows only the
-26 upper-case ASCII letters, "." and the word separator, so give upper-case
-ASCII text."""
+--model_dir holds gpt.pth, bigvgan_generator.pth and bpe.model (a .pth is
+converted once and cached beside it as .pth.npz)."""
 
 
 def main(argv=None):
@@ -66,7 +67,7 @@ def main(argv=None):
     from indextts_tpu_torch.engine import IndexTTS
 
     tts = IndexTTS(cfg_path=args.config, model_dir=args.model_dir, is_fp16=args.fp16, device=args.device,
-                   allow_random_init=True, quant_kv=args.quant_kv, fast_latents=args.fast_latents)
+                   quant_kv=args.quant_kv, fast_latents=args.fast_latents)
     if items is not None:
         os.makedirs(output_path, exist_ok=True)
         paths = [os.path.join(output_path, f"{i:03d}.wav") for i in range(len(items))]

@@ -28,13 +28,16 @@ half-branches through K2, INDEXTTS_WIDE_TMAJOR=1 its wide activations through
 K3, INDEXTTS_FUSED_AA=1 its narrow stages' resblock activations through K4
 (models/bigvgan.py).
 
+Weights load as the JAX engine loads them, GPT and BigVGAN each on its own:
+the <checkpoint>.npz cache of a converted tree first, else the reference's
+.pth (converted by convert.py, and the cache written beside it), else random
+init from `seed` when `allow_random_init`, else FileNotFoundError.
+
 The same shape buckets as the JAX engine are kept, because padding changes
 numbers: text is padded with stop_text_token to a multiple of 8, codes to a
 multiple of 16, prompt mel frames to a multiple of 100 (ECAPA then gets
 relative lengths), vocoder latents to a multiple of 16 (32 in the batched
 vocoder of infer_fast).
-
-Not ported yet (see ROADMAP.md): loading checkpoints and the web server.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
+from indextts_tpu_torch.convert import (convert_bigvgan, convert_unified_voice, load_params_npz, load_torch_state_dict,
+                                        save_params_npz)
 from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
 from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
 from indextts_tpu_torch.models.gpt_decode import (
@@ -63,6 +68,7 @@ from indextts_tpu_torch.models.gpt_decode import (
 from indextts_tpu_torch.utils.audio import decode_audio, resample, write_wav
 from indextts_tpu_torch.utils.front import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
+from indextts_tpu_torch.weights import load_jax_params
 
 
 # a request whose max_mel_tokens reaches two segments decodes with a growing cache
@@ -104,11 +110,14 @@ class IndexTTS:
     ):
         """`is_fp16` selects bf16 compute off the CPU. `use_cuda_kernel` routes
         every vocoder activation to the fused kernel K1 (its plain version on
-        the CPU); off, the composed torch path runs. `allow_random_init`
-        builds the models from `seed` with the JAX init_* distributions; it
-        is required for now, since checkpoint loading is not ported. Weights
-        of the JAX engine can be copied in afterwards with
-        weights.load_jax_params(self.gpt, ...) / (self.bigvgan, ...).
+        the CPU); off, the composed torch path runs. `model_dir` holds the
+        reference's checkpoints (cfg.gpt_checkpoint, cfg.bigvgan_checkpoint,
+        bpe.model) or their .npz caches; where one is missing,
+        `allow_random_init` builds that model from `seed` with the JAX init_*
+        distributions, else FileNotFoundError. Weights load in float32 and
+        are then cast to the engine's dtype. Weights of the JAX engine can be
+        copied in afterwards with weights.load_jax_params(self.gpt, ...) /
+        (self.bigvgan, ...).
         `quant_kv`: decode with the int8 KV cache (per head-pair and position
         scales); opt-in, since K/V rounding changes the sampled numbers.
         `fast_latents`: the JAX engine's consistent-positions mode. The
@@ -127,22 +136,17 @@ class IndexTTS:
         self.model_dir = model_dir
         self.stop_mel_token = self.cfg.gpt.stop_mel_token
 
-        if not allow_random_init:
-            raise NotImplementedError(
-                "loading IndexTTS checkpoints is not ported to the PyTorch engine yet (ROADMAP.md, "
-                "'.pth conversion'); pass allow_random_init=True and load weights with "
-                "indextts_tpu_torch.weights.load_jax_params"
-            )
         g = torch.Generator(device=self.device).manual_seed(seed)
         with torch.device(self.device):
             self.gpt = UnifiedVoice(self.cfg.gpt)
             self.bigvgan = BigVGAN(self.cfg.bigvgan)
-        self.gpt.reset_parameters(g)
-        self.bigvgan.reset_parameters(g)
+        self._load_weights(self.gpt, "GPT", os.path.join(model_dir, self.cfg.gpt_checkpoint), None,
+                           lambda sd: convert_unified_voice(sd, self.cfg.gpt), allow_random_init, g)
+        self._load_weights(self.bigvgan, "bigvgan", os.path.join(model_dir, self.cfg.bigvgan_checkpoint), "generator",
+                           lambda sd: convert_bigvgan(sd, self.cfg.bigvgan), allow_random_init, g)
         for m in (self.gpt, self.bigvgan):
             # .to(device) also moves buffers built from numpy (the conformer's PE table)
             m.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
-        print(">> GPT and BigVGAN randomly initialized (seed", seed, ")")
 
         bpe_path = os.path.join(model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
         self.normalizer = TextNormalizer()
@@ -159,6 +163,31 @@ class IndexTTS:
         self.last_stats: Dict[str, Any] = {}
         # segments the segmented decode loops ran since a request last zeroed it
         self._decode_segments = 0
+
+    @staticmethod
+    def _load_weights(module, name: str, path: str, key: Optional[str], convert, allow_random_init: bool,
+                      g: torch.Generator) -> None:
+        """Fill `module` (float32) as indextts_tpu/engine.py:160-212 does: the
+        converted tree cached at `path`.npz, else the .pth at `path` (the
+        state dict under `key`), converted and then cached (a cache that
+        cannot be written is passed over), else random init from `g` when
+        `allow_random_init`, else FileNotFoundError(path)."""
+        if os.path.exists(path + ".npz"):
+            load_jax_params(module, load_params_npz(path + ".npz"))
+            print(f">> {name} weights restored from cache:", path + ".npz")
+        elif os.path.exists(path):
+            converted = convert(load_torch_state_dict(path, key=key))
+            try:
+                save_params_npz(converted, path + ".npz")
+            except OSError:
+                pass
+            load_jax_params(module, converted)
+            print(f">> {name} weights restored from:", path)
+        elif allow_random_init:
+            module.reset_parameters(g)
+            print(f">> {name} randomly initialized (no checkpoint at", path, ")")
+        else:
+            raise FileNotFoundError(path)
 
     # ------------------------------------------------------------------
     # features / host helpers (reference: infer.py:82-329)

@@ -83,3 +83,17 @@ def sb_same_pad(x: torch.Tensor, kernel_size: int, dilation: int, mode: str = "r
     symmetric dilation*(kernel-1)//2 pads, reflect by default."""
     total = dilation * (kernel_size - 1)
     return pad1d(x, (total // 2, total - total // 2), mode=mode)
+
+
+def weight_norm_fold(weight_v, weight_g):
+    """Fold torch weight_norm (g * v/||v||, norm over all dims except dim=0)
+    at conversion time, in numpy, as the reference folds at load with
+    remove_weight_norm(). Torch layout [Cout, ...]; the norm is accumulated in
+    float64 and the result keeps v's dtype."""
+    import numpy as np
+
+    v = np.asarray(weight_v)
+    g = np.asarray(weight_g)
+    axes = tuple(range(1, v.ndim))
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=axes, keepdims=True))
+    return (g * (v / norm)).astype(v.dtype)

@@ -20,6 +20,7 @@ from indextts_tpu.engine import IndexTTS as JaxIndexTTS
 from indextts_tpu_torch.engine import IndexTTS
 from indextts_tpu_torch.weights import load_jax_params
 from tests.test_engine import tiny_config
+from tests.test_torch_checkpoint import ckpt_dir  # noqa: F401  (a fixture: tiny reference-format checkpoints)
 from tests.test_torch_vocoder import scramble
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,17 +106,28 @@ def test_beams_raise_instead_of_downgrading(engines, monkeypatch):
         te.infer(audio_prompt=PROMPT, text="HELLO.", num_beams=1, top_kk=3)
 
 
-def test_cli_single_request(engines, tmp_path, capsys):
+def test_cli_single_request(ckpt_dir, tmp_path, capsys):
     from indextts_tpu_torch.cli import main
 
-    _, _, cfg_path = engines
+    cfg_path = os.path.join(ckpt_dir, "config.yaml")
     out = str(tmp_path / "cli.wav")
-    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", out, "-d", "cpu"])
+    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", ckpt_dir, "-o", out, "-d", "cpu"])
     assert os.path.getsize(out) > 44
     with pytest.raises(SystemExit):
         main(["--help"])
     help_text = capsys.readouterr().out
     assert "num_beams=3" in help_text and "--fast-latents" in help_text
+
+
+def test_cli_without_checkpoints_raises(engines, tmp_path):
+    """As the JAX CLI: an empty --model_dir is an error, not random weights."""
+    from indextts_tpu_torch.cli import main
+
+    _, _, cfg_path = engines
+    with pytest.raises(FileNotFoundError, match="gpt.pth"):
+        main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o",
+              str(tmp_path / "cli.wav"), "-d", "cpu"])
+    assert not os.path.exists(tmp_path / "cli.wav")
 
 
 def test_port_imports_no_jax():

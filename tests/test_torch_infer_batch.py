@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 
+from tests.test_torch_checkpoint import ckpt_dir  # noqa: F401  (a fixture: tiny reference-format checkpoints)
 from tests.test_torch_infer_fast import PROMPT, WAV_TOL, engines  # noqa: F401  (engines is the fixture)
 
 GREEDY = dict(do_sample=False, num_beams=1, max_mel_tokens=8, repetition_penalty=1.0)
@@ -247,14 +248,14 @@ def test_conds_for_many_dedup_and_cache(engines, monkeypatch):
     assert te._conds_for_many([b])[0] is out[1] and te._conds_for(c) is out[3] and batches == [2]
 
 
-def test_cli_batch_file(engines, tmp_path, monkeypatch):
+def test_cli_batch_file(ckpt_dir, tmp_path, monkeypatch):
     """--batch-file: 'text' lines take -v, 'voice<TAB>text' lines their own
     voice; one infer_batch call writes NNN.wav files into -o."""
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.cli import main
     from indextts_tpu_torch.engine import IndexTTS
 
-    _, _, cfg_path = engines
+    cfg_path = os.path.join(ckpt_dir, "config.yaml")
     seen = []
 
     class Recording(IndexTTS):
@@ -266,11 +267,11 @@ def test_cli_batch_file(engines, tmp_path, monkeypatch):
     jobs = tmp_path / "jobs.tsv"
     jobs.write_text(f"HELLO WORLD.\r\n\n{PROMPT}\tGOOD DAY.\n", encoding="utf-8")
     outdir = tmp_path / "out"
-    main(["--batch-file", str(jobs), "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", str(outdir),
+    main(["--batch-file", str(jobs), "-v", PROMPT, "-c", cfg_path, "--model_dir", ckpt_dir, "-o", str(outdir),
           "-d", "cpu"])
     assert seen == [[(PROMPT, "HELLO WORLD."), (PROMPT, "GOOD DAY.")]]
     assert sorted(os.listdir(outdir)) == ["000.wav", "001.wav"]
-    assert all(os.path.getsize(outdir / f) >= 44 for f in os.listdir(outdir))  # a header, and what the random weights gave
+    assert all(os.path.getsize(outdir / f) >= 44 for f in os.listdir(outdir))  # a header, and what the checkpoint gave
     with pytest.raises(SystemExit):  # the outputs exist and --force is not given
-        main(["--batch-file", str(jobs), "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o",
+        main(["--batch-file", str(jobs), "-v", PROMPT, "-c", cfg_path, "--model_dir", ckpt_dir, "-o",
               str(outdir), "-d", "cpu"])

@@ -21,6 +21,7 @@ from indextts_tpu_torch.engine import IndexTTS
 from indextts_tpu_torch.ops.cuda.qmatmul import int8_matmul_plain
 from indextts_tpu_torch.weights import load_jax_params
 from tests.test_engine import tiny_config
+from tests.test_torch_checkpoint import ckpt_dir  # noqa: F401  (a fixture: tiny reference-format checkpoints)
 from tests.test_torch_vocoder import scramble
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -263,13 +264,13 @@ def test_engine_counts_match_k5_calls(engines, monkeypatch):
         assert len(calls) == st["gpt_calls"] + (4 * layers + 1) * st["gpt_steps"]
 
 
-def test_cli_fast_quant_kv(engines, tmp_path, monkeypatch):
+def test_cli_fast_quant_kv(ckpt_dir, tmp_path, monkeypatch):
     """--fast --quant-kv reach the engine: infer_fast on an engine built with
     quant_kv, writing the wav."""
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.cli import main
 
-    _, _, cfg_path = engines
+    cfg_path = os.path.join(ckpt_dir, "config.yaml")
     seen = []
 
     class Recording(IndexTTS):
@@ -279,19 +280,19 @@ def test_cli_fast_quant_kv(engines, tmp_path, monkeypatch):
 
     monkeypatch.setattr(engine_mod, "IndexTTS", Recording)
     out = str(tmp_path / "fast.wav")
-    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", out, "-d", "cpu",
+    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", ckpt_dir, "-o", out, "-d", "cpu",
           "--fast", "--quant-kv"])
     assert seen == [True] and os.path.getsize(out) > 44
 
 
-def test_cli_runs_the_engine_default_beams(engines, tmp_path, monkeypatch):
+def test_cli_runs_the_engine_default_beams(ckpt_dir, tmp_path, monkeypatch):
     """The CLI passes no num_beams (the JAX CLI passes none either): the
     decode is the engine's default beam search, nb = 3; --fast-latents
     reaches the engine."""
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.cli import main
 
-    _, _, cfg_path = engines
+    cfg_path = os.path.join(ckpt_dir, "config.yaml")
     gens, flags = [], []
     beam = engine_mod.generate_speech_beam
     monkeypatch.setattr(engine_mod, "generate_speech_beam", lambda *a, **k: gens.append(a[2]) or beam(*a, **k))
@@ -303,6 +304,6 @@ def test_cli_runs_the_engine_default_beams(engines, tmp_path, monkeypatch):
 
     monkeypatch.setattr(engine_mod, "IndexTTS", Recording)
     out = str(tmp_path / "beams.wav")
-    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", str(tmp_path), "-o", out, "-d", "cpu",
+    main(["HELLO WORLD.", "-v", PROMPT, "-c", cfg_path, "--model_dir", ckpt_dir, "-o", out, "-d", "cpu",
           "--fast-latents"])
     assert flags == [True] and [g.num_beams for g in gens] == [3] and os.path.getsize(out) > 44
