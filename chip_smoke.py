@@ -97,7 +97,9 @@ Phases, in order; any failure exits non-zero:
                infer_batch and infer_slots against per-request infer on both
                devices, a vocoder call under INDEXTTS_FUSED_AA=1 (K4 on the
                card, its plain version on the CPU), infer_fast on int8
-               weights with the int8 KV cache, and one tiny reference-format
+               weights with the int8 KV cache, greedy inference_speech with
+               an 8-code forced prefix and two return sequences (codes
+               equal), and one tiny reference-format
                checkpoint directory loaded on both (greedy codes equal, wav
                within 1 int16 unit);
      ckpt    — the published width started from a reference-format
@@ -115,13 +117,33 @@ Phases, in order; any failure exits non-zero:
                streaming request, and 4 concurrent num_beams=1 requests through
                the slot session, each timed; K1 109 launches per vocoder
                call; the directory is deleted at the end;
+     legacy  — the GPT code off the engine's default path at the published
+               GPT widths, bf16: for condition_type "perceiver" and "default"
+               an engine (random init, each AttentionBlock's proj_out set to
+               seeded non-zero values), a greedy 100-code infer (K1 109
+               launches per vocoder call) and get_conditioning against the
+               CPU in float32 (LEGACY_COND_RTOL); on the flagship,
+               inference_speech with an 8-code prefix and 2 return
+               sequences, greedy (max_new capped at max_mel_tokens - 9) and
+               with 3 beams; unified_voice_forward(return_latent=False) on
+               200 teacher-forced codes, losses against the CPU's in float32
+               (LEGACY_LOSS_RTOL), with times;
+     fidelity — tools/eval_fidelity.py's loop on the port at the published
+               widths: bigvgan_discriminator.pth (tests/make_torch_ckpt.py)
+               and a dvae.pth written from the port's seeded DVAE under
+               build/, a flagship greedy 100-code infer as the resynthesized
+               wav (K1 109 launches per vocoder call), then
+               indextts_tpu_torch.eval_fidelity.main on the card and on the
+               CPU (float32, TF32 off): both JSON reports, the DVAE round
+               trip's and MPD + MRD's device-synchronized ms, DVAE codes
+               equal, losses within FIDELITY_RTOL;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
-small, ckpt) runs
+small, ckpt, legacy, fidelity) runs
 only those phases after the build, for work on one of them, with the per
 vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
 final line, and exits 3. In the kernels line `ms` is a kernel's own device
@@ -1639,6 +1661,24 @@ def small_phase(card: str) -> dict:
         f"wav {wav8_gpu.shape} max |gpu - cpu| = {diff8} int16 units [{card}]")
     if not same8 or wav8_gpu.shape != wav8_cpu.shape or diff8 > 8 or max(batches) < 2:
         raise AssertionError("the card's int8 infer_fast disagrees with the CPU's at tiny width")
+    # greedy inference_speech with a forced 8-code prefix and two return
+    # sequences, token for token on the card and the CPU
+    from indextts_tpu_torch.models.gpt_decode import inference_speech
+
+    prompt = gpu.extract_features(PROMPT)
+    mel = torch.from_numpy(np.ascontiguousarray(prompt[0].T[None]))
+    text, prefix = torch.tensor([[5, 6, 7, 8, 9, 10]]), torch.tensor([[3, 4, 5, 6, 7, 8, 9, 10]])
+    prefixed = {}
+    for dev, e in (("cuda", gpu), ("cpu", cpu)):
+        res = inference_speech(e.gpt, e.cfg.gpt, mel.to(dev), text.to(dev), torch.tensor([6], device=dev),
+                               input_tokens=prefix.to(dev), num_return_sequences=2, do_sample=False,
+                               max_generate_length=16)
+        prefixed[dev] = tuple(t.cpu().numpy() for t in res)
+    same_p = all(np.array_equal(a, b) for a, b in zip(prefixed["cuda"], prefixed["cpu"]))
+    log(f"[small] tiny f32 greedy inference_speech, 8-code prefix, 2 sequences: codes equal {same_p} "
+        f"({prefixed['cuda'][0][0, :12].tolist()}..., lengths {prefixed['cuda'][1].tolist()}) [{card}]")
+    if not same_p or prefixed["cuda"][0].shape != (2, 16):
+        raise AssertionError("the card's prefixed inference_speech disagrees with the CPU's at tiny width")
     # one tiny reference-format checkpoint directory loaded on the card and on the CPU
     with tempfile.TemporaryDirectory() as d:
         write_checkpoint_dir(tiny_config(), d)
@@ -1666,6 +1706,7 @@ def small_phase(card: str) -> dict:
     if not same_c or wc.shape != wp.shape or not 0 <= diff_c <= 1:
         raise AssertionError("the card's engine disagrees with the CPU's on a tiny checkpoint directory")
     return {"codes_equal": same, "wav_max_abs_diff_int16": diff, "samples": int(wav_gpu.shape[0]),
+            "inference_speech_prefix": {"codes_equal": same_p, "lengths": prefixed["cuda"][1].tolist()},
             "checkpoint_dir": {"codes_equal": same_c, "wav_max_abs_diff_int16": diff_c, "samples": int(wc.shape[0])},
             "beams_wide_branch": {"codes_equal": same_b, "wav_max_abs_diff_int16": diff_b, "k2_launches": k2_calls,
                                   "samples": int(wavb_gpu.shape[0])},
@@ -1696,6 +1737,19 @@ def like_random_init(sd: dict) -> None:
             v.mul_(0.02 / 0.05)
 
 
+def make_torch_ckpt():
+    """tests/make_torch_ckpt.py, loaded by its path: `tests` is a namespace
+    package here, and a regular package of that name elsewhere on sys.path
+    would shadow it. Its GPT, BigVGAN and discriminator state dicts need torch
+    alone (its DVAE one needs jax, which the card's machine lacks)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_torch_ckpt", os.path.join(REPO, "tests", "make_torch_ckpt.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    return make
+
+
 def write_checkpoint_dir(cfg, d: str, stop_bias=None, scale=False) -> tuple:
     """A reference-format checkpoint directory for `cfg` (the port's config
     objects) under `d`: gpt.pth and bigvgan_generator.pth from
@@ -1706,16 +1760,10 @@ def write_checkpoint_dir(cfg, d: str, stop_bias=None, scale=False) -> tuple:
     two state dicts."""
     import torch
 
-    import importlib.util
-
     from indextts_tpu_torch.config import save_config
     from indextts_tpu_torch.utils.spm import build_vocab_from_pieces, serialize_model_proto
 
-    # by its path: `tests` is a namespace package here, and a regular package of
-    # that name elsewhere on sys.path would shadow it
-    spec = importlib.util.spec_from_file_location("make_torch_ckpt", os.path.join(REPO, "tests", "make_torch_ckpt.py"))
-    make = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(make)
+    make = make_torch_ckpt()
     os.makedirs(d, exist_ok=True)
     gpt_sd = make.make_gpt_state_dict(cfg.gpt)
     bigvgan_sd = make.make_bigvgan_state_dict(cfg.bigvgan)
@@ -2020,6 +2068,357 @@ def ckpt_phase(card: str) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# the device of the legacy and fidelity phases (a CPU rehearsal sets "cpu")
+DEVICE = "cuda"
+
+
+def activations_per_call(h) -> int:
+    """K1 launches per vocoder call on the default route: two activations per
+    dilation in each AMPBlock1, per resblock, per stage, plus activation_post
+    (109 at the published widths)."""
+    return len(h.upsample_rates) * sum(2 * len(d) for d in h.resblock_dilation_sizes) + 1
+
+
+# tolerances of the legacy phase: the card's bf16 against the CPU's float32 on
+# the same (bf16-rounded) weights. Conditioning: max |card - cpu| over the
+# latents within this share of max |cpu|; teacher-forced losses: relative.
+LEGACY_COND_RTOL = 5e-2
+LEGACY_LOSS_RTOL = 1e-2
+# fidelity phase, float32 on both with TF32 off: each loss and the round-trip
+# MSE relative to the CPU's
+FIDELITY_RTOL = 1e-3
+
+
+def recording_vocoder(engine) -> list:
+    """Wrap engine._vocode to record (codes, wav) of each vocoder call."""
+    calls = []
+    vocode = engine._vocode
+
+    def recording(latent, n_valid, prompt_mel):
+        wav = vocode(latent, n_valid, prompt_mel)
+        calls.append((n_valid, wav))
+        return wav
+
+    engine._vocode = recording
+    return calls
+
+
+def cpu_copy(model, cfg):
+    """A float32 CPU copy of a UnifiedVoice on the card: built on the meta
+    device and given the card's (bf16) tensors, so nothing is initialized
+    twice."""
+    import torch
+
+    from indextts_tpu_torch.models.gpt import UnifiedVoice
+
+    with torch.device("meta"):
+        cpu = UnifiedVoice(cfg)
+    cpu.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()}, assign=True)
+    return cpu.eval().requires_grad_(False)
+
+
+def legacy_phase(card: str) -> dict:
+    """The GPT's code off the engine's default path, at the published GPT
+    widths (configs/indextts_1_5.yaml: 24 x 1280, 20 heads), random weights
+    from a fixed seed, bf16. For condition_type "perceiver" and "default" (a
+    temporary config): an engine, a greedy 100-code infer (K1 109 launches per
+    vocoder call), and get_conditioning on the card against the CPU in
+    float32 on the same weights, each AttentionBlock's proj_out set to seeded
+    non-zero values first (the init zeroes it: the block would be the
+    identity). On the conformer_perceiver flagship: inference_speech with an
+    8-code forced prefix and num_return_sequences=2, greedy (max_new capped
+    at max_mel_tokens - 1 - 8) and with num_beams=3; then
+    unified_voice_forward(return_latent=False) on a 200-code teacher-forced
+    row, the card's losses against the CPU's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.config import load_config, save_config
+    from indextts_tpu_torch.engine import IndexTTS
+    from indextts_tpu_torch.models.gpt import get_conditioning, unified_voice_forward
+    from indextts_tpu_torch.models.gpt_decode import inference_speech
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+
+    out = {"conditioning": {}}
+    k1_launches, vocoder_calls = 0, 0
+    for ct in ("perceiver", "default"):
+        cfg = load_config(FLAGSHIP)
+        cfg.gpt.condition_type = ct
+        with tempfile.TemporaryDirectory() as d:
+            cfg_path = os.path.join(d, "config.yaml")
+            save_config(cfg, cfg_path)
+            engine = IndexTTS(cfg_path=cfg_path, model_dir=os.path.join(REPO, "configs"), is_fp16=True,
+                              device=DEVICE, allow_random_init=True, seed=0)
+        g = torch.Generator(device=DEVICE).manual_seed(1)
+        with torch.no_grad():
+            for blk in engine.gpt.conditioning_encoder.attn:
+                c = blk.proj_out.weight.shape[0]
+                blk.proj_out.weight.copy_(torch.randn(c, c, device=DEVICE, generator=g) / math.sqrt(c))
+                blk.proj_out.bias.copy_(0.1 * torch.randn(c, device=DEVICE, generator=g))
+        calls = recording_vocoder(engine)
+        k1.launches = 0  # the main path's run starts here
+        t = time.perf_counter()
+        engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, num_beams=1, max_mel_tokens=100)
+        infer_s = time.perf_counter() - t
+        launches, n_calls = k1.launches, len(calls)
+        n_codes = sum(n for n, _ in calls)
+        per_call = activations_per_call(engine.cfg.bigvgan)
+        if n_calls < 1 or launches != per_call * n_calls or not all(np.isfinite(w).all() for _, w in calls):
+            raise AssertionError(f"{ct}: K1 launched {launches} times over {n_calls} vocoder calls "
+                                 f"(want {per_call} each)")
+        k1_launches += launches
+        vocoder_calls += n_calls
+
+        # get_conditioning: the card (bf16) against the CPU (float32), same weights
+        prompt = engine.extract_features(PROMPT)  # [1, 100, frames]
+        mel = torch.from_numpy(np.ascontiguousarray(prompt[0].T[None]))
+        lens = torch.tensor([mel.shape[1]])
+        cpu = cpu_copy(engine.gpt, engine.cfg.gpt)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = get_conditioning(engine.gpt, engine.cfg.gpt, mel.to(DEVICE, engine.dtype), lens.to(DEVICE))
+            torch.cuda.synchronize()
+            cond_ms = 1e3 * (time.perf_counter() - t)
+            want = get_conditioning(cpu, engine.cfg.gpt, mel, lens)
+        err = float((got.float().cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        ok = got.shape == want.shape and np.isfinite(err) and err <= LEGACY_COND_RTOL * scale
+        out["conditioning"][ct] = {"shape": list(got.shape), "max_abs_err": err, "max_abs_cpu": scale,
+                                   "tolerance": LEGACY_COND_RTOL * scale, "card_ms": cond_ms, "codes": n_codes,
+                                   "infer_s": infer_s, "k1_launches": launches, "vocoder_calls": n_calls}
+        log(f"[legacy] {ct}: greedy infer {n_codes} codes in {infer_s:.2f} s, K1 {launches} launches over {n_calls} "
+            f"vocoder call(s); get_conditioning {tuple(got.shape)} {cond_ms:.2f} ms on the card (bf16), max |card - "
+            f"cpu f32| = {err:.4g} (tolerance {LEGACY_COND_RTOL} x max|cpu| = {LEGACY_COND_RTOL * scale:.4g}) [{card}]")
+        if not ok:
+            raise AssertionError(f"{ct}: the card's conditioning disagrees with the CPU's")
+        del engine, cpu
+        torch.cuda.empty_cache()
+
+    # the flagship: forced prefixes through inference_speech
+    engine = flagship_engine()
+    cfg = engine.cfg.gpt
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    prompt = engine.extract_features(PROMPT)
+    mel = torch.from_numpy(np.ascontiguousarray(prompt[0].T[None])).to(DEVICE, engine.dtype)
+    text = torch.randint(2, cfg.number_text_tokens, (1, 12), device=DEVICE, generator=g)
+    tlens = torch.tensor([12], device=DEVICE)
+    prefix = torch.randint(0, cfg.start_mel_token, (1, 8), device=DEVICE, generator=g)
+    runs = {}
+    for name, kw in (("greedy", dict(max_generate_length=cfg.max_mel_tokens)),
+                     ("beams3", dict(num_beams=3, max_generate_length=100))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes, lengths = inference_speech(engine.gpt, cfg, mel, text, tlens, input_tokens=prefix,
+                                          num_return_sequences=2, do_sample=False,
+                                          generator=torch.Generator(device=DEVICE).manual_seed(0), **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        want_new = min(kw["max_generate_length"], cfg.max_mel_tokens - 1 - prefix.shape[1])
+        codes = codes.cpu().numpy()
+        ok = codes.shape == (2, want_new) and ((codes >= 0) & (codes < cfg.number_mel_codes)).all()
+        if name == "greedy":
+            ok = ok and np.array_equal(codes[0], codes[1])  # greedy tiled rows are copies
+        runs[name] = {"shape": list(codes.shape), "max_new": want_new, "lengths": lengths.tolist(), "s": s}
+        log(f"[legacy] inference_speech {name}, 8-code prefix, num_return_sequences=2: codes {codes.shape} "
+            f"(max_new {want_new} = min({kw['max_generate_length']}, max_mel_tokens {cfg.max_mel_tokens} - 1 - 8)), "
+            f"lengths {lengths.tolist()}, {s:.2f} s [{card}]")
+        if not ok:
+            raise AssertionError(f"inference_speech {name}: codes {codes.shape}, want (2, {want_new})")
+    out["inference_speech"] = runs
+
+    # teacher-forced losses on a 200-code row: the card (bf16) against the CPU (float32)
+    codes = torch.randint(0, cfg.start_mel_token, (1, 200), device=DEVICE, generator=g)
+    wav_lens = torch.tensor([200 * cfg.mel_length_compression], device=DEVICE)
+    lens = torch.tensor([mel.shape[1]], device=DEVICE)
+    fwd = dict(speech_conditioning_mel=mel, cond_mel_lengths=lens, return_latent=False)
+    with torch.no_grad():
+        unified_voice_forward(engine.gpt, cfg, text, tlens, codes, wav_lens, **fwd)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss_text, loss_mel, logits = unified_voice_forward(engine.gpt, cfg, text, tlens, codes, wav_lens, **fwd)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t)
+        cpu = cpu_copy(engine.gpt, cfg)
+        cpu_args = [x.cpu() for x in (text, tlens, codes, wav_lens)]
+        t = time.perf_counter()
+        want = unified_voice_forward(cpu, cfg, *cpu_args, speech_conditioning_mel=mel.float().cpu(),
+                                     cond_mel_lengths=lens.cpu(), return_latent=False)
+        cpu_ms = 1e3 * (time.perf_counter() - t)
+    losses = {"text": (float(loss_text), float(want[0])), "mel": (float(loss_mel), float(want[1]))}
+    rel = {k: abs(a - b) / abs(b) for k, (a, b) in losses.items()}
+    logit_err = float((logits.float().cpu() - want[2]).abs().max())
+    out["teacher_forced"] = {"codes": 200, "losses_card_cpu": losses, "rel_err": rel, "tolerance": LEGACY_LOSS_RTOL,
+                             "mel_logits_shape": list(logits.shape), "mel_logits_max_abs_err": logit_err,
+                             "card_ms": card_ms, "cpu_ms": cpu_ms}
+    log(f"[legacy] unified_voice_forward(return_latent=False), 200 codes: loss_text {losses['text'][0]:.5f} (cpu "
+        f"{losses['text'][1]:.5f}), loss_mel {losses['mel'][0]:.5f} (cpu {losses['mel'][1]:.5f}), rel err "
+        f"{max(rel.values()):.3g} (tolerance {LEGACY_LOSS_RTOL}); mel_logits {tuple(logits.shape)} max |card - cpu| "
+        f"{logit_err:.4g}; {card_ms:.2f} ms on the card (bf16), {cpu_ms:.0f} ms on the CPU (f32) [{card}]")
+    if logits.shape != (1, cfg.number_mel_codes, 202) or not max(rel.values()) <= LEGACY_LOSS_RTOL:
+        raise AssertionError("the card's teacher-forced losses disagree with the CPU's")
+    out["k1_launches"], out["vocoder_calls"] = k1_launches, vocoder_calls
+    return out
+
+
+def dvae_state_dict(model) -> dict:
+    """A DiscreteVAE's weights as the reference's dvae.pth names them (the
+    Sequential indices convert_dvae reads, xtts_dvae.py:251-291): the inverse
+    of convert_dvae, with torch alone."""
+    cfg = model.cfg
+    L, R = cfg.num_layers, cfg.num_resnet_blocks
+    sd = {}
+
+    def conv(prefix, m):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = m.weight.detach().clone(), m.bias.detach().clone()
+
+    def res(prefix, blk):
+        for i, m in zip((0, 2, 4), (blk.conv0, blk.conv1, blk.conv2)):
+            conv(f"{prefix}.net.{i}", m)
+
+    for i, m in enumerate(model.enc_convs):
+        conv(f"encoder.{i}.0", m)
+    for r, blk in enumerate(model.enc_res):
+        res(f"encoder.{L + r}", blk)
+    conv(f"encoder.{L + R}", model.enc_out)
+    dec_off = 1 if R > 0 else 0
+    if R > 0:
+        conv("decoder.0", model.dec_in)
+    for r, blk in enumerate(model.dec_res):
+        res(f"decoder.{dec_off + r}", blk)
+    for i, m in enumerate(model.dec_convs):
+        conv(f"decoder.{dec_off + R + i}.0.conv", m)
+    conv(f"decoder.{dec_off + R + L}", model.dec_out)
+    for k in ("embed", "cluster_size", "embed_avg"):
+        sd[f"codebook.{k}"] = getattr(model.codebook, k).clone()
+    return sd
+
+
+def fidelity_profiles(args: list) -> dict:
+    """The device side of eval_fidelity's two stages, on the inputs and
+    checkpoints `args` name: host ms of one warm call (synchronized, the least
+    of three), device ms and kernels under torch.profiler, device-idle share."""
+    import torch
+
+    from indextts_tpu_torch import eval_fidelity as ef
+
+    f = ef.load(ef.parse_args(args + ["-d", "cuda"]))
+    out = {}
+    for name, call in (("DVAE round trip", lambda: ef.dvae_round_trip(f)),
+                       ("MPD + MRD", lambda: ef.discriminator_losses(f))):
+        call()
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t))
+        prof = device_profile(call, 1)
+        out[name] = {"host_ms": min(host), "host_ms_runs": host}
+        if prof is not None:
+            out[name].update(device_ms=prof["call_ms"], kernels=prof["kernels"],
+                             device_idle_share=1.0 - prof["call_ms"] / min(host))
+    return out
+
+
+def fidelity_phase(card: str) -> dict:
+    """The fidelity loop (tools/eval_fidelity.py, BASELINE config #5) on the
+    port at the published widths: a checkpoint directory under build/ with
+    bigvgan_discriminator.pth (tests/make_torch_ckpt.py, BigVGANConfig
+    defaults: channel mult 1.0, periods 2, 3, 5, 7, 11, three resolutions)
+    and a dvae.pth at the DVAEConfig defaults (80 channels, 8192 codes, 512
+    dims, 2 layers, 3 resblocks), written from the port's seeded random init
+    through dvae_state_dict; a flagship greedy infer of 100 codes on
+    tests/sample_prompt.wav (K1 109 launches per vocoder call) as --wav_hat;
+    then eval_fidelity.main on the card (twice: the second run's times are
+    the warm ones) and with -d cpu, float32, TF32 off: the DVAE codes equal,
+    dvae_codes_used equal, the round-trip MSE and the four losses within
+    FIDELITY_RTOL; then each stage once under torch.profiler
+    (fidelity_profiles)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch import eval_fidelity
+    from indextts_tpu_torch.config import BigVGANConfig, DVAEConfig
+    from indextts_tpu_torch.models.dvae import DiscreteVAE
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+
+    d = os.path.join(REPO, "build", "fidelity_phase")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        t = time.perf_counter()
+        torch.save(make_torch_ckpt().make_discriminator_state_dict(BigVGANConfig()),
+                   os.path.join(d, "bigvgan_discriminator.pth"))
+        dvae = DiscreteVAE(DVAEConfig())
+        dvae.reset_parameters(torch.Generator().manual_seed(3))
+        torch.save(dvae_state_dict(dvae), os.path.join(d, "dvae.pth"))
+        sizes = {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))}
+        log(f"[fidelity] wrote {d}: {sizes} in {time.perf_counter() - t:.1f} s (dvae.pth from the port's seeded "
+            f"random init, inverted through dvae_state_dict)")
+
+        engine = flagship_engine()
+        calls = recording_vocoder(engine)
+        hat = os.path.join(d, "resynth.wav")
+        k1.launches = 0  # the main path's run starts here
+        engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", output_path=hat, do_sample=False, num_beams=1,
+                     max_mel_tokens=100)
+        launches, n_calls = k1.launches, len(calls)
+        n_codes = sum(n for n, _ in calls)
+        per_call = activations_per_call(engine.cfg.bigvgan)
+        log(f"[fidelity] flagship greedy infer: {n_codes} codes -> {hat}; K1 {launches} launches over {n_calls} "
+            f"vocoder call(s) [{card}]")
+        if n_calls < 1 or launches != per_call * n_calls:
+            raise AssertionError(f"K1 launched {launches} times over {n_calls} vocoder calls (want {per_call} each)")
+        del engine
+        torch.cuda.empty_cache()
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        args = ["--wav", PROMPT, "--wav_hat", hat, "--model_dir", d]
+        runs = {}
+        for name, dev in (("cuda_cold", DEVICE), ("cuda", DEVICE), ("cpu", "cpu")):
+            report, extras = eval_fidelity.main(args + ["-d", dev])
+            runs[name] = (report, extras)
+            log(f"[fidelity] eval_fidelity -d {dev} ({name}): DVAE round trip {extras['dvae_ms']:.2f} ms "
+                f"({extras['mel_frames']} mel frames), MPD + MRD {extras['disc_ms']:.2f} ms ({extras['samples']} "
+                f"samples), device-synchronized [{card}]")
+        (rep_g, ext_g), (rep_c, ext_c) = runs["cuda"], runs["cpu"]
+        codes_equal = np.array_equal(ext_g["codes"], ext_c["codes"])
+        names = ("mpd_disc_loss", "mrd_disc_loss", "mpd_feature_loss", "mrd_feature_loss")
+        values = dict(zip(names, zip(ext_g["losses"], ext_c["losses"])))
+        values["dvae_round_trip_mse"] = (rep_g["dvae_round_trip_mse"], rep_c["dvae_round_trip_mse"])
+        rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in values.items()}
+        log(f"[fidelity] card vs cpu: codes equal {codes_equal} ({ext_g['codes'].shape[1]} codes, "
+            f"{rep_g['dvae_codes_used']} / {rep_c['dvae_codes_used']} used), max rel err {max(rel.values()):.3g} "
+            f"(tolerance {FIDELITY_RTOL}) [{card}]")
+        ok = (codes_equal and rep_g["dvae_codes_used"] == rep_c["dvae_codes_used"]
+              and max(rel.values()) <= FIDELITY_RTOL
+              and rep_g["dvae_weights"] == rep_c["dvae_weights"] == os.path.join(d, "dvae.pth")
+              and rep_g["discriminator_weights"] == os.path.join(d, "bigvgan_discriminator.pth"))
+        if not ok:
+            raise AssertionError(f"the card's fidelity report disagrees with the CPU's: {rep_g} vs {rep_c}")
+        profiles = fidelity_profiles(args) if DEVICE == "cuda" else {}
+        for name, v in profiles.items():
+            log(f"[fidelity] one {name} call under torch.profiler: host {v['host_ms']:.2f} ms, " + (
+                f"device {v['device_ms']:.3f} ms in {v['kernels']:.0f} kernels, device idle "
+                f"{100 * v['device_idle_share']:.1f} %" if "device_ms" in v else "device not measured") + f" [{card}]")
+        return {"reports": {"cuda": rep_g, "cpu": rep_c}, "rel_err": rel, "tolerance": FIDELITY_RTOL,
+                "profiles": profiles,
+                "codes_equal": codes_equal, "codes": int(ext_g["codes"].shape[1]),
+                "dvae_ms": {k: v[1]["dvae_ms"] for k, v in runs.items()},
+                "disc_ms": {k: v[1]["disc_ms"] for k, v in runs.items()},
+                "samples": ext_g["samples"], "mel_frames": ext_g["mel_frames"], "wav_hat_codes": n_codes,
+                "k1_launches": launches, "vocoder_calls": n_calls}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def activation_bound(stages, calls_per_stage: int, extra=()):
     """The least time the card could take for the anti-aliased activations of
     one vocoder call (bf16, B = 1): `calls_per_stage` calls at each (label, C,
@@ -2108,7 +2507,8 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
     return out
 
 
-PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt")
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt", "legacy",
+          "fidelity")
 
 
 def main(argv) -> int:
@@ -2155,7 +2555,8 @@ def main(argv) -> int:
 
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
-                 "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase}
+                 "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
+                 "fidelity": fidelity_phase}
     if only is not None:
         summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
@@ -2176,6 +2577,8 @@ def main(argv) -> int:
     int8 = int8_phase(card)
     small = small_phase(card)
     ckpt = ckpt_phase(card)
+    legacy = legacy_phase(card)
+    fidelity = fidelity_phase(card)
 
     layers = load_config(FLAGSHIP).gpt.layers
 
@@ -2250,6 +2653,8 @@ def main(argv) -> int:
         "int8": int8,
         "small": small,
         "ckpt": ckpt,
+        "legacy": legacy,
+        "fidelity": fidelity,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"), "w") as f:
@@ -2260,6 +2665,7 @@ def main(argv) -> int:
     kernels = [{
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": ckpt["k1_launches"], "launches_engine_phase": eng["k1_launches"],
+        "launches_legacy_phase": legacy["k1_launches"], "launches_fidelity_phase": fidelity["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": k1_per_voc["k1"], "plain_ms": k1_per_voc["plain"],
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "call_ms": k1_per_voc["call"],

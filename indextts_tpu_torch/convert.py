@@ -8,11 +8,9 @@ those names onto the JAX package's tree layout (linear [in, out], conv
 numpy arrays, so that the engine loads a checkpoint with
 weights.load_jax_params, the same bridge the parity tests use. Converted trees
 are cached as <checkpoint>.npz, with the JAX package's key format: a cache
-written by either package loads in the other.
-
-Not ported yet (ROADMAP.md, Queue 1): the legacy conditioning encoder of the
-"perceiver" / "default" condition types (item 4), and the DVAE and
-discriminator converters (item 5), with their models.
+written by either package loads in the other. Covered: gpt.pth (all four
+condition types), bigvgan_generator.pth, dvae.pth and
+bigvgan_discriminator.pth.
 """
 
 from __future__ import annotations
@@ -21,7 +19,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from indextts_tpu_torch.config import BigVGANConfig, GPTConfig
+from indextts_tpu_torch.config import BigVGANConfig, DVAEConfig, GPTConfig
 from indextts_tpu_torch.ops.conv import weight_norm_fold
 
 
@@ -216,11 +214,6 @@ def _convert_perceiver(sd: Dict[str, np.ndarray], cfg: GPTConfig) -> Dict[str, A
 def convert_unified_voice(sd: Dict[str, np.ndarray], cfg: GPTConfig) -> Dict[str, Any]:
     """UnifiedVoice state dict (gpt.pth) -> the JAX package's params tree of
     models/gpt.py, which weights.load_jax_params copies into UnifiedVoice."""
-    if cfg.condition_type in ("perceiver", "default"):
-        raise NotImplementedError(
-            f"condition_type={cfg.condition_type!r}: the legacy conditioning encoder is not ported "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
     params: Dict[str, Any] = {
         "text_embedding": sd["text_embedding.weight"],
         "mel_embedding": sd["mel_embedding.weight"],
@@ -238,6 +231,34 @@ def convert_unified_voice(sd: Dict[str, np.ndarray], cfg: GPTConfig) -> Dict[str
         params["conditioning_encoder"] = _convert_conformer(sd, cfg)
         if cfg.condition_type == "conformer_perceiver":
             params["perceiver_encoder"] = _convert_perceiver(sd, cfg)
+    elif cfg.condition_type in ("perceiver", "default"):
+        params["conditioning_encoder"] = _convert_legacy_conditioning(sd)
+        if cfg.condition_type == "perceiver":
+            params["perceiver_encoder"] = _convert_perceiver(sd, cfg)
+    return params
+
+
+def _convert_legacy_conditioning(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """AttentionBlock-stack ConditioningEncoder (model.py:210-234,
+    arch_util.py:78-120). 1x1 convs become [Cin, Cout] matrices."""
+    pfx = "conditioning_encoder"
+
+    def conv1x1(prefix):
+        return {"weight": np.ascontiguousarray(sd[f"{prefix}.weight"][:, :, 0].T), "bias": sd[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {"init": conv1x1(f"{pfx}.init"), "attn": []}
+    i = 0
+    while f"{pfx}.attn.{i}.qkv.weight" in sd:
+        blk = {
+            "norm": _ln(sd, f"{pfx}.attn.{i}.norm"),
+            "qkv": conv1x1(f"{pfx}.attn.{i}.qkv"),
+            "proj_out": conv1x1(f"{pfx}.attn.{i}.proj_out"),
+        }
+        rp_key = f"{pfx}.attn.{i}.relative_pos_embeddings.relative_attention_bias.weight"
+        if rp_key in sd:
+            blk["rel_pos"] = {"emb": sd[rp_key]}
+        params["attn"].append(blk)
+        i += 1
     return params
 
 
@@ -318,6 +339,90 @@ def convert_bigvgan(sd: Dict[str, np.ndarray], h: BigVGANConfig) -> Dict[str, An
         block["acts"] = [_snake(sd, f"{rp}.activations.{j}.act") for j in range(n_acts)]
         params["resblocks"].append(block)
     return params
+
+
+# ---------------------------------------------------------------------------
+# DVAE
+# ---------------------------------------------------------------------------
+
+
+def convert_dvae(sd: Dict[str, np.ndarray], cfg: DVAEConfig) -> Dict[str, Any]:
+    """DiscreteVAE state dict (dvae.pth) -> the JAX package's params tree of
+    models/dvae.py, which weights.load_jax_params copies into DiscreteVAE.
+
+    Reference Sequential indices (xtts_dvae.py:251-291, positional_dims=1,
+    use_transposed_convs=False): encoder = [L strided (conv, act) blocks] +
+    [R ResBlocks] + [1x1 out conv]; decoder = [1x1 in conv (when R > 0)] +
+    [R ResBlocks] + [L (UpsampledConv, act) blocks] + [1x1 out conv].
+    Codebook buffers embed / cluster_size / embed_avg (xtts_dvae.py:66-69).
+    """
+    L, R = cfg.num_layers, cfg.num_resnet_blocks
+
+    def conv(prefix):
+        return {"weight": _conv_w(sd[f"{prefix}.weight"]), "bias": sd[f"{prefix}.bias"]}
+
+    def res(prefix):
+        return {"conv0": conv(f"{prefix}.net.0"), "conv1": conv(f"{prefix}.net.2"), "conv2": conv(f"{prefix}.net.4")}
+
+    dec_off = 1 if R > 0 else 0
+    params: Dict[str, Any] = {
+        "enc_convs": [conv(f"encoder.{i}.0") for i in range(L)],
+        "enc_res": [res(f"encoder.{L + r}") for r in range(R)],
+        "enc_out": conv(f"encoder.{L + R}"),
+        "dec_res": [res(f"decoder.{dec_off + r}") for r in range(R)],
+        "dec_convs": [conv(f"decoder.{dec_off + R + i}.0.conv") for i in range(L)],
+        "dec_out": conv(f"decoder.{dec_off + R + L}"),
+        "codebook": {
+            "embed": sd["codebook.embed"],
+            "cluster_size": sd["codebook.cluster_size"],
+            "embed_avg": sd["codebook.embed_avg"],
+        },
+    }
+    if R > 0:
+        params["dec_in"] = conv("decoder.0")
+    return params
+
+
+# ---------------------------------------------------------------------------
+# BigVGAN discriminators (bigvgan_discriminator.pth)
+# ---------------------------------------------------------------------------
+
+
+def _folded_conv2d(sd: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    """Weight-normed torch Conv2d -> folded conv params in the JAX layout
+    [Kh, Kw, Cin, Cout] (the resolution chain of _folded_conv)."""
+    out = {"weight": _conv2d_w(_wn_folded_weight(sd, prefix))}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = sd[f"{prefix}.bias"]
+    return out
+
+
+def convert_discriminator(sd: Dict[str, Any], h: BigVGANConfig) -> Dict[str, Any]:
+    """bigvgan_discriminator.pth -> {"mpd": ..., "mrd": ...}, the JAX
+    package's trees of models/bigvgan.py's mpd_apply / mrd_apply, which
+    weights.load_jax_params copies into MultiPeriodDiscriminator /
+    MultiResolutionDiscriminator.
+
+    Takes the nested training-checkpoint layout ({"mpd": state_dict, "mrd":
+    state_dict}, upstream BigVGAN's convention) or a flat state dict with
+    "mpd." / "mrd." key prefixes. Weight norm is folded (DiscriminatorP's
+    convs are (K, 1) weight-normed Conv2ds, DiscriminatorR's (3, 9) / (3, 3)
+    Conv2ds over the magnitude STFT; models.py:278-417)."""
+    if "mpd" in sd and isinstance(sd["mpd"], dict):
+        sd = {f"{mod}.{k}": np.asarray(v) for mod in ("mpd", "mrd") for k, v in sd[mod].items()}
+
+    def one(mod, i):
+        p = f"{mod}.discriminators.{i}"
+        n_convs = len([k for k in sd if k.startswith(f"{p}.convs.") and k.endswith(".bias")])
+        return {
+            "convs": [_folded_conv2d(sd, f"{p}.convs.{j}") for j in range(n_convs)],
+            "conv_post": _folded_conv2d(sd, f"{p}.conv_post"),
+        }
+
+    return {
+        "mpd": {"discriminators": [one("mpd", i) for i in range(len(h.mpd_reshapes))]},
+        "mrd": {"discriminators": [one("mrd", i) for i in range(len(h.resolutions))]},
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -452,7 +452,7 @@ class IndexTTS:
             torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
             torch.from_numpy(codes_p).to(dev),
             torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
-            conds.expand(b, -1, -1).to(self.dtype),
+            conds=conds.expand(b, -1, -1).to(self.dtype), mask_pad_keys=True,
         )
 
     def _gpt_latent_many(self, rows) -> List[torch.Tensor]:

@@ -1,5 +1,5 @@
-"""BigVGAN2 vocoder generator (port of indextts_tpu/models/bigvgan.py,
-generator only).
+"""BigVGAN2 vocoder generator, and its discriminators and GAN losses
+(port of indextts_tpu/models/bigvgan.py).
 
 Behavioral reference: indextts/BigVGAN/models.py:201-250 — latent ->
 waveform with ECAPA speaker conditioning at conv_pre and every upsample stage,
@@ -28,6 +28,11 @@ package, where it never reaches the folded stages' activation. The JAX
 package's phase folding itself and its INDEXTTS_WIDE_POLY/PHASE and
 INDEXTTS_FOLD_* knobs are TPU layouts and are not ported (ROADMAP.md): the
 trunk stays [B, C, T].
+
+The multi-period (MPD) and multi-resolution (MRD) discriminators score a
+waveform [B, T, 1] for evaluation (models.py:278-417); they run in [B, C, H,
+W] and return their feature maps as [B, H, W, C] views, the JAX package's
+layout.
 """
 
 from __future__ import annotations
@@ -212,3 +217,169 @@ def bigvgan_apply(
         y = sum(rb(y, act, branch if wide_branch else None) for rb in blocks) / n_kernels
     y = model.conv_post(act(model.activation_post, y, resblock=False))
     return torch.tanh(y).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# discriminators (evaluation scoring; reference: models.py:278-417)
+# ---------------------------------------------------------------------------
+
+
+def _disc_init_(module: nn.Module, g: torch.Generator) -> None:
+    """The JAX _conv2d_init: weights U(+-1/sqrt(fan_in)), biases zero."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            uniform_(m.weight, 1.0 / math.sqrt(fan_in(m)), g)
+            nn.init.zeros_(m.bias)
+
+
+class DiscriminatorP(nn.Module):
+    """One period of the MPD: (5, 1) convs over the waveform viewed as
+    [T / period, period] (models.py:278-312)."""
+
+    def __init__(self, h: BigVGANConfig, kernel_size: int = 5):
+        super().__init__()
+        dm = h.discriminator_channel_mult
+        chans = [1, int(32 * dm), int(128 * dm), int(512 * dm), int(1024 * dm), int(1024 * dm)]
+        self.convs = nn.ModuleList(nn.Conv2d(chans[i], chans[i + 1], (kernel_size, 1)) for i in range(5))
+        self.conv_post = nn.Conv2d(chans[5], 1, (3, 1))
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    def __init__(self, h: BigVGANConfig):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorP(h) for _ in h.mpd_reshapes)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        _disc_init_(self, g)
+
+
+class DiscriminatorR(nn.Module):
+    """One resolution of the MRD: (3, 9) and (3, 3) convs over the magnitude
+    spectrogram (models.py:315-395)."""
+
+    def __init__(self, h: BigVGANConfig):
+        super().__init__()
+        c = int(32 * h.discriminator_channel_mult)
+        self.convs = nn.ModuleList(
+            [nn.Conv2d(1, c, (3, 9))] + [nn.Conv2d(c, c, (3, 9)) for _ in range(3)] + [nn.Conv2d(c, c, (3, 3))])
+        self.conv_post = nn.Conv2d(c, 1, (3, 3))
+
+
+class MultiResolutionDiscriminator(nn.Module):
+    def __init__(self, h: BigVGANConfig):
+        super().__init__()
+        self.discriminators = nn.ModuleList(DiscriminatorR(h) for _ in h.resolutions)
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        _disc_init_(self, g)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def discriminator_p_apply(d: DiscriminatorP, x: torch.Tensor, period: int, stride: int = 3):
+    """x: [B, T, 1] -> (score [B, N], feature maps). The waveform is
+    reflect-padded to a multiple of the period and viewed as [B, 1, T / p, p];
+    convs 0-3 stride (3, 1) with padding (2, 0), the last stride 1; leaky
+    ReLU 0.1 after each; conv_post padding (1, 0)."""
+    b, t, _ = x.shape
+    y = x[..., 0][:, None]  # [B, 1, T]
+    if t % period:
+        y = F.pad(y, (0, period - t % period), mode="reflect")
+    y = y.reshape(b, 1, -1, period)
+    fmap = []
+    for i, conv in enumerate(d.convs):
+        pad = ((conv.kernel_size[0] - 1) // 2, 0) if i < 4 else (2, 0)
+        y = F.leaky_relu(F.conv2d(y, conv.weight, conv.bias, stride=(stride, 1) if i < 4 else 1, padding=pad), 0.1)
+        fmap.append(_nhwc(y))
+    y = F.conv2d(y, d.conv_post.weight, d.conv_post.bias, padding=(1, 0))
+    fmap.append(_nhwc(y))
+    return y.reshape(b, -1), fmap
+
+
+def _stft_mag(x: torch.Tensor, n_fft: int, hop: int, win_length: int) -> torch.Tensor:
+    """Magnitude STFT [B, n_fft/2 + 1, frames], center=False, with the
+    RECTANGULAR window DiscriminatorR's torch.stft call gets when it passes
+    none (models.py:381-389): ones over win_length, zero-padded and centred
+    to n_fft."""
+    window = torch.ones(win_length, dtype=x.dtype, device=x.device)
+    return torch.stft(x, n_fft, hop_length=hop, win_length=win_length, window=window, center=False,
+                      return_complex=True).abs()
+
+
+def discriminator_r_apply(d: DiscriminatorR, x: torch.Tensor, resolution):
+    """x: [B, T, 1] -> (score [B, N], feature maps) at one (n_fft, hop,
+    win_length): reflect-pad by (n_fft - hop) / 2, the magnitude STFT as a
+    [B, 1, F, frames] image, convs padded (1, 4) (the last (1, 1)), strided
+    (1, 2) at convs 1-3, leaky ReLU 0.1; conv_post padding (1, 1)."""
+    n_fft, hop, win_length = resolution
+    pad = int((n_fft - hop) / 2)
+    y = F.pad(x[..., 0][:, None], (pad, pad), mode="reflect")[:, 0]
+    y = _stft_mag(y, n_fft, hop, win_length)[:, None]  # [B, 1, F, frames]
+    fmap = []
+    for i, conv in enumerate(d.convs):
+        stride, padding = ((1, 2) if 0 < i < 4 else 1), ((1, 4) if i < 4 else (1, 1))
+        y = F.leaky_relu(F.conv2d(y, conv.weight, conv.bias, stride=stride, padding=padding), 0.1)
+        fmap.append(_nhwc(y))
+    y = F.conv2d(y, d.conv_post.weight, d.conv_post.bias, padding=(1, 1))
+    fmap.append(_nhwc(y))
+    return y.reshape(y.shape[0], -1), fmap
+
+
+def _score_pairs(apply, discs, settings, y: torch.Tensor, y_hat: torch.Tensor):
+    y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
+    for d, setting in zip(discs, settings):
+        s_r, f_r = apply(d, y, setting)
+        s_g, f_g = apply(d, y_hat, setting)
+        y_d_rs.append(s_r)
+        y_d_gs.append(s_g)
+        fmap_rs.append(f_r)
+        fmap_gs.append(f_g)
+    return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+def mpd_apply(mpd: MultiPeriodDiscriminator, h: BigVGANConfig, y: torch.Tensor, y_hat: torch.Tensor):
+    """Real and generated [B, T, 1] through every period: (scores real,
+    scores generated, feature maps real, feature maps generated)."""
+    return _score_pairs(discriminator_p_apply, mpd.discriminators, h.mpd_reshapes, y, y_hat)
+
+
+def mrd_apply(mrd: MultiResolutionDiscriminator, h: BigVGANConfig, y: torch.Tensor, y_hat: torch.Tensor):
+    """mpd_apply's outputs over every resolution."""
+    return _score_pairs(discriminator_r_apply, mrd.discriminators, h.resolutions, y, y_hat)
+
+
+# ---------------------------------------------------------------------------
+# GAN losses (reference: models.py:420-451)
+# ---------------------------------------------------------------------------
+
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2
+
+
+def discriminator_loss(disc_real_outputs, disc_generated_outputs):
+    loss = 0.0
+    r_losses, g_losses = [], []
+    for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
+        r_loss = torch.mean((1 - dr) ** 2)
+        g_loss = torch.mean(dg**2)
+        loss = loss + r_loss + g_loss
+        r_losses.append(r_loss)
+        g_losses.append(g_loss)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outputs):
+    loss = 0.0
+    gen_losses = []
+    for dg in disc_outputs:
+        g_loss = torch.mean((1 - dg) ** 2)
+        gen_losses.append(g_loss)
+        loss = loss + g_loss
+    return loss, gen_losses

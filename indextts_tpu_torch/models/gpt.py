@@ -1,27 +1,33 @@
 """UnifiedVoice: the autoregressive speech-token LM
-(port of indextts_tpu/models/gpt.py, the conformer_perceiver model).
+(port of indextts_tpu/models/gpt.py).
 
 Behavioral reference: indextts/gpt/model.py:300-589 — text/mel embeddings with
 learned per-modality positional tables, a GPT-2 core whose own wte/wpe are
-unused, conformer + perceiver conditioning, and the teacher-forced pass that
-returns the vocoder latents. The GPT blocks are an nn.ModuleList run by a
-Python loop (the JAX package stacks them for lax.scan; the weight bridge
-unstacks them).
+unused, the conditioning encoders of the four condition types
+(conformer_perceiver, IndexTTS-1.5's; conformer_encoder; the legacy
+AttentionBlock stack with a perceiver, "perceiver", or mean-pooled,
+"default"), the MelEncoder input path, and the teacher-forced pass that
+returns the vocoder latents or the text / mel losses. The GPT blocks are an
+nn.ModuleList run by a Python loop (the JAX package stacks them for lax.scan;
+the weight bridge unstacks them).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.models.attention_block import ConditioningEncoder
 from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
-from indextts_tpu_torch.ops.norms import layer_norm
+from indextts_tpu_torch.ops.conv import conv1d
+from indextts_tpu_torch.ops.norms import group_norm, layer_norm
 from indextts_tpu_torch.weights import default_init_, normal_, uniform_
 
 NEG = torch.finfo(torch.float32).min
@@ -115,10 +121,6 @@ def gpt2_apply(gpt: GPT2, emb: torch.Tensor, heads: int, attention_mask: Optiona
 class UnifiedVoice(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.condition_type != "conformer_perceiver":
-            raise NotImplementedError(
-                f"condition_type={cfg.condition_type!r}: the port has IndexTTS-1.5's conformer_perceiver only"
-            )
         self.cfg = cfg
         d = cfg.model_dim
         n_text = cfg.number_text_tokens * cfg.types + 1
@@ -131,16 +133,38 @@ class UnifiedVoice(nn.Module):
         self.text_head = nn.Linear(d, n_text)
         self.mel_head = nn.Linear(d, cfg.number_mel_codes)
         cm = cfg.condition_module
-        self.conditioning_encoder = ConformerEncoder(cm, input_size=100)
-        self.perceiver_encoder = PerceiverResampler(
-            dim=d, dim_context=cm.output_size, num_latents=cfg.condition_num_latent,
-            heads=cm.attention_heads, ff_mult=cm.perceiver_mult,
-        )
+        self.perceiver_encoder = None
+        if cfg.condition_type in ("conformer_perceiver", "conformer_encoder"):
+            if cfg.condition_type == "conformer_encoder" and cm.output_size != d:
+                # without the perceiver the conformer's latents join the GPT's
+                # embedding stream as they are (model.py conditioning)
+                raise NotImplementedError(
+                    f"condition_type='conformer_encoder' needs condition_module.output_size == model_dim "
+                    f"({cm.output_size} != {d})"
+                )
+            self.conditioning_encoder = ConformerEncoder(cm, input_size=100)
+            if cfg.condition_type == "conformer_perceiver":
+                self.perceiver_encoder = PerceiverResampler(
+                    dim=d, dim_context=cm.output_size, num_latents=cfg.condition_num_latent,
+                    heads=cm.attention_heads, ff_mult=cm.perceiver_mult,
+                )
+        elif cfg.condition_type in ("perceiver", "default"):
+            # the legacy AttentionBlock stack (model.py:344-346, 360); "perceiver"
+            # resamples it with init_perceiver's default heads and ff_mult
+            self.conditioning_encoder = ConditioningEncoder(100, d, attn_blocks=6, num_attn_heads=cfg.heads)
+            if cfg.condition_type == "perceiver":
+                self.perceiver_encoder = PerceiverResampler(dim=d, dim_context=d, num_latents=cfg.condition_num_latent)
+        else:
+            raise NotImplementedError(
+                f"condition_type={cfg.condition_type!r}: the reference's 'gst' branch references an "
+                "encoder it never constructs (model.py:503-506) and is unsupported there too"
+            )
 
     def reset_parameters(self, g: torch.Generator) -> None:
         """init_unified_voice's distributions: GPT-2 normal(0.02) with the
         residual projections at 0.02/sqrt(2*layers), zero biases; torch
-        default uniform for the conditioning encoders; xavier pos biases."""
+        default uniform for the conditioning encoders, xavier pos biases, and
+        the legacy encoder's own init (ConditioningEncoder.reset_parameters)."""
         default_init_(self, g)
         for p in (self.text_embedding, self.mel_embedding, self.text_pos_embedding, self.mel_pos_embedding):
             normal_(p, 0.02, g)
@@ -153,21 +177,95 @@ class UnifiedVoice(nn.Module):
         for head in (self.text_head, self.mel_head):
             normal_(head.weight, 0.02, g)
             nn.init.zeros_(head.bias)
-        for layer in self.conditioning_encoder.layers:
-            h, d_k = layer.attn.pos_bias_u.shape
-            for p in (layer.attn.pos_bias_u, layer.attn.pos_bias_v):
-                uniform_(p, math.sqrt(6.0 / (h + d_k)), g)
-        normal_(self.perceiver_encoder.latents, 0.02, g)
-        nn.init.ones_(self.perceiver_encoder.norm_gamma)
+        if isinstance(self.conditioning_encoder, ConditioningEncoder):
+            self.conditioning_encoder.reset_parameters(g)
+        else:
+            for layer in self.conditioning_encoder.layers:
+                if layer.rel_pos:
+                    h, d_k = layer.attn.pos_bias_u.shape
+                    for p in (layer.attn.pos_bias_u, layer.attn.pos_bias_v):
+                        uniform_(p, math.sqrt(6.0 / (h + d_k)), g)
+        if self.perceiver_encoder is not None:
+            normal_(self.perceiver_encoder.latents, 0.02, g)
+            nn.init.ones_(self.perceiver_encoder.norm_gamma)
+
+
+def _gn(m: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    return group_norm(x, m.weight, m.bias, m.num_groups)
+
+
+class _MelResBlock(nn.Module):
+    def __init__(self, chan: int):
+        super().__init__()
+        self.conv0 = nn.Conv1d(chan, chan, 3)
+        self.conv1 = nn.Conv1d(chan, chan, 3)
+        self.gn0 = nn.GroupNorm(chan // 8, chan)
+        self.gn1 = nn.GroupNorm(chan // 8, chan)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = _gn(self.gn0, conv1d(x, self.conv0.weight, self.conv0.bias, padding=1))
+        h = _gn(self.gn1, conv1d(torch.relu(h), self.conv1.weight, self.conv1.bias, padding=1))
+        return torch.relu(h + x)
+
+
+class MelEncoder(nn.Module):
+    """The use_mel_codes_as_input=False input path (model.py:21-37,
+    277-297): conv and ResBlock stages with two stride-2 reductions, mel
+    [B, T, mel_channels] -> [B, T/4, channels]. The reference's inference
+    never takes it; it is here for parity with the JAX package's
+    init_mel_encoder / mel_encoder_apply. The GroupNorms use chan // 8 groups
+    in the resblocks, channels // 16 after down0 and channels // 8 after
+    down1."""
+
+    def __init__(self, channels: int, mel_channels: int = 80, resblocks_per_reduction: int = 1):
+        super().__init__()
+        c4, c2 = channels // 4, channels // 2
+        self.conv_in = nn.Conv1d(mel_channels, c4, 3)
+        self.res0 = nn.ModuleList(_MelResBlock(c4) for _ in range(resblocks_per_reduction))
+        self.down0 = nn.Conv1d(c4, c2, 3)
+        self.gn_a = nn.GroupNorm(channels // 16, c2)
+        self.res1 = nn.ModuleList(_MelResBlock(c2) for _ in range(resblocks_per_reduction))
+        self.down1 = nn.Conv1d(c2, channels, 3)
+        self.gn_b = nn.GroupNorm(channels // 8, channels)
+        self.res2 = nn.ModuleList(_MelResBlock(channels) for _ in range(resblocks_per_reduction))
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel_encoder_apply."""
+        h = conv1d(mel, self.conv_in.weight, self.conv_in.bias, padding=1)
+        for blk in self.res0:
+            h = blk(h)
+        h = torch.relu(_gn(self.gn_a, conv1d(h, self.down0.weight, self.down0.bias, stride=2, padding=1)))
+        for blk in self.res1:
+            h = blk(h)
+        h = torch.relu(_gn(self.gn_b, conv1d(h, self.down1.weight, self.down1.bias, stride=2, padding=1)))
+        for blk in self.res2:
+            h = blk(h)
+        return h
+
+    def reset_parameters(self, g: torch.Generator) -> None:
+        """init_mel_encoder's distributions: convs U(+-1/sqrt(fan_in)), the
+        GroupNorms the identity."""
+        default_init_(self, g)
 
 
 def get_conditioning(model: UnifiedVoice, cfg: GPTConfig, speech_conditioning_mel: torch.Tensor,
                      cond_mel_lengths: torch.Tensor) -> torch.Tensor:
-    """Prompt mel [B, frames, 100] -> conditioning latents [B, latents, D]
-    (reference: model.py:490-519, conformer_perceiver branch)."""
-    enc, mask = model.conditioning_encoder(speech_conditioning_mel, cond_mel_lengths)
-    ones = torch.ones(enc.shape[0], cfg.condition_num_latent, dtype=torch.bool, device=enc.device)
-    return model.perceiver_encoder(enc, torch.cat([ones, mask[:, 0, :]], dim=1))
+    """Prompt mel [B, frames, 100] -> conditioning latents: [B, latents, D]
+    (conformer_perceiver, perceiver), [B, frames', output_size]
+    (conformer_encoder) or [B, 1, D] (default) (reference: model.py:490-519).
+    The legacy encoders see every frame: cond_mel_lengths is not used there,
+    as in the reference."""
+    if cfg.condition_type == "conformer_perceiver":
+        enc, mask = model.conditioning_encoder(speech_conditioning_mel, cond_mel_lengths)
+        ones = torch.ones(enc.shape[0], cfg.condition_num_latent, dtype=torch.bool, device=enc.device)
+        return model.perceiver_encoder(enc, torch.cat([ones, mask[:, 0, :]], dim=1))
+    if cfg.condition_type == "conformer_encoder":
+        return model.conditioning_encoder(speech_conditioning_mel, cond_mel_lengths)[0]
+    if cfg.condition_type == "perceiver":
+        return model.perceiver_encoder(model.conditioning_encoder(speech_conditioning_mel))
+    if cfg.condition_type == "default":
+        return model.conditioning_encoder(speech_conditioning_mel, mean=True)[:, None, :]
+    raise NotImplementedError(cfg.condition_type)
 
 
 def set_padding(tokens: torch.Tensor, lengths: torch.Tensor, pad_value: int) -> torch.Tensor:
@@ -176,11 +274,13 @@ def set_padding(tokens: torch.Tensor, lengths: torch.Tensor, pad_value: int) -> 
     return torch.where(idx >= lengths[:, None], torch.full_like(tokens, pad_value), tokens)
 
 
-def _frame(tokens: torch.Tensor, start: int, stop: int) -> torch.Tensor:
-    """[start, tokens..., stop]: the inputs of build_aligned_inputs_and_targets
-    after the trailing stop pad (model.py:561-566)."""
+def _frame(tokens: torch.Tensor, start: int, stop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inputs, targets) of build_aligned_inputs_and_targets after the
+    trailing stop pad (model.py:561-566): [start, tokens..., stop] and
+    [tokens..., stop, stop]."""
     b = tokens.shape[0]
-    return torch.cat([tokens.new_full((b, 1), start), tokens, tokens.new_full((b, 1), stop)], dim=1)
+    start_col, stop_col = tokens.new_full((b, 1), start), tokens.new_full((b, 1), stop)
+    return torch.cat([start_col, tokens, stop_col], dim=1), torch.cat([tokens, stop_col, stop_col], dim=1)
 
 
 def unified_voice_forward(
@@ -190,28 +290,61 @@ def unified_voice_forward(
     text_lengths: torch.Tensor,
     mel_codes: torch.Tensor,
     wav_lengths: torch.Tensor,
-    conds: torch.Tensor,
-) -> torch.Tensor:
-    """Teacher-forced pass returning the vocoder latents [B, T_mel, D]
-    (reference: model.py:521-589 with return_latent=True), with the keys that
-    exist only because of shape bucketing masked — the JAX
-    unified_voice_forward(return_latent=True, mask_pad_keys=True) the engine
-    runs. `conds` are precomputed conditioning latents."""
+    conds: Optional[torch.Tensor] = None,
+    *,
+    speech_conditioning_mel: Optional[torch.Tensor] = None,
+    cond_mel_lengths: Optional[torch.Tensor] = None,
+    return_latent: bool = True,
+    text_first: bool = True,
+    types: Optional[torch.Tensor] = None,
+    mask_pad_keys: bool = True,
+):
+    """Teacher-forced pass (reference: model.py:521-589; JAX
+    unified_voice_forward). Returns the vocoder latents [B, T_mel, D]
+    (return_latent), else (loss_text, loss_mel, mel_logits [B, V, T_mel + 2]).
+
+    `conds` are precomputed conditioning latents; when None they come from
+    get_conditioning(speech_conditioning_mel, cond_mel_lengths). `types`
+    [B] moves each row's text into its own embedding range (model.py:541-543).
+    `text_first=False` puts the mel block before the text block.
+    `mask_pad_keys` masks the keys that exist only because of shape
+    bucketing: framed text positions >= text_len + 2 and mel positions >=
+    mel_code_len + 1. It defaults to True here, where JAX's default is False:
+    the port's callers (the engine, and the latent tests since the port's
+    first slice) run bucket-padded rows, and pass conds positionally."""
+    if conds is None:
+        conds = get_conditioning(model, cfg, speech_conditioning_mel, cond_mel_lengths)
+    if types is not None:
+        text_inputs = text_inputs * (1 + types)[:, None]
     mel_code_lengths = (wav_lengths + cfg.mel_length_compression - 1) // cfg.mel_length_compression + 1
     mel_codes = set_padding(mel_codes, mel_code_lengths, cfg.stop_mel_token)
     text_inputs = set_padding(text_inputs, text_lengths, cfg.stop_text_token)
-    text_in = _frame(text_inputs, cfg.start_text_token, cfg.stop_text_token)
-    mel_in = _frame(mel_codes, cfg.start_mel_token, cfg.stop_mel_token)
+    text_in, text_targets = _frame(text_inputs, cfg.start_text_token, cfg.stop_text_token)
+    mel_in, mel_targets = _frame(mel_codes, cfg.start_mel_token, cfg.stop_mel_token)
     text_emb = model.text_embedding[text_in] + model.text_pos_embedding[: text_in.shape[1]][None]
     mel_emb = model.mel_embedding[mel_in] + model.mel_pos_embedding[: mel_in.shape[1]][None]
-    emb = torch.cat([conds.to(text_emb.dtype), text_emb, mel_emb], dim=1)
-    b, dev = emb.shape[0], emb.device
-    # valid keys: all conds; text [start, t_0..t_{len-1}, stop] = len+2; mel
-    # [start, c_0.., stop] = mel_code_len+1 — the rest is bucket padding
-    text_ok = torch.arange(text_in.shape[1], device=dev)[None, :] < (text_lengths + 2)[:, None]
-    mel_ok = torch.arange(mel_in.shape[1], device=dev)[None, :] < (mel_code_lengths + 1)[:, None]
-    mask = torch.cat([torch.ones(b, conds.shape[1], dtype=torch.bool, device=dev), text_ok, mel_ok], dim=1)
+    first, second = (text_emb, mel_emb) if text_first else (mel_emb, text_emb)
+    emb = torch.cat([conds.to(text_emb.dtype), first, second], dim=1)
+    mask = None
+    if mask_pad_keys:
+        b, dev = emb.shape[0], emb.device
+        # valid keys: all conds; text [start, t_0..t_{len-1}, stop] = len+2; mel
+        # [start, c_0.., stop] = mel_code_len+1 — the rest is bucket padding
+        text_ok = torch.arange(text_in.shape[1], device=dev)[None, :] < (text_lengths + 2)[:, None]
+        mel_ok = torch.arange(mel_in.shape[1], device=dev)[None, :] < (mel_code_lengths + 1)[:, None]
+        blocks = (text_ok, mel_ok) if text_first else (mel_ok, text_ok)
+        mask = torch.cat([torch.ones(b, conds.shape[1], dtype=torch.bool, device=dev), *blocks], dim=1)
     hidden = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask)
     enc = _ln(model.final_norm, hidden[:, conds.shape[1]:])
-    # the mel block, without the two trailing frames this forward adds (model.py:576-578)
-    return enc[:, -mel_emb.shape[1]:][:, :-2]
+    first_out, second_out = enc[:, : first.shape[1]], enc[:, -second.shape[1]:]
+    if return_latent:
+        # the second block, without the two trailing frames this forward adds (model.py:576-578)
+        return second_out[:, :-2]
+    text_out, mel_out = (first_out, second_out) if text_first else (second_out, first_out)
+    text_logits, mel_logits = model.text_head(text_out), model.mel_head(mel_out)
+
+    def ce(logits, targets):
+        return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten())
+
+    # the reference returns [B, V, T]-permuted logits (model.py:479-486)
+    return ce(text_logits, text_targets), ce(mel_logits, mel_targets), mel_logits.transpose(1, 2)

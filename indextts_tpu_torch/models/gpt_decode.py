@@ -36,9 +36,15 @@ cache, monolithic or with a cache that grows by segments).
     step's attention reads the slots written so far and not the whole
     max_new_tokens budget. They give the monolithic loops' codes; PyTorch
     runs eagerly, so there is nothing to compile per segment and the JAX
-    functions' jit_cache argument has no counterpart.
-
-Not ported yet (see ROADMAP.md): forced input_tokens prefixes.
+    functions' jit_cache argument has no counterpart. They take no forced
+    prefix, as in JAX.
+  * A forced prefix `input_tokens` [B, S0] (model.py:673-688, HF generate's
+    input_ids) joins the prefill after start_mel at mel positions 1..S0, its
+    codes join the repetition penalty's seen set, and every decode position
+    shifts by S0; the returned codes exclude it. inference_speech is the
+    reference's high-level entry (model.py:655-708): conditioning, row
+    tiling for num_return_sequences, the positional-table cap, and the
+    greedy / sampled or the beam loop.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, gpt2_apply
+from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, get_conditioning, gpt2_apply
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
     Knob,
@@ -99,8 +105,9 @@ class DecodeState:
 @dataclass
 class DecodeContext:
     """What the loop needs besides the state: the prefill length p, the
-    prefill key mask padded to the cache length, and the sampling settings
-    (each dynamic knob a float, or a [B] tensor with one value per row)."""
+    prefill key mask padded to the cache length, the sampling settings
+    (each dynamic knob a float, or a [B] tensor with one value per row) and
+    s0, the length of a forced prefix (decode positions shift by s0)."""
 
     p: int
     prefill_valid: torch.Tensor
@@ -110,6 +117,7 @@ class DecodeContext:
     top_p: Knob
     repetition_penalty: Knob
     typical_mass: Knob = 0.9
+    s0: int = 0
 
     def sample(self, logits: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
         lf = process_logits(
@@ -157,6 +165,18 @@ def prepare_gpt_inputs(
     emb = torch.cat([emb_core, start_emb.to(emb_core.dtype).expand(b, 1, -1)], dim=1)
     mask = torch.cat([src >= 0, torch.ones(b, 1, dtype=torch.bool, device=dev)], dim=1)
     return emb, mask
+
+
+def _with_prefix(model: UnifiedVoice, emb: torch.Tensor, mask: torch.Tensor,
+                 input_tokens: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The prefill with a forced prefix [B, S0] of mel codes after start_mel,
+    at mel positions 1..S0 (model.py:673-688). Returns (emb, mask, s0)."""
+    if input_tokens is None:
+        return emb, mask, 0
+    s0 = input_tokens.shape[1]
+    prefix = model.mel_embedding[input_tokens.long()] + model.mel_pos_embedding[1 : s0 + 1][None]
+    ones = torch.ones(mask.shape[0], s0, dtype=torch.bool, device=mask.device)
+    return torch.cat([emb, prefix.to(emb.dtype)], dim=1), torch.cat([mask, ones], dim=1), s0
 
 
 def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor, return_normed: bool = False):
@@ -265,26 +285,29 @@ def prefill_decode_state(
     typical_mass: Knob = 0.9,
     capture_latents: bool = False,
     cache_len: Optional[int] = None,
+    input_tokens: Optional[torch.Tensor] = None,
 ) -> Tuple[DecodeState, DecodeContext]:
     """Prefill + first token. Returns the loop state and its context; the
     cache is int8 with quant_kv. The dynamic knobs are floats or [B] tensors.
     capture_latents gives the state a latent buffer whose slot 0 is the
     prefill's last final-norm hidden. cache_len
     (default p + max_new_tokens) allocates a shorter cache, to be extended
-    with grow_cache before decode_steps writes past it."""
+    with grow_cache before decode_steps writes past it. `input_tokens`
+    [B, S0] is a forced prefix of mel codes (_with_prefix)."""
     b = text_tokens.shape[0]
     dev = text_tokens.device
-    emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
+    emb, prefill_mask, s0 = _with_prefix(model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths),
+                                         input_tokens)
     p = emb.shape[1]
     max_new = gen.max_new_tokens
     s_max = p + max_new if cache_len is None else int(cache_len)
     logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
                                    return_hidden=capture_latents)
-    seen = _initial_seen(cfg, b, dev)
+    seen = _initial_seen(cfg, b, dev, input_tokens)
     ctx = DecodeContext(
         p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
         generator=generator, temperature=_knob(temperature), top_p=_knob(top_p),
-        repetition_penalty=_knob(repetition_penalty), typical_mass=_knob(typical_mass),
+        repetition_penalty=_knob(repetition_penalty), typical_mass=_knob(typical_mass), s0=s0,
     )
     tok1 = ctx.sample(logits0, seen)
     codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
@@ -304,13 +327,16 @@ def _knob(v: Knob) -> Knob:
     return v if isinstance(v, torch.Tensor) and v.dim() == 1 else float(v)
 
 
-def _initial_seen(cfg: GPTConfig, rows: int, dev) -> torch.Tensor:
+def _initial_seen(cfg: GPTConfig, rows: int, dev, input_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The repetition penalty's seen set [rows, V]. HF penalizes over the
     whole input_ids row: the fake inputs are 1s with a trailing start_mel
-    (model.py:645-653), so ids {1, start_mel} start seen."""
+    (model.py:645-653), so ids {1, start_mel} start seen, and so do the
+    codes of a forced prefix [rows, S0]."""
     seen = torch.zeros(rows, cfg.number_mel_codes, dtype=torch.bool, device=dev)
     seen[:, 1] = True
     seen[:, cfg.start_mel_token] = True
+    if input_tokens is not None:
+        seen[torch.arange(rows, device=dev)[:, None], input_tokens.long()] = True
     return seen
 
 
@@ -333,8 +359,8 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
                  pos_off: int = 2) -> DecodeState:
     """Run up to `n_steps` decode iterations, stopping early when every row
     has emitted stop_mel_token or the code buffer is full. Token g_{i+1} is
-    decoded at cache slot p+i and mel position i+pos_off; under capture its
-    final-norm hidden goes to lat[:, i+1]."""
+    decoded at cache slot p+i and mel position i+pos_off+s0; under capture
+    its final-norm hidden goes to lat[:, i+1]."""
     max_new = state.codes.shape[1]
     positions = torch.arange(ctx.prefill_valid.shape[1], device=state.codes.device)[None, :]
     stop = state.i + n_steps
@@ -344,7 +370,7 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
         i = state.i
         write_pos = ctx.p + i
         valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions < write_pos))
-        logits = _decode_step(model, cfg, state.cur, i + pos_off, state.cache, write_pos, valid,
+        logits = _decode_step(model, cfg, state.cur, i + pos_off + ctx.s0, state.cache, write_pos, valid,
                               return_hidden=capture)
         if capture:
             logits, state.lat[:, i + 1] = logits
@@ -374,6 +400,7 @@ def generate_speech(
     quant_kv: bool = False,
     typical_mass: float = 0.9,
     capture_latents: bool = False,
+    input_tokens: Optional[torch.Tensor] = None,
 ):
     """Greedy / sampled generation (num_beams == 1). Returns (codes [B,
     max_new_tokens] right-padded with stop_mel_token, lengths [B] counting
@@ -382,11 +409,13 @@ def generate_speech(
     max(lengths) - 1 decode steps. quant_kv: the int8 KV cache.
     capture_latents adds lat [B, max_new, D]: lat[:, j] is the final-norm
     hidden that predicted code j. They equal the teacher-forced latents of
-    the same codes only with pos_off=1 (the consistent-positions mode)."""
+    the same codes only with pos_off=1 (the consistent-positions mode).
+    `input_tokens` [B, S0]: a forced prefix, excluded from the codes (the
+    reference truncates at trunc_index, model.py:704-708)."""
     state, ctx = prefill_decode_state(
         model, cfg, gen, conds, text_tokens, text_lengths, generator,
         temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
-        typical_mass=typical_mass, capture_latents=capture_latents,
+        typical_mass=typical_mass, capture_latents=capture_latents, input_tokens=input_tokens,
     )
     state = decode_steps(model, cfg, state, ctx, gen.max_new_tokens - 1, pos_off=pos_off)
     return _finish(cfg, state, capture_latents)
@@ -613,12 +642,15 @@ class _BeamLoop:
     for n more cache and latent slots. After every step the cache rows, both
     kinds ((k, v) or int8 (k8, ks, v8, vs)), follow their beams by
     index_select. Iteration i consumes the code at codes[:, i], writes cache
-    slot p+i at mel position i+pos_off and chooses codes[:, i+1]. `gen_slots`
+    slot p+i at mel position i+pos_off+s0 and chooses codes[:, i+1]. `gen_slots`
     is the number of generated-token slots the cache and the latent buffer
-    start with."""
+    start with. A forced prefix `input_tokens` [B, S0] rides each row's
+    prefill, and its codes are repeated for the row's beams in the seen set
+    (JAX it_bb)."""
 
     def __init__(self, model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
-                 repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, gen_slots):
+                 repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, gen_slots,
+                 input_tokens=None):
         self.model, self.cfg, self.gen = model, cfg, gen
         self.nb = nb = gen.num_beams
         self.b = b = text_tokens.shape[0]
@@ -626,14 +658,15 @@ class _BeamLoop:
         self.max_new = max_new = gen.max_new_tokens
         bb = b * nb
         dev = text_tokens.device
-        emb, prefill_mask = prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths)
+        emb, prefill_mask, self.s0 = _with_prefix(
+            model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths), input_tokens)
         self.p = p = emb.shape[1]
         logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, p + gen_slots, quant_kv=quant_kv,
                                        return_hidden=capture_latents)
         self.cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
         logits0 = logits0.repeat_interleave(nb, dim=0)
         self.prefill_valid = torch.nn.functional.pad(prefill_mask, (0, gen_slots)).repeat_interleave(nb, dim=0)
-        self.seen = _initial_seen(cfg, bb, dev)
+        self.seen = _initial_seen(cfg, bb, dev, None if input_tokens is None else input_tokens.repeat_interleave(nb, 0))
         self.lat = None
         if capture_latents:
             self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
@@ -684,8 +717,8 @@ class _BeamLoop:
         while self.i < stop and self.live():
             i, p = self.i, self.p
             valid = self.prefill_valid | ((positions >= p) & (positions < p + i))
-            logits = _decode_step(self.model, self.cfg, self.cur, i + self.pos_off, self.cache, p + i, valid,
-                                  return_hidden=self.capture)
+            logits = _decode_step(self.model, self.cfg, self.cur, i + self.pos_off + self.s0, self.cache, p + i,
+                                  valid, return_hidden=self.capture)
             if self.capture:
                 logits, self.lat[:, i + 1] = logits
             flat_src, self.cur = self._select(i + 1, logits)
@@ -727,10 +760,12 @@ def generate_speech_beam(
     capture_latents: bool = False,
     pos_off: int = 2,
     stats: Optional[dict] = None,
+    input_tokens: Optional[torch.Tensor] = None,
 ):
     """Beam search (gen.num_beams = nb > 1): HF beam_search, or beam_sample
     with gen.do_sample, with JAX's admissible early stop (checked once a
-    step on the host), over a cache of p + max_new_tokens slots (_BeamLoop).
+    step on the host), over a cache of p + max_new_tokens slots (_BeamLoop);
+    `input_tokens` [B, S0] a forced prefix, as in generate_speech.
 
     Returns (codes [B, max_new], lengths [B]) of the best hypothesis, and
     with capture_latents its latents [B, max_new, D] (slot j predicted code
@@ -739,7 +774,8 @@ def generate_speech_beam(
     `stats`, a dict, receives "steps", the decode steps the loop ran."""
     max_new = gen.max_new_tokens
     loop = _BeamLoop(model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
-                     repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, max_new)
+                     repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, max_new,
+                     input_tokens=input_tokens)
     loop.run(max_new - 1)
     if stats is not None:
         stats["steps"] = loop.i
@@ -790,3 +826,74 @@ def generate_speech_beam_segmented(
     if stats is not None:
         stats["steps"], stats["segments"] = loop.i, ran
     return loop.finalize()
+
+
+@torch.no_grad()
+def inference_speech(
+    model: UnifiedVoice,
+    cfg: GPTConfig,
+    speech_conditioning_mel: torch.Tensor,
+    text_inputs: torch.Tensor,
+    text_lengths: torch.Tensor,
+    cond_mel_lengths: Optional[torch.Tensor] = None,
+    input_tokens: Optional[torch.Tensor] = None,
+    num_return_sequences: int = 1,
+    max_generate_length: Optional[int] = None,
+    typical_sampling: bool = False,
+    typical_mass: float = 0.9,
+    do_sample: bool = True,
+    top_k: int = 30,
+    top_p: float = 0.8,
+    temperature: float = 1.0,
+    num_beams: int = 1,
+    repetition_penalty: float = 10.0,
+    length_penalty: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """UnifiedVoice.inference_speech (model.py:655-708): conditioning, then
+    generate_speech, or generate_speech_beam when num_beams > 1. Returns
+    (codes [rows, max_new], lengths [rows]).
+
+    num_return_sequences tiles the rows, which then sample independently
+    (a multiple of the batch size when the batch has several rows, else
+    ValueError). max_new is max_generate_length (default max_mel_tokens - 1),
+    capped at max_mel_tokens and, with a forced prefix of S0 codes, at
+    max_mel_tokens - 1 - S0 so that every decode position stays inside the
+    positional table (ValueError when that leaves none). `generator`
+    defaults to one seeded with 0."""
+    if speech_conditioning_mel.dim() == 2:
+        speech_conditioning_mel = speech_conditioning_mel[None]
+    if cond_mel_lengths is None:
+        cond_mel_lengths = torch.tensor([speech_conditioning_mel.shape[1]], device=speech_conditioning_mel.device)
+    conds = get_conditioning(model, cfg, speech_conditioning_mel, cond_mel_lengths)
+    b = text_inputs.shape[0]
+    if conds.shape[0] == 1 and b > 1:
+        conds = conds.expand(b, -1, -1)
+    if num_return_sequences > 1:
+        # the reference asserts divisibility (model.py:678-681)
+        if b > 1 and num_return_sequences % b != 0:
+            raise ValueError(
+                f"num_return_sequences ({num_return_sequences}) must be a multiple of the batch size ({b})")
+        reps = num_return_sequences // b if b > 1 else num_return_sequences
+        conds, text_inputs, text_lengths = (t.repeat_interleave(reps, dim=0) for t in (conds, text_inputs, text_lengths))
+        if input_tokens is not None:
+            if input_tokens.dim() == 1:
+                input_tokens = input_tokens[None]
+            input_tokens = input_tokens.repeat_interleave(conds.shape[0] // input_tokens.shape[0], dim=0)
+    max_new = max_generate_length if max_generate_length is not None else cfg.max_mel_tokens - 1
+    max_new = min(int(max_new), cfg.max_mel_tokens)
+    if input_tokens is not None:
+        s0 = input_tokens.shape[-1]
+        max_new = min(max_new, cfg.max_mel_tokens - 1 - s0)
+        if max_new <= 0:
+            raise ValueError(f"input_tokens prefix ({s0}) leaves no room under max_mel_tokens ({cfg.max_mel_tokens})")
+    gen = GenerationConfig(do_sample=do_sample, num_beams=num_beams, top_k=int(top_k) if top_k else 0,
+                           typical_sampling=typical_sampling, max_new_tokens=max_new)
+    if generator is None:
+        generator = torch.Generator(device=conds.device).manual_seed(0)
+    kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
+              typical_mass=typical_mass, input_tokens=input_tokens)
+    if num_beams > 1:
+        return generate_speech_beam(model, cfg, gen, conds, text_inputs, text_lengths, generator,
+                                    length_penalty=length_penalty, **kw)
+    return generate_speech(model, cfg, gen, conds, text_inputs, text_lengths, generator, **kw)

@@ -25,6 +25,19 @@ def rms_norm(x: torch.Tensor, gamma: Optional[torch.Tensor], scale: float, eps: 
     return out.to(x.dtype)
 
 
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over channels-last [..., T, C] (GroupNorm32 semantics): the
+    channels split as (g, C/g), each group normalized over time and its own
+    channels, in float32, then cast back."""
+    *lead, t, c = x.shape
+    xg = x.float().reshape(*lead, t, num_groups, c // num_groups)
+    mean = xg.mean(dim=(-3, -1), keepdim=True)
+    var = ((xg - mean) ** 2).mean(dim=(-3, -1), keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(*lead, t, c) * gamma.float() + beta.float()
+    return out.to(x.dtype)
+
+
 def batch_norm_inference(x, gamma, beta, running_mean, running_var, eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm1d over the channel axis of [..., C]."""
     inv = torch.rsqrt(running_var.float() + eps)

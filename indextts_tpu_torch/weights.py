@@ -124,5 +124,5 @@ def default_init_(module: nn.Module, g: torch.Generator) -> None:
                 uniform_(m.weight, bound, g)
                 if m.bias is not None:
                     uniform_(m.bias, bound, g)
-            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d, nn.GroupNorm)):
                 m.reset_parameters()

@@ -157,10 +157,15 @@ def test_npz_cache_is_shared(ckpt_dir, tmp_path, writer, which):
 
 @pytest.mark.parametrize("condition_type", ["perceiver", "default"])
 def test_legacy_condition_types_raise(ckpt_dir, condition_type):
+    """The legacy condition types convert (tests/test_torch_legacy_conditioning.py);
+    a conformer_perceiver gpt.pth read as one of them lacks the
+    AttentionBlock encoder and raises the JAX converter's KeyError."""
     cfg = tiny_config().gpt
     cfg.condition_type = condition_type
     sd = tconv.load_torch_state_dict(os.path.join(ckpt_dir, "gpt.pth"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(KeyError, match="conditioning_encoder.init.weight"):
+        jconv.convert_unified_voice(sd, cfg)
+    with pytest.raises(KeyError, match="conditioning_encoder.init.weight"):
         tconv.convert_unified_voice(sd, cfg)
 
 
