@@ -134,16 +134,30 @@ Phases, in order; any failure exits non-zero:
                build/, a flagship greedy 100-code infer as the resynthesized
                wav (K1 109 launches per vocoder call), then
                indextts_tpu_torch.eval_fidelity.main on the card and on the
-               CPU (float32, TF32 off): both JSON reports, the DVAE round
-               trip's and MPD + MRD's device-synchronized ms, DVAE codes
-               equal, losses within FIDELITY_RTOL;
+               CPU, called as shipped with TF32 allowed (the tool runs in
+               float32 with TF32 off and restores the flags): both JSON
+               reports, the DVAE round trip's and MPD + MRD's
+               device-synchronized ms, DVAE codes equal, losses within
+               FIDELITY_RTOL;
+     mesh    — the multi-device path (indextts_tpu_torch/parallel/mesh.py)
+               at the published widths: two ranks spawned on the card over
+               gloo (NCCL, a card each, where there are two), each building
+               the whole model from seed 0 and keeping its shard, against
+               one process on the same card: float32 with TF32 off at tp = 2
+               (16 forced steps' logits within MESH_F32_GATE, a greedy
+               32-code request token for token), bf16 at tp = 2 (the forced
+               steps within MESH_BF16_GATE, a greedy 100-code request), bf16
+               at dp = 2 (infer_batch of 4 requests, K1 109 launches per
+               vocoder call on each rank), int8 weights at tp = 2 (K5 on
+               every shard shape against its plain version, 97 launches a
+               step on each rank, its own device ms beside one process's);
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
-small, ckpt, legacy, fidelity) runs
+small, ckpt, legacy, fidelity, mesh) runs
 only those phases after the build, for work on one of them, with the per
 vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
 final line, and exits 3. In the kernels line `ms` is a kernel's own device
@@ -860,12 +874,15 @@ def vocoder_profile_line(v: dict) -> str:
             f"own device ms {own}")
 
 
-def forced_logits(engine, quant_kv: bool, steps: int = 16):
+def forced_logits(engine, quant_kv: bool, steps: int = 16, own=(), warm: bool = True, profiled: bool = True):
     """Prefill and `steps` forced decode steps at B = 4, text rows of
     different lengths, the tokens drawn from a fixed seed. Returns the logits
     [steps + 1, B, V] (float32, on the host) and a profile of the steps: host
     ms per step (second run, synchronized), device ms per step and device
-    kernels per step (third run, torch.profiler)."""
+    kernels per step (third run, torch.profiler), and for each name in `own`
+    the device ms per step of the kernels whose name holds it. warm=False
+    (an engine that has run its shapes already) takes the logits from the
+    timed run; profiled=False leaves the device numbers None."""
     import contextlib
 
     import numpy as np
@@ -902,15 +919,24 @@ def forced_logits(engine, quant_kv: bool, steps: int = 16):
                 torch.cuda.synchronize()
             return torch.stack(outs).cpu().numpy(), 1e3 * (time.perf_counter() - t) / steps
 
-    logits, _ = run(contextlib.nullcontext())
-    _, host_ms = run(contextlib.nullcontext())
+    if warm:
+        logits, _ = run(contextlib.nullcontext())
+        _, host_ms = run(contextlib.nullcontext())
+    else:
+        logits, host_ms = run(contextlib.nullcontext())
+    if not profiled:
+        return logits, {"host_ms_per_step": host_ms, "device_ms_per_step": None, "device_kernels_per_step": None,
+                        "device_idle_share": None, "own_ms_per_step": {n: None for n in own}}
     prof = profile(activities=[ProfilerActivity.CUDA])
     run(prof)  # the profiler covers the decode steps only
     events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     kernels = sum(e.count for e in events) / steps
+    own_ms = {n: (sum(e.self_device_time_total for e in events if n in e.key) / 1e3 / steps if events else None)
+              for n in own}
     return logits, {"host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
-                    "device_kernels_per_step": kernels, "device_idle_share": 1.0 - device_ms / host_ms}
+                    "device_kernels_per_step": kernels, "device_idle_share": 1.0 - device_ms / host_ms,
+                    "own_ms_per_step": own_ms}
 
 
 def int8_phase(card: str) -> dict:
@@ -2084,7 +2110,7 @@ def activations_per_call(h) -> int:
 # latents within this share of max |cpu|; teacher-forced losses: relative.
 LEGACY_COND_RTOL = 5e-2
 LEGACY_LOSS_RTOL = 1e-2
-# fidelity phase, float32 on both with TF32 off: each loss and the round-trip
+# fidelity phase, float32 on both (TF32 off on the card, by the tool): each loss and the round-trip
 # MSE relative to the CPU's
 FIDELITY_RTOL = 1e-3
 
@@ -2233,19 +2259,19 @@ def legacy_phase(card: str) -> dict:
     codes = torch.randint(0, cfg.start_mel_token, (1, 200), device=DEVICE, generator=g)
     wav_lens = torch.tensor([200 * cfg.mel_length_compression], device=DEVICE)
     lens = torch.tensor([mel.shape[1]], device=DEVICE)
-    fwd = dict(speech_conditioning_mel=mel, cond_mel_lengths=lens, return_latent=False)
+    fwd = dict(return_latent=False, mask_pad_keys=True)
     with torch.no_grad():
-        unified_voice_forward(engine.gpt, cfg, text, tlens, codes, wav_lens, **fwd)  # warm
+        unified_voice_forward(engine.gpt, cfg, mel, text, tlens, codes, wav_lens, lens, **fwd)  # warm
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss_text, loss_mel, logits = unified_voice_forward(engine.gpt, cfg, text, tlens, codes, wav_lens, **fwd)
+        loss_text, loss_mel, logits = unified_voice_forward(engine.gpt, cfg, mel, text, tlens, codes, wav_lens, lens,
+                                                            **fwd)
         torch.cuda.synchronize()
         card_ms = 1e3 * (time.perf_counter() - t)
         cpu = cpu_copy(engine.gpt, cfg)
-        cpu_args = [x.cpu() for x in (text, tlens, codes, wav_lens)]
+        cpu_args = [x.cpu() for x in (mel.float(), text, tlens, codes, wav_lens, lens)]
         t = time.perf_counter()
-        want = unified_voice_forward(cpu, cfg, *cpu_args, speech_conditioning_mel=mel.float().cpu(),
-                                     cond_mel_lengths=lens.cpu(), return_latent=False)
+        want = unified_voice_forward(cpu, cfg, *cpu_args, **fwd)
         cpu_ms = 1e3 * (time.perf_counter() - t)
     losses = {"text": (float(loss_text), float(want[0])), "mel": (float(loss_mel), float(want[1]))}
     rel = {k: abs(a - b) / abs(b) for k, (a, b) in losses.items()}
@@ -2334,7 +2360,8 @@ def fidelity_phase(card: str) -> dict:
     through dvae_state_dict; a flagship greedy infer of 100 codes on
     tests/sample_prompt.wav (K1 109 launches per vocoder call) as --wav_hat;
     then eval_fidelity.main on the card (twice: the second run's times are
-    the warm ones) and with -d cpu, float32, TF32 off: the DVAE codes equal,
+    the warm ones) and with -d cpu, float32 (the tool turns TF32 off on the
+    card itself): the DVAE codes equal,
     dvae_codes_used equal, the round-trip MSE and the four losses within
     FIDELITY_RTOL; then each stage once under torch.profiler
     (fidelity_profiles)."""
@@ -2378,13 +2405,16 @@ def fidelity_phase(card: str) -> dict:
         del engine
         torch.cuda.empty_cache()
 
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        # the tool as shipped turns TF32 off for its own run (float32_numerics):
+        # TF32 is allowed here, as a caller may have it, and must be again after
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
         args = ["--wav", PROMPT, "--wav_hat", hat, "--model_dir", d]
         runs = {}
         for name, dev in (("cuda_cold", DEVICE), ("cuda", DEVICE), ("cpu", "cpu")):
             report, extras = eval_fidelity.main(args + ["-d", dev])
             runs[name] = (report, extras)
+            if not (torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32):
+                raise AssertionError("eval_fidelity did not restore the TF32 flags")
             log(f"[fidelity] eval_fidelity -d {dev} ({name}): DVAE round trip {extras['dvae_ms']:.2f} ms "
                 f"({extras['mel_frames']} mel frames), MPD + MRD {extras['disc_ms']:.2f} ms ({extras['samples']} "
                 f"samples), device-synchronized [{card}]")
@@ -2417,6 +2447,350 @@ def fidelity_phase(card: str) -> dict:
                 "k1_launches": launches, "vocoder_calls": n_calls}
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+# the mesh phase: gates of the tensor-parallel logits against one process,
+# float32 with TF32 off and bf16 (JAX's logit gate, bench.py:280)
+MESH_F32_GATE = 1e-3
+MESH_BF16_GATE = 1.0
+MESH_WORLD = 2
+K5_KERNEL = "int8_matmul_kernel"
+
+
+def mesh_engine(cfg_path: str, dtype_bf16: bool, device: str, tp=None, mesh: bool = True):
+    from indextts_tpu_torch.engine import IndexTTS
+
+    return IndexTTS(cfg_path=cfg_path, model_dir=os.path.join(REPO, "configs"), is_fp16=dtype_bf16, device=device,
+                    allow_random_init=True, seed=0, use_mesh=mesh, tp=tp)
+
+
+def greedy_request(engine, n_codes: int) -> dict:
+    """One greedy request (repetition penalty 1, so the raw logits choose)
+    through engine.infer: its codes, the top-2 margin of the logits behind
+    each code, and the wav."""
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+
+    margins, codes = [], []
+    mel_logits, generate = tdec._mel_logits, engine._gpt_generate
+
+    def recording_logits(*a, **k):
+        out = mel_logits(*a, **k)
+        top2 = (out[0] if isinstance(out, tuple) else out).float().topk(2, dim=-1).values
+        margins.append(float((top2[..., 0] - top2[..., 1]).min()))
+        return out
+
+    def recording_generate(*a, **k):
+        out = generate(*a, **k)
+        codes.append(np.asarray(out[0])[0, : int(out[1][0])])
+        return out
+
+    tdec._mel_logits, engine._gpt_generate = recording_logits, recording_generate
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sr, wav = engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, num_beams=1,
+                               repetition_penalty=1.0, max_mel_tokens=n_codes)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    finally:
+        tdec._mel_logits = mel_logits
+        del engine._gpt_generate
+    return {"codes": codes[0], "margins": np.asarray(margins[: len(codes[0])]), "wav": wav[:, 0], "sr": sr,
+            "total_s": total_s, "decode_ms_per_step": 1e3 * engine.last_stats["gpt_gen_s"]
+            / max(engine.last_stats["gpt_steps"], 1)}
+
+
+def k5_shards(engine) -> list:
+    """K5 against its plain version on each int8 shard of the first block
+    and on the mel head, at M = 4, bf16, with k5_bound (the k5 phase's
+    tolerance). Launches made here are reset by the caller."""
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
+
+    g = torch.Generator(device=engine.device).manual_seed(99)
+    blk = engine.gpt.gpt.blocks[0]
+    rows = []
+    for label, lin in (("qkv", blk.attn_qkv), ("proj", blk.attn_proj), ("fc", blk.mlp_fc),
+                       ("mlp_proj", blk.mlp_proj), ("head", engine.gpt.mel_head)):
+        n, k = lin.weight.shape
+        x = torch.randn(4, k, device=engine.device, generator=g).to(torch.bfloat16)
+        out = k5.int8_matmul(x, lin.weight, lin.scale, lin.bias)
+        ref = k5.int8_matmul_plain(x, lin.weight, lin.scale, lin.bias)
+        err = (out.float() - ref.float()).abs()
+        rows.append(dict(case=label, M=4, N=n, K=k, max_abs_err=err.max().item(),
+                         err_over_bound=(err / k5_bound(x, lin.weight, lin.scale, ref)).max().item()))
+    return rows
+
+
+def mesh_forced(engine, profiled: bool = True, own=()):
+    """forced_logits on an engine that has run its shapes (the greedy request
+    before it): one timed run for the logits and the host ms, then one under
+    the profiler."""
+    return forced_logits(engine, quant_kv=False, own=own, warm=False, profiled=profiled)
+
+
+def comm_ms(mesh, n: int = 100) -> dict:
+    """ms per all-reduce of one [4, 1280] float32 activation over the model
+    group, as the row-parallel products make them: on the rank's device
+    (gloo's CUDA path, or NCCL), and staged through host memory (a copy to
+    the host, gloo's CPU all-reduce over the world group, a copy back)."""
+    import torch
+
+    x = torch.randn(4, 1280, device=mesh.device)
+    out = {}
+    for name, fn in (("device", lambda: mesh.model.all_reduce(x)),
+                     ("host_staged", lambda: x.copy_(mesh.world.all_reduce(x.cpu())))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t) / n
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_path: str = FLAGSHIP,
+              device: str = DEVICE) -> None:
+    """One rank of the mesh phase (spawned): (a) float32 with TF32 off at
+    tp = 2: 16 forced decode steps and a greedy 32-code request; (b) bf16 at
+    tp = 2: the 16 forced steps, a greedy 100-code request, then int8 weights
+    (quantize_unified_voice on the shards): K5 on every shard shape against
+    its plain version, 16 forced steps with K5's launches counted and its own
+    device ms; then bf16 at dp = 2 (tp = 1): infer_batch of 4 requests with
+    K1's launches counted. Writes rank<r>.pkl, or the traceback."""
+    import pickle
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
+
+    if device == "cpu":  # a rehearsal on the CPU (tiny cfg_path): no device to wait for or to trace
+        import torch.profiler as tprof
+
+        torch.cuda.synchronize = lambda *a, **k: None
+        cpu_profile = tprof.profile
+        tprof.profile = lambda activities: cpu_profile(activities=[tprof.ProfilerActivity.CPU])
+    else:
+        device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    out = {"ok": False}
+    try:
+        marks = out["seconds"] = {}
+        t0 = time.perf_counter()
+        e = mesh_engine(cfg_path, False, device, tp=2)
+        out["describe"] = e.mesh.describe()
+        out["comm_ms"] = comm_ms(e.mesh)
+        marks["f32_engine"] = time.perf_counter() - t0
+        out["f32_greedy"] = greedy_request(e, 32)
+        out["f32_logits"], out["f32_profile"] = mesh_forced(e, profiled=False)
+        marks["f32"] = time.perf_counter() - t0
+        del e
+        torch.cuda.empty_cache()
+
+        e = mesh_engine(cfg_path, True, device, tp=2)
+        out["bf16_greedy"] = greedy_request(e, 100)
+        out["bf16_logits"], out["bf16_profile"] = mesh_forced(e)
+        marks["bf16"] = time.perf_counter() - t0
+        quantize_unified_voice(e.gpt)
+        out["k5_shards"] = k5_shards(e)
+        k5.launches = 0  # the int8 path's forced steps start here: 2 runs of a prefill and 16 steps
+        out["int8_logits"], out["int8_profile"] = mesh_forced(e, own=(K5_KERNEL,))
+        out["k5_launches"], out["k5_runs"], out["k5_steps"] = k5.launches, 2, 2 * 16
+        marks["int8"] = time.perf_counter() - t0
+        del e
+        torch.cuda.empty_cache()
+
+        e = mesh_engine(cfg_path, True, device, tp=1)
+        out["dp_describe"] = e.mesh.describe()
+        items = [(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY TO YOU.", "THIS IS A TEST.", "HOW ARE YOU.")]
+        k1.launches = 0  # the data-parallel batch starts here
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = e.infer_batch(items, do_sample=False, num_beams=1, max_mel_tokens=100)
+        torch.cuda.synchronize()
+        out["dp_batch"] = {"wavs": [w[:, 0] for _, w in res], "s": time.perf_counter() - t,
+                           "k1_launches": k1.launches, "vocoder_calls": e.last_stats["vocoder_calls"],
+                           "gpt_steps": e.last_stats["gpt_steps"], "decode_batches": e.last_stats["decode_batches"]}
+        marks["dp"] = time.perf_counter() - t0
+        del e
+        out["ok"] = True
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+
+
+def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dict:
+    """The multi-device path (parallel/mesh.py) at the published widths,
+    random init from seed 0: two ranks spawned on the one card over gloo
+    (NCCL with a card per rank where there are two), each building the whole
+    model and keeping its shard (mesh_rank), against one process on the same
+    card: (a) float32, TF32 off, tp = 2: the 16 forced steps' logits within
+    MESH_F32_GATE, and a greedy 32-code request token for token (a first
+    divergence only at a step whose top-2 margin is under the gate); (b)
+    bf16, tp = 2: the forced steps' drift within MESH_BF16_GATE, a greedy
+    100-code request, infer_batch of 4 requests at dp = 2 with K1 at 109
+    launches per vocoder call on each rank; (c) int8 weights at tp = 2: K5
+    on each shard shape within the k5 phase's bound, 97 launches a step on
+    each rank, and each rank's own K5 device ms per step beside one
+    process's. Host ms per decode step beside one process's, with the
+    backend."""
+    import pickle
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import qmatmul as k5
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
+
+    import gc
+
+    gc.collect()  # the earlier phases' engines: their blocks go back to the card before the ranks start
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    one = {}
+    e = mesh_engine(cfg_path, False, device, mesh=False)
+    one["f32_greedy"] = greedy_request(e, 32)
+    one["f32_logits"], one["f32_profile"] = mesh_forced(e, profiled=False)
+    del e
+    e = mesh_engine(cfg_path, True, device, mesh=False)
+    one["bf16_greedy"] = greedy_request(e, 100)
+    one["bf16_logits"], one["bf16_profile"] = mesh_forced(e)
+    quantize_unified_voice(e.gpt)
+    one["int8_logits"], one["int8_profile"] = mesh_forced(e, own=(K5_KERNEL,))
+    del e
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+
+    backend = "nccl" if torch.cuda.device_count() >= MESH_WORLD else "gloo"
+    out_dir = os.path.join(REPO, "build", "mesh_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(mesh_rank, args=(MESH_WORLD, port, backend, out_dir, cfg_path, device),
+                                                nprocs=MESH_WORLD, join=False, start_method="spawn")
+    deadline = time.time() + 240
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                raise AssertionError("the mesh ranks did not finish in 240 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks_s = time.perf_counter() - t
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bad = [f"rank {r}: {x.get('error')}" for r, x in enumerate(ranks) if not x["ok"]]
+    if bad:
+        raise AssertionError("\n".join(bad))
+
+    failures, rows = [], []
+    for r, x in enumerate(ranks):
+        f32_drift = float(np.abs(x["f32_logits"] - one["f32_logits"]).max())
+        bf16_drift = float(np.abs(x["bf16_logits"] - one["bf16_logits"]).max())
+        int8_drift = float(np.abs(x["int8_logits"] - one["int8_logits"]).max())
+        a, b = x["f32_greedy"]["codes"], one["f32_greedy"]["codes"]
+        n = min(len(a), len(b))
+        diff = np.nonzero(a[:n] != b[:n])[0]
+        first = int(diff[0]) if diff.size else (None if len(a) == len(b) else n)
+        margin = None if first is None else float(one["f32_greedy"]["margins"][first])
+        exact_ok = first is None or (margin is not None and margin < MESH_F32_GATE)
+        k5_rows = x["k5_shards"]
+        k5_ok = all(k["err_over_bound"] <= 1.0 for k in k5_rows)
+        # each run's prefill launches K5 once, for the mel head on its last position
+        per_step = (x["k5_launches"] - x["k5_runs"]) / x["k5_steps"]
+        want_step = 4 * load_config(cfg_path).gpt.layers + 1
+        dpb = x["dp_batch"]
+        want_k1 = activations_per_call(load_config(cfg_path).bigvgan) * dpb["vocoder_calls"]
+        finite = all(np.isfinite(w.astype(np.float32)).all() and w.size > 0 for w in dpb["wavs"])
+        g16 = x["bf16_greedy"]
+        row = dict(rank=r, describe=x["describe"], dp_describe=x["dp_describe"], f32_drift=f32_drift,
+                   bf16_drift=bf16_drift, int8_drift=int8_drift, f32_first_divergence=first,
+                   f32_divergence_margin=margin, f32_codes=len(a), bf16_codes=len(g16["codes"]),
+                   bf16_codes_equal_one_process=bool(np.array_equal(g16["codes"], one["bf16_greedy"]["codes"])),
+                   k5_shards=k5_rows, k5_launches_per_step=per_step,
+                   k5_own_ms_per_step=x["int8_profile"]["own_ms_per_step"][K5_KERNEL],
+                   host_ms_per_step={k: x[f"{k}_profile"]["host_ms_per_step"] for k in ("f32", "bf16", "int8")},
+                   device_ms_per_step={k: x[f"{k}_profile"]["device_ms_per_step"] for k in ("f32", "bf16", "int8")},
+                   bf16_greedy_ms_per_step=g16["decode_ms_per_step"], comm_ms=x["comm_ms"], seconds=x["seconds"],
+                   dp_batch={k: v for k, v in dpb.items() if k != "wavs"}, dp_k1_want=want_k1)
+        rows.append(row)
+        fmt = lambda v, d=4, unit="": "not measured" if v is None else f"{v:.{d}f}{unit}"
+        log(f"[mesh] rank {r}: {x['describe']}; one [4, 1280] float32 all-reduce over the model group: "
+            f"{x['comm_ms']['device']:.3f} ms on the device's tensors, {x['comm_ms']['host_staged']:.3f} ms staged "
+            f"through host memory; seconds into the rank: {', '.join(f'{k} {v:.1f}' for k, v in x['seconds'].items())}"
+            f" [{card}]")
+        log(f"[mesh] rank {r} (a) float32, TF32 off, tp=2: max |logit| drift over prefill + 16 forced steps, B=4, "
+            f"{f32_drift:.3e} (gate {MESH_F32_GATE}); greedy {len(a)} codes, first divergence from one process "
+            f"{first} (top-2 margin there {margin}) [{card}]")
+        log(f"[mesh] rank {r} (b) bf16, tp=2: drift {bf16_drift:.4f} (gate {MESH_BF16_GATE}); greedy "
+            f"{len(g16['codes'])} codes (equal one process: {row['bf16_codes_equal_one_process']}), "
+            f"{g16['decode_ms_per_step']:.2f} ms a step in infer [{card}]")
+        log(f"[mesh] rank {r} (b) bf16, dp=2: {x['dp_describe']}; infer_batch of 4: decode batches "
+            f"{dpb['decode_batches']}, {dpb['gpt_steps']} steps, {dpb['s']:.2f} s, K1 {dpb['k1_launches']} launches "
+            f"over {dpb['vocoder_calls']} vocoder call(s) (want {want_k1}) [{card}]")
+        for k in k5_rows:
+            log(f"[mesh] rank {r} (c) K5 shard {k['case']:8s} M=4 N={k['N']:5d} K={k['K']:5d} bf16 err "
+                f"{k['max_abs_err']:.3e} (err/bound {k['err_over_bound']:.3f}) [{card}]")
+        log(f"[mesh] rank {r} (c) int8 weights, tp=2: drift {int8_drift:.4f}; K5 {per_step:.1f} launches a step "
+            f"(want {want_step}); K5 own device ms a step {fmt(row['k5_own_ms_per_step'])} (one process "
+            f"{fmt(one['int8_profile']['own_ms_per_step'][K5_KERNEL])}) [{card}]")
+        for k in ("f32", "bf16", "int8"):
+            log(f"[mesh] rank {r} forced decode step, B=4, {k}: host {row['host_ms_per_step'][k]:.2f} ms over "
+                f"{backend} (one process {one[f'{k}_profile']['host_ms_per_step']:.2f} ms), device "
+                f"{fmt(row['device_ms_per_step'][k], 3, ' ms')} (one process "
+                f"{fmt(one[f'{k}_profile']['device_ms_per_step'], 3, ' ms')}) [{card}]")
+        ok = (f32_drift <= MESH_F32_GATE and bf16_drift <= MESH_BF16_GATE and exact_ok and k5_ok
+              and per_step == want_step and dpb["k1_launches"] == want_k1 and dpb["vocoder_calls"] >= 1 and finite
+              and len(g16["codes"]) > 0 and np.isfinite(x["int8_logits"]).all())
+        if not ok:
+            failures.append(row)
+    if failures:
+        raise AssertionError(f"the mesh disagrees with one process or miscounts launches: {failures}")
+    total_s = time.perf_counter() - t_phase
+    log(f"[mesh] phase {total_s:.1f} s (one process {one_s:.1f} s, the ranks {ranks_s:.1f} s) [{card}]")
+    return {"backend": backend, "world": MESH_WORLD, "ranks": rows, "one_process": {
+        k: one[f"{k}_profile"] for k in ("f32", "bf16", "int8")}, "one_process_bf16_greedy_ms_per_step":
+        one["bf16_greedy"]["decode_ms_per_step"], "seconds": total_s,
+        "k5_launches_per_step_per_rank": rows[0]["k5_launches_per_step"],
+        "k5_own_ms_per_step": max((r["k5_own_ms_per_step"] for r in rows if r["k5_own_ms_per_step"] is not None),
+                                  default=None),
+        "k5_own_ms_per_step_one_process": one["int8_profile"]["own_ms_per_step"][K5_KERNEL],
+        "k5_max_abs_err": max(k["max_abs_err"] for r in rows for k in r["k5_shards"]),
+        "k5_shard_shapes": [(k["case"], k["N"], k["K"]) for k in rows[0]["k5_shards"]],
+        "k1_launches": rows[0]["dp_batch"]["k1_launches"], "k1_vocoder_calls": rows[0]["dp_batch"]["vocoder_calls"]}
+
+
+def load_config(path: str):
+    from indextts_tpu_torch.config import load_config as load
+
+    return load(path)
 
 
 def activation_bound(stages, calls_per_stage: int, extra=()):
@@ -2508,7 +2882,7 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
 
 
 PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt", "legacy",
-          "fidelity")
+          "fidelity", "mesh")
 
 
 def main(argv) -> int:
@@ -2556,7 +2930,7 @@ def main(argv) -> int:
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
-                 "fidelity": fidelity_phase}
+                 "fidelity": fidelity_phase, "mesh": mesh_phase}
     if only is not None:
         summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
@@ -2579,6 +2953,7 @@ def main(argv) -> int:
     ckpt = ckpt_phase(card)
     legacy = legacy_phase(card)
     fidelity = fidelity_phase(card)
+    mesh = mesh_phase(card)
 
     layers = load_config(FLAGSHIP).gpt.layers
 
@@ -2632,6 +3007,12 @@ def main(argv) -> int:
     k5_terms = {"bytes": sum(n * k + 2 * m * k + 2 * m * n + 6 * n for k, n in step_shapes) / PEAK_BYTES,
                 "operations": sum(2 * m * k * n for k, n in step_shapes) / PEAK_BF16}
     k5_by = max(k5_terms, key=k5_terms.get)
+    # the same step on one rank's int8 shards at tp = 2 (the mesh phase's shapes)
+    shard = {label: (k, n) for label, n, k in mesh["k5_shard_shapes"]}
+    tp2_shapes = [shard[c] for c in ("qkv", "proj", "fc", "mlp_proj")] * layers + [shard["head"]]
+    k5_tp2_terms = {"bytes": sum(n * k + 2 * m * k + 2 * m * n + 6 * n for k, n in tp2_shapes) / PEAK_BYTES,
+                    "operations": sum(2 * m * k * n for k, n in tp2_shapes) / PEAK_BF16}
+    k5_tp2_by = max(k5_tp2_terms, key=k5_tp2_terms.get)
 
     report = {
         "device": card,
@@ -2655,6 +3036,7 @@ def main(argv) -> int:
         "ckpt": ckpt,
         "legacy": legacy,
         "fidelity": fidelity,
+        "mesh": mesh,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"), "w") as f:
@@ -2666,6 +3048,7 @@ def main(argv) -> int:
         "name": "fused_anti_alias_snake", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": ckpt["k1_launches"], "launches_engine_phase": eng["k1_launches"],
         "launches_legacy_phase": legacy["k1_launches"], "launches_fidelity_phase": fidelity["k1_launches"],
+        "launches_mesh_phase_per_rank": mesh["k1_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": k1_per_voc["k1"], "plain_ms": k1_per_voc["plain"],
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "call_ms": k1_per_voc["call"],
@@ -2696,6 +3079,12 @@ def main(argv) -> int:
         "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
         "call_ms": per_step("device_ms", "ms"),  # the wrapper launches nothing but the kernel at bf16
         "bf16_linear_ms": k5_per_step[4]["bf16_linear_ms"],  # another function (bf16 weights): a yardstick only
+        # one rank's int8 shards at tp = 2, per decode step at M = 4: launches, own device ms (profiler, in the
+        # forced steps), the bound of the shards' bytes / operations, and one process's own ms beside them
+        "mesh_tp2": {"launches_per_step_per_rank": mesh["k5_launches_per_step_per_rank"],
+                     "ms": mesh["k5_own_ms_per_step"], "one_process_ms": mesh["k5_own_ms_per_step_one_process"],
+                     "bound_ms": 1e3 * k5_tp2_terms[k5_tp2_by], "bound_by": k5_tp2_by,
+                     "max_abs_err": mesh["k5_max_abs_err"], "shapes_N_K": mesh["k5_shard_shapes"]},
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,9 @@
 
 The reference CLI's flags (indextts/cli.py:7-70) plus the JAX CLI's --fast
 (bucketed batch inference, IndexTTS.infer_fast), --fast-latents,
---quant-kv (the int8 KV cache) and --batch-file (a TSV of jobs run as one
-IndexTTS.infer_batch call). The weights come from --model_dir: the
+--quant-kv (the int8 KV cache), --batch-file (a TSV of jobs run as one
+IndexTTS.infer_batch call) and --tp (tensor parallelism over the ranks of a
+torchrun launch: every rank runs main, rank 0 writes the output). The weights come from --model_dir: the
 reference's gpt.pth, bigvgan_generator.pth and bpe.model, or the .npz caches
 of the converted checkpoints; a missing one raises FileNotFoundError, as the
 JAX CLI does.
@@ -41,6 +42,10 @@ def main(argv=None):
                              "removal changes nothing; consistent-positions mode)")
     parser.add_argument("--quant-kv", action="store_true", default=False,
                         help="Int8-quantized KV cache for the decode (near-parity outputs)")
+    parser.add_argument("--tp", type=int, default=None,
+                        help="Tensor-parallel degree over the ranks of a torchrun launch (default 2 when the "
+                             "world is even; one process ignores it): torchrun --nproc-per-node N -m "
+                             "indextts_tpu_torch.cli ... --tp T; rank 0 writes the output")
     parser.add_argument("--batch-file", type=str, default=None,
                         help="TSV of synthesis jobs, one per line: 'text' (uses -v voice) or 'voice_path<TAB>text'. "
                              "All jobs run as ONE batch (engine.infer_batch: decode batches across requests)")
@@ -58,6 +63,10 @@ def main(argv=None):
             print(f"Audio prompt file {args.voice} does not exist.")
             parser.print_help()
             sys.exit(1)
+    if not os.path.exists(args.config):
+        print(f"Config file {args.config} does not exist.")
+        parser.print_help()
+        sys.exit(1)
     output_path = args.output_path or ("gen_batch" if args.batch_file else "gen.wav")
     if not args.batch_file and os.path.exists(output_path) and not args.force:
         print(f"ERROR: Output file {output_path} already exists. Use --force to overwrite.")
@@ -67,7 +76,7 @@ def main(argv=None):
     from indextts_tpu_torch.engine import IndexTTS
 
     tts = IndexTTS(cfg_path=args.config, model_dir=args.model_dir, is_fp16=args.fp16, device=args.device,
-                   quant_kv=args.quant_kv, fast_latents=args.fast_latents)
+                   tp=args.tp, quant_kv=args.quant_kv, fast_latents=args.fast_latents)
     if items is not None:
         os.makedirs(output_path, exist_ok=True)
         paths = [os.path.join(output_path, f"{i:03d}.wav") for i in range(len(items))]

@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
 from indextts_tpu_torch.convert import (convert_bigvgan, convert_unified_voice, load_params_npz, load_torch_state_dict,
@@ -65,6 +66,8 @@ from indextts_tpu_torch.models.gpt_decode import (
     generate_speech_segmented,
     prefill_decode_state,
 )
+from indextts_tpu_torch.ops.sampling import RowDraw
+from indextts_tpu_torch.parallel.mesh import env_world_size, init_distributed, make_mesh, shard_batch, shard_gpt_params
 from indextts_tpu_torch.utils.audio import decode_audio, resample, write_wav
 from indextts_tpu_torch.utils.front import TextNormalizer, TextTokenizer
 from indextts_tpu_torch.utils.mel import MelSpectrogramFeatures
@@ -105,6 +108,8 @@ class IndexTTS:
         use_cuda_kernel: bool = True,
         allow_random_init: bool = False,
         seed: int = 0,
+        use_mesh: Optional[bool] = None,
+        tp: Optional[int] = None,
         quant_kv: bool = False,
         fast_latents: bool = False,
     ):
@@ -125,7 +130,26 @@ class IndexTTS:
         the final-norm hiddens it computes (for beams, the winner's), and
         the teacher-forced latent pass is skipped whenever silence removal
         left the codes as they were. Codes then differ slightly from the
-        reference's generate() (other positions); off by default."""
+        reference's generate() (other positions); off by default.
+        `use_mesh` / `tp`: run as one rank of a (data, model) mesh over
+        torch.distributed (parallel/mesh.py): the GPT tensor-parallel over
+        `tp` ranks (default 2 where the world is even), batch rows over the
+        data groups. use_mesh=None means on when the process group is
+        initialized, or torchrun's environment is set, with more than one
+        rank (the group is then initialized from that environment). Every
+        rank builds or loads the whole model from the same seed or checkpoint
+        and keeps its shard, and makes the same calls with the same
+        arguments; each request is checked for that (_agree). The device is
+        cuda:{LOCAL_RANK} when every local rank has a card, else the one
+        card (over gloo). Only rank 0 writes output files. `self.mesh` is
+        None on one process."""
+        self.mesh = None
+        if use_mesh is None:
+            use_mesh = env_world_size() > 1
+        if use_mesh and env_world_size() > 1:
+            init_distributed(device)
+            self.mesh = make_mesh(tp=tp, device=device)
+            device = self.mesh.device
         self.device = torch.device(device)
         self.is_fp16 = bool(is_fp16) and self.device.type != "cpu"
         self.dtype = torch.bfloat16 if self.is_fp16 else torch.float32
@@ -147,6 +171,11 @@ class IndexTTS:
         for m in (self.gpt, self.bigvgan):
             # .to(device) also moves buffers built from numpy (the conformer's PE table)
             m.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
+        if self.mesh is not None:
+            # the GPT keeps this rank's tensor-parallel shard; the vocoder,
+            # ECAPA and the conditioning encoders stay replicated
+            shard_gpt_params(self.gpt, self.mesh, quant_kv=self.quant_kv)
+            print(f">> mesh: {self.mesh.describe()} (tensor-parallel GPT)")
 
         bpe_path = os.path.join(model_dir, self.cfg.dataset.get("bpe_model", "bpe.model"))
         self.normalizer = TextNormalizer()
@@ -400,18 +429,34 @@ class IndexTTS:
         or one row per text row; each dynamic knob a float or a numpy [B]
         with one value per row. Returns (codes,
         lengths) in numpy, the captured latents [B, max_new, D] on the device
-        under fast_latents (else None), and the number of decode steps run."""
+        under fast_latents (else None), and the number of decode steps run.
+        On a mesh with data groups, B > 1 rows pad to a multiple of dp by
+        repeating the last row (as the JAX engine does), each data group
+        decodes its slice, and the outputs are gathered and the padding cut
+        off (_dp_decode)."""
         b, l0 = text_tokens.shape
         padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
         padded[:, :l0] = text_tokens
+        text_lengths = np.asarray(text_lengths)
+        conds = conds.expand(b, -1, -1)
+        knobs = (temperature, top_p, repetition_penalty, length_penalty, typical_mass)
+        if self.mesh is not None and self.mesh.dp > 1 and b > 1:
+            codes, lengths, lat, steps = self._dp_decode(conds, padded, text_lengths, gen, knobs)
+        else:
+            codes, lengths, lat, steps = self._decode(conds, padded, text_lengths, gen, knobs, self._generator)
+        return codes.cpu().numpy(), lengths.cpu().numpy(), lat, steps
+
+    def _decode(self, conds, padded: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig, knobs,
+                generator):
+        """_gpt_generate's decode on rows already padded to their bucket;
+        returns the codes and lengths as device tensors."""
         capture = self.fast_latents
         # a knob given per row (infer_batch's per_request_kwargs) goes in as a [B] tensor
         temperature, top_p, repetition_penalty, length_penalty, typical_mass = (
             torch.as_tensor(v, dtype=torch.float32, device=self.device) if isinstance(v, np.ndarray) else v
-            for v in (temperature, top_p, repetition_penalty, length_penalty, typical_mass))
-        args = (self.gpt, self.cfg.gpt, gen, conds.expand(b, -1, -1).to(self.dtype),
-                torch.from_numpy(padded).to(self.device),
-                torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=self.device), self._generator)
+            for v in knobs)
+        args = (self.gpt, self.cfg.gpt, gen, conds.to(self.dtype), torch.from_numpy(padded).to(self.device),
+                torch.as_tensor(text_lengths, dtype=torch.long, device=self.device), generator)
         kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
                   typical_mass=typical_mass, quant_kv=self.quant_kv, capture_latents=capture,
                   pos_off=1 if capture else 2)
@@ -426,10 +471,34 @@ class IndexTTS:
             out = generate_speech_beam(*args, length_penalty=length_penalty, stats=stats, **kw)
         else:
             out = generate_speech(*args, **kw)
-        codes, lengths = out[0].cpu().numpy(), out[1].cpu().numpy()
         self._decode_segments += stats.get("segments", 0)
-        steps = stats.get("steps", int(lengths.max()) - 1)
-        return codes, lengths, (out[2] if capture else None), steps
+        steps = stats.get("steps", int(out[1].max()) - 1)
+        return out[0], out[1], (out[2] if capture else None), steps
+
+    def _dp_decode(self, conds, padded: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig, knobs):
+        """The data-parallel decode: the batch padded to a multiple of dp by
+        repeating its last row, this data group's rows decoded (a RowDraw
+        keeps the sampled draws those of the whole padded batch), codes,
+        lengths and captured latents gathered over the data group and the
+        padding sliced off. The data groups run different numbers of steps,
+        so the generator state of the one that ran the most (that of a
+        single process) is then broadcast to every rank."""
+        mesh, b = self.mesh, padded.shape[0]
+        rep = lambda a: np.concatenate([a, np.repeat(a[-1:], -b % mesh.dp, axis=0)])
+        padded, text_lengths = rep(padded), rep(text_lengths)
+        n = padded.shape[0]
+        conds = torch.cat([conds, conds[-1:].expand(n - b, -1, -1)])
+        start, stop = mesh.rows(n)
+        knobs = tuple(rep(v)[start:stop] if isinstance(v, np.ndarray) else v for v in knobs)
+        codes, lengths, lat, steps = self._decode(conds[start:stop], padded[start:stop], text_lengths[start:stop],
+                                                  gen, knobs, RowDraw(self._generator, start, n))
+        gather = mesh.data.gather
+        codes, lengths = gather(codes)[:b], gather(lengths)[:b]
+        lat = None if lat is None else gather(lat)[:b]
+        steps_all = gather(torch.tensor([steps], device=self.device)).tolist()
+        src = int(np.argmax(steps_all)) * mesh.tp  # model index 0 of the data group that ran the most steps
+        self._generator.set_state(mesh.world.broadcast(self._generator.get_state(), src))
+        return codes, lengths, lat, max(steps_all)
 
     @torch.no_grad()
     def _gpt_latent(self, conds, text_tokens: np.ndarray, codes: np.ndarray, code_lens: np.ndarray,
@@ -447,12 +516,12 @@ class IndexTTS:
         codes_p[:, :lc0] = codes
         dev = self.device
         return unified_voice_forward(
-            self.gpt, self.cfg.gpt,
-            torch.from_numpy(text).to(dev),
-            torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
-            torch.from_numpy(codes_p).to(dev),
-            torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
-            conds=conds.expand(b, -1, -1).to(self.dtype), mask_pad_keys=True,
+            self.gpt, self.cfg.gpt, None,
+            text_inputs=torch.from_numpy(text).to(dev),
+            text_lengths=torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
+            mel_codes=torch.from_numpy(codes_p).to(dev),
+            wav_lengths=torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
+            cond_mel_lengths=None, conds=conds.expand(b, -1, -1).to(self.dtype), mask_pad_keys=True,
         )
 
     def _gpt_latent_many(self, rows) -> List[torch.Tensor]:
@@ -523,6 +592,18 @@ class IndexTTS:
         wav = wav[..., 0].float().cpu().numpy()
         return wav[:, : n_valid * self._samples_per_code()]
 
+    def _vocode_rows(self, latent: torch.Tensor, mel_ref: torch.Tensor, lens: torch.Tensor,
+                     split: bool = False) -> torch.Tensor:
+        """One vocoder call: latent [b, m, D], mel_ref [b, frames, 100] and
+        ECAPA's relative lengths [b] -> wav [b, samples] float32. `split`
+        (a mesh with data groups, b a multiple of dp): each data group
+        vocodes its slice of the rows and the waves are gathered."""
+        if split:
+            latent, mel_ref, lens = shard_batch(self.mesh, (latent, mel_ref, lens))
+        wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, latent, mel_ref, lens=lens,
+                            use_cuda_kernel=self.use_cuda_kernel)[:, :, 0].float()
+        return self.mesh.data.gather(wav) if split else wav
+
     @staticmethod
     def _vocode_batches(chunks) -> List[Tuple[int, List[int]]]:
         """The vocoder calls _vocode_many makes for `chunks`, each as (prompt
@@ -548,13 +629,16 @@ class IndexTTS:
         _vocode_batches, each latent zero-padded to the batch's longest
         rounded up to 32 frames, the batch padded to a power of two with zero
         rows. Each row's ECAPA relative length masks its own zero-padded
-        prompt frames."""
+        prompt frames. On a mesh with data groups, a batch of more than one
+        chunk pads to a multiple of dp, each data group vocodes its slice of
+        the rows and the waves are gathered (the vocoder is replicated)."""
         spc = self._samples_per_code()
         out: List[Optional[np.ndarray]] = [None] * len(chunks)
         for fb, part in self._vocode_batches(chunks):
             m = max(_round_up(max(chunks[i][0].shape[1] for i in part), 32), 32)
             b0 = len(part)
-            b = 1 << (b0 - 1).bit_length()
+            dp = self.mesh.dp if self.mesh is not None and b0 > 1 else 1
+            b = _round_up(1 << (b0 - 1).bit_length(), dp)
             lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
                         for i in part]
             if b != b0:
@@ -566,10 +650,9 @@ class IndexTTS:
                 mel = chunks[i][2]
                 mel_b[j, : mel.shape[-1]] = mel[0].T
                 rel[j] = mel.shape[-1] / fb
-            wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, torch.cat(lat_rows, dim=0),
-                                torch.from_numpy(mel_b).to(self.device, self.dtype),
-                                lens=torch.from_numpy(rel).to(self.device), use_cuda_kernel=self.use_cuda_kernel)
-            wav16 = torch.clamp(wav[:b0, :, 0].float() * 32767.0, -32767.0, 32767.0).to(torch.int16)
+            wav = self._vocode_rows(torch.cat(lat_rows, dim=0), torch.from_numpy(mel_b).to(self.device, self.dtype),
+                                    torch.from_numpy(rel).to(self.device), split=dp > 1)
+            wav16 = torch.clamp(wav[:b0] * 32767.0, -32767.0, 32767.0).to(torch.int16)
             wav_np = wav16.cpu().numpy()
             for j, i in enumerate(part):
                 out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
@@ -657,6 +740,7 @@ class IndexTTS:
             print("sentences count:", len(sentences))
             print(*sentences, sep="\n")
         gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        self._agree("infer", sentences, prompt_mel.shape, gen, dyn)
         sampling_rate = 24000
 
         m_start = time.perf_counter()
@@ -819,6 +903,8 @@ class IndexTTS:
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
         if not sentences:
             raise ValueError("Text is empty (nothing to synthesize after tokenization).")
+        self._agree("infer_stream", sentences, prompt_mel.shape, gen, dyn, first_chunk_codes, chunk_codes,
+                    overlap_codes)
         spc = self._samples_per_code()
         pos_off = 1 if self.fast_latents else 2
         stats = self.last_stats = {"ttfa_s": None, "chunk_s": [], "chunk_codes": [], "gpt_calls": 0, "gpt_steps": 0,
@@ -902,6 +988,7 @@ class IndexTTS:
             print(">> text token count:", len(text_tokens_list))
             print("   splited sentences count:", len(sentences))
         gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        self._agree("infer_fast", sentences, prompt_mel.shape, gen, dyn, sentences_bucket_max_size)
         sampling_rate = 24000
 
         m_start = time.perf_counter()
@@ -1061,6 +1148,8 @@ class IndexTTS:
             flat_sents.extend(sents)
         if verbose:
             print(f">> {len(flat_sents)} sentence rows across {len(items)} requests")
+        self._agree("infer_batch", flat_sents, flat_req, [m.shape for m in req_mels], gen, base_dyn,
+                    per_request_kwargs, sentences_bucket_max_size)
 
         # cross-request length buckets (idx is the flat row index, which gives the owning request)
         self._set_gr_progress(0.1, "text processing...")
@@ -1232,7 +1321,23 @@ class IndexTTS:
                   f"streaming={streaming})")
         return dt
 
+    def _agree(self, *request) -> None:
+        """On a mesh, check that every rank got the same request (its text
+        tokens, knobs and prompt mel shape): a rank that went its own way
+        would otherwise wait in a collective that the others never reach.
+        One all_reduce (max) of (hash, -hash) over the world's gloo group;
+        every rank raises on a mismatch."""
+        if self.mesh is None:
+            return
+        h = int.from_bytes(hashlib.sha1(repr(request).encode()).digest()[:7], "big")
+        t = self.mesh.world.all_reduce(torch.tensor([h, -h], dtype=torch.int64), op=dist.ReduceOp.MAX)
+        if int(t[0]) != -int(t[1]):
+            raise RuntimeError(f"rank {self.mesh.rank}: the ranks of the mesh got different requests "
+                               f"(every rank must make the same engine calls with the same arguments)")
+
     def _emit(self, wav: np.ndarray, output_path: Optional[str], sampling_rate: int):
+        if output_path and self.mesh is not None and self.mesh.rank != 0:
+            return output_path  # rank 0 writes the file
         if output_path:
             if os.path.isfile(output_path):
                 os.remove(output_path)

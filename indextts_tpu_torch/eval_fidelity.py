@@ -6,7 +6,9 @@ With dvae.pth / bigvgan_discriminator.pth in --model_dir it converts and
 uses them (indextts_tpu_torch/convert.py) and reports the reference-comparable
 numbers; without them it runs on seeded random init (the JAX init_*
 distributions, seed 0), so the loop itself stays exercised. The DVAE and
-the discriminators run in float32.
+the discriminators run in float32, and on CUDA without TF32: the tool turns
+cuDNN's and cuBLAS's TF32 off for its run and restores them afterwards
+(float32_numerics), so its numbers are float32's whatever the caller set.
 
 Usage:
   python -m indextts_tpu_torch.eval_fidelity --wav tests/sample_prompt.wav \\
@@ -18,6 +20,7 @@ It prints one JSON line with the keys of tools/eval_fidelity.py.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -126,10 +129,31 @@ def discriminator_losses(f: Fidelity) -> List[torch.Tensor]:
             feature_loss(fr2, fg2)]
 
 
+@contextlib.contextmanager
+def float32_numerics(device: str):
+    """On CUDA, TF32 off for cuDNN's convolutions and cuBLAS's matmuls (cuDNN
+    allows it by default) while the block runs; both flags restored after."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
 def fidelity_report(args: argparse.Namespace) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """(report, extras): the report of tools/eval_fidelity.py, and the DVAE
     codes [1, T/4] with the device-synchronized ms of each stage (dvae_ms,
-    disc_ms: from the launch to the scalars on the host)."""
+    disc_ms: from the launch to the scalars on the host), in float32
+    (float32_numerics)."""
+    with float32_numerics(args.device):
+        return _fidelity_report(args)
+
+
+def _fidelity_report(args: argparse.Namespace) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     f = load(args)
     if f.mel.is_cuda:
         torch.cuda.synchronize(f.mel.device)

@@ -28,6 +28,8 @@ from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.conv import conv1d
 from indextts_tpu_torch.ops.norms import group_norm, layer_norm
+from indextts_tpu_torch.ops.quant import linear_no_bias
+from indextts_tpu_torch.parallel.mesh import copy_to_region, gather_from_region, reduce_from_region
 from indextts_tpu_torch.weights import default_init_, normal_, uniform_
 
 NEG = torch.finfo(torch.float32).min
@@ -45,9 +47,38 @@ def _attn(q, k, v, bias):
     return attn @ v
 
 
+def _col(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel product (attn_qkv, mlp_fc): on a tensor-parallel
+    shard the input's gradient is all-reduced over the model group."""
+    comm = getattr(lin, "tp_comm", None)
+    return lin(x if comm is None else copy_to_region(x, comm))
+
+
+def _row(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product (attn_proj, mlp_proj): on a shard, the partial
+    sums are all-reduced over the model group and the bias added once."""
+    comm = getattr(lin, "tp_comm", None)
+    if comm is None:
+        return lin(x)
+    y = reduce_from_region(linear_no_bias(lin, x), comm)
+    return y + lin.bias.to(y.dtype)
+
+
+def head_logits(lin: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """The mel / text head; a vocabulary-split head's logits are gathered,
+    so every rank holds the whole [..., V]."""
+    comm = getattr(lin, "tp_comm", None)
+    if comm is None:
+        return lin(h)
+    return gather_from_region(lin(copy_to_region(h, comm)), comm)
+
+
 class GPT2Block(nn.Module):
     """One GPT-2 block; weights as HF Conv1D, y = x @ W + b. The four
-    linears may be ops/quant.QuantLinear (quantize_gpt_blocks)."""
+    linears may be ops/quant.QuantLinear (quantize_gpt_blocks). On a
+    tensor-parallel shard (parallel/mesh.shard_gpt_params) attn_qkv holds
+    this rank's heads of q, k and v, and the head count and widths below are
+    the local ones; `heads` is always the model's."""
 
     def __init__(self, d: int):
         super().__init__()
@@ -59,17 +90,24 @@ class GPT2Block(nn.Module):
         self.mlp_proj = nn.Linear(4 * d, d)
 
     def _mlp(self, x):
-        return x + self.mlp_proj(gelu_new(self.mlp_fc(_ln(self.ln_2, x))))
+        return x + _row(self.mlp_proj, gelu_new(_col(self.mlp_fc, _ln(self.ln_2, x))))
+
+    def qkv(self, x: torch.Tensor, heads: int):
+        """q, k, v of x [..., D], each [..., local heads, Dh]."""
+        y = _col(self.attn_qkv, _ln(self.ln_1, x))
+        dl, dh = y.shape[-1] // 3, x.shape[-1] // heads
+        return (t.reshape(*t.shape[:-1], dl // dh, dh) for t in y.split(dl, dim=-1))
+
+    def proj(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        """The block's rest after attention: x + attn_proj(a), then the MLP."""
+        return self._mlp(x + _row(self.attn_proj, a))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, heads: int):
         """Full sequence x [B, T, D] -> (out, (k, v) each [B, H, T, Dh])."""
-        b, t, d = x.shape
-        q, k, v = (
-            y.reshape(b, t, heads, d // heads).transpose(1, 2)
-            for y in self.attn_qkv(_ln(self.ln_1, x)).split(d, dim=-1)
-        )
-        a = _attn(q, k, v, bias).transpose(1, 2).reshape(b, t, d)
-        return self._mlp(x + self.attn_proj(a)), (k, v)
+        b, t, _ = x.shape
+        q, k, v = (y.transpose(1, 2) for y in self.qkv(x, heads))
+        a = _attn(q, k, v, bias).transpose(1, 2).reshape(b, t, -1)
+        return self.proj(x, a), (k, v)
 
     def step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
              bias: torch.Tensor, heads: int) -> torch.Tensor:
@@ -77,17 +115,16 @@ class GPT2Block(nn.Module):
         [B, 1, S] masks slot `pos`: the token's own K/V enter the softmax as
         an extra logit, as in JAX _decode_block, and are then written into
         slot `pos` of the caches in place."""
-        b, d = x.shape
-        dh = d // heads
-        q, k, v = (y.reshape(b, heads, dh) for y in self.attn_qkv(_ln(self.ln_1, x)).split(d, dim=-1))
-        scale = 1.0 / math.sqrt(dh)
+        b = x.shape[0]
+        q, k, v = self.qkv(x, heads)
+        scale = 1.0 / math.sqrt(q.shape[-1])
         s = (q[:, :, None] @ k_cache.transpose(-1, -2))[:, :, 0].float()
         scores = torch.cat([s * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         a = (attn[:, :, None, :-1] @ v_cache)[:, :, 0] + attn[..., -1:] * v
         k_cache[:, :, pos] = k
         v_cache[:, :, pos] = v
-        return self._mlp(x + self.attn_proj(a.reshape(b, d)))
+        return self.proj(x, a.reshape(b, -1))
 
 
 class GPT2(nn.Module):
@@ -286,32 +323,33 @@ def _frame(tokens: torch.Tensor, start: int, stop: int) -> Tuple[torch.Tensor, t
 def unified_voice_forward(
     model: UnifiedVoice,
     cfg: GPTConfig,
+    speech_conditioning_mel: Optional[torch.Tensor],
     text_inputs: torch.Tensor,
     text_lengths: torch.Tensor,
     mel_codes: torch.Tensor,
     wav_lengths: torch.Tensor,
-    conds: Optional[torch.Tensor] = None,
-    *,
-    speech_conditioning_mel: Optional[torch.Tensor] = None,
-    cond_mel_lengths: Optional[torch.Tensor] = None,
+    cond_mel_lengths: Optional[torch.Tensor],
     return_latent: bool = True,
     text_first: bool = True,
+    conds: Optional[torch.Tensor] = None,
     types: Optional[torch.Tensor] = None,
-    mask_pad_keys: bool = True,
+    mask_pad_keys: bool = False,
 ):
     """Teacher-forced pass (reference: model.py:521-589; JAX
-    unified_voice_forward). Returns the vocoder latents [B, T_mel, D]
-    (return_latent), else (loss_text, loss_mel, mel_logits [B, V, T_mel + 2]).
+    unified_voice_forward, with its argument order and defaults). Returns the
+    vocoder latents [B, T_mel, D] (return_latent), else (loss_text, loss_mel,
+    mel_logits [B, V, T_mel + 2]).
 
     `conds` are precomputed conditioning latents; when None they come from
-    get_conditioning(speech_conditioning_mel, cond_mel_lengths). `types`
-    [B] moves each row's text into its own embedding range (model.py:541-543).
-    `text_first=False` puts the mel block before the text block.
-    `mask_pad_keys` masks the keys that exist only because of shape
-    bucketing: framed text positions >= text_len + 2 and mel positions >=
-    mel_code_len + 1. It defaults to True here, where JAX's default is False:
-    the port's callers (the engine, and the latent tests since the port's
-    first slice) run bucket-padded rows, and pass conds positionally."""
+    get_conditioning(speech_conditioning_mel, cond_mel_lengths), which may
+    then be None. `types` [B] moves each row's text into its own embedding
+    range (model.py:541-543). `text_first=False` puts the mel block before
+    the text block. `mask_pad_keys` masks the keys that exist only because
+    of shape bucketing: framed text positions >= text_len + 2 and mel
+    positions >= mel_code_len + 1 (the engine's latent pass sets it). On a
+    tensor-parallel model (parallel/mesh.shard_gpt_params) the vocabulary
+    shards of the heads are gathered, so every rank returns the whole
+    logits and losses."""
     if conds is None:
         conds = get_conditioning(model, cfg, speech_conditioning_mel, cond_mel_lengths)
     if types is not None:
@@ -341,7 +379,7 @@ def unified_voice_forward(
         # the second block, without the two trailing frames this forward adds (model.py:576-578)
         return second_out[:, :-2]
     text_out, mel_out = (first_out, second_out) if text_first else (second_out, first_out)
-    text_logits, mel_logits = model.text_head(text_out), model.mel_head(mel_out)
+    text_logits, mel_logits = head_logits(model.text_head, text_out), head_logits(model.mel_head, mel_out)
 
     def ce(logits, targets):
         return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten())

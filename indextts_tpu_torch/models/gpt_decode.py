@@ -56,7 +56,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, _ln, get_conditioning, gpt2_apply
+from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
     Knob,
@@ -66,6 +66,7 @@ from indextts_tpu_torch.ops.sampling import (
     greedy_token,
     process_logits,
     sample_token,
+    uniforms,
 )
 
 NEG_INF = torch.finfo(torch.float32).min  # a dead beam's score, as in JAX
@@ -185,8 +186,8 @@ def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor, return_normed: bool =
     it beside the logits."""
     h = layer_norm(hidden, model.final_norm.weight, model.final_norm.bias)
     if return_normed:
-        return model.mel_head(h), h
-    return model.mel_head(h)
+        return head_logits(model.mel_head, h), h
+    return head_logits(model.mel_head, h)
 
 
 def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch.Tensor, cache_len: int,
@@ -217,6 +218,9 @@ def _quant_cols(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     column of JAX's head-paired cache (gpt_decode.py:326-336). Returns (q
     [..., H, S, Dh] int8, s [..., H/2, S] float32), t ~ q * s."""
     *lead, h, s_len, dh = t.shape
+    if h % 2:
+        raise ValueError(f"the int8 KV cache scales head pairs: {h} heads (a tensor-parallel shard built "
+                         "for quant_kv keeps an even count, parallel/mesh._check_divisible)")
     tf = t.float().reshape(*lead, h // 2, 2, s_len, dh)
     amax = tf.abs().amax(dim=(-3, -1))
     s = torch.clamp(amax, min=1e-8) / 127.0
@@ -232,10 +236,9 @@ def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: tor
     quantized into slot `pos` in place. Dequantization in JAX's order
     (_decode_block_q): scores contract in x's dtype and then take ks in
     float32; the attention weights take vs in float32 before the cast."""
-    b, d = x.shape
-    dh = d // heads
-    q, k, v = (y.reshape(b, heads, dh) for y in block.attn_qkv(_ln(block.ln_1, x)).split(d, dim=-1))
-    scale = 1.0 / math.sqrt(dh)
+    b = x.shape[0]
+    q, k, v = block.qkv(x, heads)
+    scale = 1.0 / math.sqrt(q.shape[-1])
     ksh, vsh = ks.repeat_interleave(2, dim=1), vs.repeat_interleave(2, dim=1)  # [B, H, S]
     s = (q[:, :, None] @ k8.to(x.dtype).transpose(-1, -2))[:, :, 0].float()
     scores = torch.cat([s * ksh * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
@@ -246,7 +249,7 @@ def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: tor
         q8, qs = _quant_cols(new[:, :, None])
         cache8[:, :, pos] = q8[:, :, 0]
         cache_s[:, :, pos] = qs[:, :, 0]
-    return block._mlp(x + block.attn_proj(a.reshape(b, d)))
+    return block.proj(x, a.reshape(b, -1))
 
 
 def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: Union[int, torch.Tensor], cache,
@@ -507,8 +510,9 @@ def _beam_joint_scores(logits: torch.Tensor, seen: torch.Tensor, beam_scores: to
 
 def beam_uniforms(shape, generator: torch.Generator, device) -> torch.Tensor:
     """The uniforms of one sampled successor draw (the tests replace this
-    function with a recorded stream)."""
-    return torch.rand(shape, generator=generator, device=device)
+    function with a recorded stream); a RowDraw takes its rows of the whole
+    batch's draw (ops/sampling.uniforms)."""
+    return uniforms(shape, generator, device)
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -71,12 +71,16 @@ class SlotState:
 
 
 def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_len: int, dtype: torch.dtype,
-                    device="cpu", capture_latents: bool = False, quant_kv: bool = False) -> SlotState:
+                    device="cpu", capture_latents: bool = False, quant_kv: bool = False,
+                    heads: Optional[int] = None) -> SlotState:
     """The empty state. cache_len (S) must reach the longest admitted prefill
-    + gen.max_new_tokens (slot_admit checks each admission)."""
+    + gen.max_new_tokens (slot_admit checks each admission). `heads`: the
+    attention heads of the cache, cfg.heads, or a tensor-parallel shard's
+    (parallel/mesh.local_heads)."""
     b, dev = n_slots, torch.device(device)
-    shape5 = (cfg.layers, b, cfg.heads, cache_len, cfg.model_dim // cfg.heads)
-    shape4 = (cfg.layers, b, cfg.heads // 2, cache_len)
+    h = cfg.heads if heads is None else int(heads)
+    shape5 = (cfg.layers, b, h, cache_len, cfg.model_dim // cfg.heads)
+    shape4 = (cfg.layers, b, h // 2, cache_len)
     if quant_kv:
         cache = (torch.zeros(shape5, dtype=torch.int8, device=dev), torch.zeros(shape4, device=dev),
                  torch.zeros(shape5, dtype=torch.int8, device=dev), torch.zeros(shape4, device=dev))

@@ -17,18 +17,25 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed
 import torch.nn as nn
+import torch.nn.functional as F
 
 from indextts_tpu_torch.ops.cuda.qmatmul import int8_matmul
 
 
-def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, comm=None) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric int8, w ~ q * scale, in the JAX layout:
     w is [Din, Dout] or layer-stacked [L, Din, Dout]; the scale keeps the
     stack and output axes ([..., 1, Dout], float32). Same bytes as JAX: the
-    division runs in float32 and torch.round rounds half to even, as jnp.round."""
+    division runs in float32 and torch.round rounds half to even, as jnp.round.
+    `comm`: w is a row-parallel shard [Din / tp, Dout] and comm its model
+    group (parallel/mesh.Comm); the amax is all-reduced (max) over it, so
+    the scale, and with it every byte, is the one-process quantization's."""
     wf = w.float()
     amax = wf.abs().amax(dim=-2, keepdim=True)
+    if comm is not None:
+        comm.all_reduce(amax, op=torch.distributed.ReduceOp.MAX)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"weight": q, "scale": scale}
@@ -45,6 +52,14 @@ def matmul_maybe_quantized(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tenso
     w = wq.to(x.dtype) * scale.to(x.dtype)[:, None]
     out = x @ w.t()
     return out if bias is None else out + bias.to(out.dtype)
+
+
+def linear_no_bias(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x @ W^T of a Linear or QuantLinear without its bias (a row-parallel
+    shard adds the bias once, after the all-reduce)."""
+    if isinstance(lin, QuantLinear):
+        return matmul_maybe_quantized(x, lin.weight, lin.scale)
+    return F.linear(x, lin.weight)
 
 
 class QuantLinear(nn.Module):
@@ -66,12 +81,19 @@ class QuantLinear(nn.Module):
     @classmethod
     def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
         """Quantize lin's weight per output channel (quantize_weight on the
-        JAX layout [in, out], so the bytes equal JAX's)."""
-        q = cls(lin.in_features, lin.out_features, lin.bias.dtype, lin.weight.device)
-        qd = quantize_weight(lin.weight.detach().t())
+        JAX layout [in, out], so the bytes equal JAX's). A tensor-parallel
+        shard (parallel/mesh.shard_gpt_params) keeps its model group; a
+        row-parallel one takes its scale over the whole input dimension."""
+        out_f, in_f = lin.weight.shape
+        q = cls(in_f, out_f, lin.bias.dtype, lin.weight.device)
+        comm = getattr(lin, "tp_comm", None)
+        row = comm is not None and lin.tp_dim == 1
+        qd = quantize_weight(lin.weight.detach().t(), comm if row else None)
         q.weight.copy_(qd["weight"].t())
         q.scale.copy_(qd["scale"].reshape(-1))
         q.bias.copy_(lin.bias.detach())
+        if comm is not None:
+            q.tp_comm, q.tp_dim = comm, lin.tp_dim
         return q
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ batch (infer_batch's per_request_kwargs, the slot rows).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from dataclasses import dataclass
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -146,8 +147,30 @@ def inverse_cdf_token(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return idx.reshape(-1).clamp_(max=logits.shape[-1] - 1)
 
 
-def sample_token(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+@dataclass(frozen=True)
+class RowDraw:
+    """The generator of a data-parallel rank that decodes rows [start, start
+    + B) of a batch of `total` rows: each draw takes the uniforms of the
+    whole batch from `generator` (in the same state on every rank) and keeps
+    this rank's rows, so sampled codes do not depend on the mesh, as with
+    JAX's one key over the global array."""
+
+    generator: torch.Generator
+    start: int
+    total: int
+
+
+def uniforms(shape: Sequence[int], generator: Union[torch.Generator, RowDraw], device) -> torch.Tensor:
+    """torch.rand(shape) from `generator`; from a RowDraw, the rows [start,
+    start + shape[0]) of the whole batch's draw."""
+    if isinstance(generator, RowDraw):
+        u = torch.rand((generator.total, *shape[1:]), generator=generator.generator, device=device)
+        return u[generator.start : generator.start + shape[0]]
+    return torch.rand(tuple(shape), generator=generator, device=device)
+
+
+def sample_token(logits: torch.Tensor, generator: Union[torch.Generator, RowDraw]) -> torch.Tensor:
     """Categorical sample over masked logits [B, V] -> [B], one uniform per
     row from `generator` (which lives on the logits' device)."""
-    u = torch.rand(logits.shape[0], generator=generator, device=logits.device)
+    u = uniforms((logits.shape[0],), generator, logits.device)
     return inverse_cdf_token(logits, u)

@@ -1047,6 +1047,12 @@ def main(argv=None):
         "batch; num_beams=1 requests only (beams fall back to solo)",
     )
     parser.add_argument(
+        "--tp", type=int, default=None,
+        help="tensor-parallel degree over the ranks of a torchrun launch "
+        "(default 2 when the world is even; one process ignores it): rank 0 "
+        "binds HTTP and the other ranks replay its engine calls",
+    )
+    parser.add_argument(
         "--warmup", action="store_true",
         help="pre-compile the serving graphs for this server's mode and the "
         "web form's default sampling config before binding the port (first "
@@ -1068,11 +1074,20 @@ def main(argv=None):
             cfg_path=args.config, model_dir=args.model_dir, device=args.device,
             allow_random_init=args.random_init,
             fast_latents=args.fast_latents, quant_kv=args.quant_kv,
+            tp=args.tp,
         )
         print(f"Successfully initialized IndexTTS PyTorch engine on {args.device}.")
     except Exception as e:
         print(f"ERROR: Failed to initialize IndexTTS engine: {e}")
         traceback.print_exc()
+
+    if getattr(engine, "mesh", None) is not None:
+        from indextts_tpu_torch.server.mesh_proxy import EngineProxy, follow
+
+        if engine.mesh.rank != 0:
+            follow(engine)  # until rank 0's server shuts down
+            return
+        engine = EngineProxy(engine)
 
     if args.warmup and engine is not None:
         # the static knobs of the SPA form's defaults (templates/index.html)
@@ -1104,6 +1119,8 @@ def main(argv=None):
         app.run(args.host, args.port)
     finally:
         app.shutdown()
+        if hasattr(engine, "stop"):  # the mesh's followers end with the server
+            engine.stop()
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ import torch
 
 from indextts_tpu_torch.engine import _round_up
 from indextts_tpu_torch.models.gpt_slots import slot_admit, slot_prefill, slot_state_init, slot_steps
+from indextts_tpu_torch.parallel.mesh import local_heads
 
 
 #: the dynamic knobs a slot row can override per request: those of
@@ -93,7 +94,8 @@ class SlotSession:
         p_max = cfg.condition_num_latent + engine._text_bucket(self.max_split) + 3
         self.cache_len = _round_up(p_max + gen.max_new_tokens, 64)
         self.state = slot_state_init(cfg, gen, n_slots, self.cache_len, engine.dtype, device=engine.device,
-                                     capture_latents=engine.fast_latents, quant_kv=engine.quant_kv)
+                                     capture_latents=engine.fast_latents, quant_kv=engine.quant_kv,
+                                     heads=local_heads(engine.gpt))
         self.generator = torch.Generator(device=engine.device).manual_seed(seed)
         # the width of a streaming row's latent window: one vocoder shape wherever the window sits
         self._win_w = min(chunk_steps + self.stream_overlap + 1, gen.max_new_tokens)
@@ -145,9 +147,10 @@ class SlotSession:
         sents = eng.tokenizer.split_sentences(eng.tokenizer.tokenize(text), self.max_split)
         if not sents:
             raise ValueError("text is empty (nothing to synthesize)")
+        dyn = {k: float(per_request_kwargs.get(k, self.base_dyn[k])) for k in SLOT_DYNAMIC_PARAMS}
+        eng._agree("submit", sents, mel.shape, dyn, on_chunk is not None)
         rid = self._next_rid
         self._next_rid += 1
-        dyn = {k: float(per_request_kwargs.get(k, self.base_dyn[k])) for k in SLOT_DYNAMIC_PARAMS}
         token_rows = [np.asarray(eng.tokenizer.convert_tokens_to_ids(s), np.int64)[None, :] for s in sents]
         self.requests[rid] = {
             "mel": mel, "n_rows": len(sents), "rows": {}, "output_path": output_path,

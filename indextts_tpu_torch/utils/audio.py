@@ -19,7 +19,6 @@ import wave
 from typing import Optional, Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 
 class UnsupportedAudioFormat(ValueError):
@@ -80,6 +79,8 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return audio
     g = math.gcd(int(orig_sr), int(target_sr))
+    from scipy.signal import resample_poly  # imported here: scipy.signal takes seconds to import
+
     return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
 
 

@@ -71,8 +71,10 @@ def test_captured_latents_match_teacher_forced(setup, nb):
         if n == 0:
             continue
         with torch.no_grad():
-            tf = unified_voice_forward(model, cfg, _t(TEXT[r : r + 1]), _t(LENS[r : r + 1]), _t(codes[r : r + 1, :n]),
-                                       _t([n * cfg.mel_length_compression]), _t(conds)).numpy()
+            tf = unified_voice_forward(model, cfg, speech_conditioning_mel=None, text_inputs=_t(TEXT[r : r + 1]),
+                                       text_lengths=_t(LENS[r : r + 1]), mel_codes=_t(codes[r : r + 1, :n]),
+                                       wav_lengths=_t([n * cfg.mel_length_compression]), cond_mel_lengths=None,
+                                       conds=_t(conds), mask_pad_keys=True).numpy()
         np.testing.assert_allclose(lat[r, :n], tf[0, :n], atol=TOL, rtol=0)
         checked += n
     assert checked > 4

@@ -225,3 +225,36 @@ def test_eval_fidelity_random_init_without_checkpoints(fidelity_dir, capsys):
     assert set(report) == {"dvae_round_trip_mse", "dvae_codes_used", "mpd_disc_loss", "mrd_disc_loss",
                            "mpd_feature_loss", "mrd_feature_loss", "dvae_weights", "discriminator_weights"}
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
+
+
+def test_eval_fidelity_sets_float32_on_cuda_and_restores(monkeypatch):
+    """On a CUDA device the tool runs with cuDNN's and cuBLAS's TF32 off,
+    whatever the caller set, and restores both flags afterwards (also when
+    the run raises); on the CPU it leaves them alone."""
+    import argparse
+
+    import torch
+
+    seen = []
+
+    def run(args):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        if args.wav == "raise":
+            raise RuntimeError("a failed run")
+        return {}, {}
+
+    monkeypatch.setattr(eval_fidelity, "_fidelity_report", run)
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        eval_fidelity.fidelity_report(argparse.Namespace(device="cuda", wav="a.wav"))
+        assert seen[-1] == (False, False)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+        with pytest.raises(RuntimeError, match="a failed run"):
+            eval_fidelity.fidelity_report(argparse.Namespace(device="cuda:0", wav="raise"))
+        assert seen[-1] == (False, False)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+        eval_fidelity.fidelity_report(argparse.Namespace(device="cpu", wav="a.wav"))
+        assert seen[-1] == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before

@@ -130,6 +130,30 @@ def test_cli_without_checkpoints_raises(engines, tmp_path):
     assert not os.path.exists(tmp_path / "cli.wav")
 
 
+@pytest.mark.parametrize("cli_module", ["indextts_tpu.cli", "indextts_tpu_torch.cli"])
+def test_cli_missing_config_exits_1(cli_module, monkeypatch, tmp_path, capsys):
+    """Both CLIs: a -c that names no file exits 1 with JAX's message, after
+    the text and voice checks and before the output check, and nothing
+    loads."""
+    import importlib
+
+    from indextts_tpu import engine as jax_engine_mod
+    from indextts_tpu_torch import engine as engine_mod
+
+    def refuse(*_a, **_k):
+        raise AssertionError("an engine was built")
+
+    monkeypatch.setattr(jax_engine_mod, "IndexTTS", refuse)
+    monkeypatch.setattr(engine_mod, "IndexTTS", refuse)
+    out = tmp_path / "exists.wav"
+    out.write_bytes(b"")  # the output check would exit 1 too, with another message
+    main = importlib.import_module(cli_module).main
+    with pytest.raises(SystemExit) as exc:
+        main(["HELLO WORLD.", "-v", PROMPT, "-c", "/nonexistent/config.yaml", "-o", str(out), "-d", "cpu"])
+    assert exc.value.code == 1
+    assert "Config file /nonexistent/config.yaml does not exist." in capsys.readouterr().out
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports in a fresh interpreter without
     bringing in jax or the JAX package."""
@@ -141,6 +165,7 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'indextts_tpu' or m.startswith('indextts_tpu.'))\n"
         "assert 'indextts_tpu_torch.engine' in sys.modules and len(mods) > 15, mods\n"
+        "assert 'indextts_tpu_torch.parallel.mesh' in mods, mods\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,

@@ -163,7 +163,9 @@ def test_latents_match_unified_voice_forward(setup, code_lens):
                        jnp.asarray(wav_lens), None, return_latent=True, conds=jnp.asarray(conds_b),
                        mask_pad_keys=True)
     with torch.no_grad():
-        mine = unified_voice_forward(model, cfg, _t(text), _t(tlens), _t(codes), _t(wav_lens), _t(conds_b))
+        mine = unified_voice_forward(model, cfg, speech_conditioning_mel=None, text_inputs=_t(text),
+                                     text_lengths=_t(tlens), mel_codes=_t(codes), wav_lengths=_t(wav_lens),
+                                     cond_mel_lengths=None, conds=_t(conds_b), mask_pad_keys=True)
     assert mine.shape == gold.shape == (b, 16, cfg.model_dim)
     np.testing.assert_allclose(mine.numpy(), np.asarray(gold), atol=TOL, rtol=0)
 

@@ -51,9 +51,11 @@ def setup():
 def _port(setup, **kw):
     cfg, _, model, mel, mel_lens, conds, codes = setup
     wav = torch.from_numpy(CODE_LENS * cfg.mel_length_compression)
+    kw = {"speech_conditioning_mel": None, "cond_mel_lengths": None, **kw}
     with torch.no_grad():
-        return unified_voice_forward(model, cfg, torch.from_numpy(TEXT), torch.from_numpy(TLENS),
-                                     torch.from_numpy(codes), wav, **kw)
+        return unified_voice_forward(model, cfg, text_inputs=torch.from_numpy(TEXT),
+                                     text_lengths=torch.from_numpy(TLENS), mel_codes=torch.from_numpy(codes),
+                                     wav_lengths=wav, **kw)
 
 
 def _jax_call(setup, conds_given: bool, **kw):
@@ -104,7 +106,7 @@ def test_conds_none_computes_the_conditioning(setup, return_latent):
 @pytest.mark.parametrize("text_first", [True, False])
 def test_latents_either_order_match_jax(setup, text_first):
     gold = _jax_call(setup, True, return_latent=True, text_first=text_first, mask_pad_keys=True)
-    mine = _port(setup, **_port_kw(setup, True), return_latent=True, text_first=text_first)
+    mine = _port(setup, **_port_kw(setup, True), return_latent=True, text_first=text_first, mask_pad_keys=True)
     assert mine.shape == gold.shape
     np.testing.assert_allclose(mine.numpy(), np.asarray(gold), atol=TOL, rtol=0)
 
@@ -124,9 +126,11 @@ def test_types_match_jax():
                        jnp.asarray(wav), None, return_latent=False, conds=jnp.asarray(conds),
                        types=jnp.asarray(types))
     with torch.no_grad():
-        mine = unified_voice_forward(model, cfg, torch.from_numpy(TEXT), torch.from_numpy(TLENS),
-                                     torch.from_numpy(codes), torch.from_numpy(wav), conds=torch.from_numpy(conds),
-                                     return_latent=False, types=torch.from_numpy(types), mask_pad_keys=False)
+        mine = unified_voice_forward(model, cfg, speech_conditioning_mel=None, text_inputs=torch.from_numpy(TEXT),
+                                     text_lengths=torch.from_numpy(TLENS), mel_codes=torch.from_numpy(codes),
+                                     wav_lengths=torch.from_numpy(wav), cond_mel_lengths=None,
+                                     conds=torch.from_numpy(conds), return_latent=False, types=torch.from_numpy(types),
+                                     mask_pad_keys=False)
     for m, g in zip(mine, gold):
         np.testing.assert_allclose(np.asarray(m), np.asarray(g), atol=TOL, rtol=0)
 
@@ -167,9 +171,25 @@ def test_engine_latent_call_bit_identical_to_before(setup, dtype):
     c = torch.from_numpy(conds).to(dtype)
     with torch.no_grad():
         before = _latents_before(m, cfg, *args, c)
-        engine_call = unified_voice_forward(m, cfg, *args, conds=c, mask_pad_keys=True)
-        positional = unified_voice_forward(m, cfg, *args, c)
+        engine_call = unified_voice_forward(m, cfg, None, *args, None, conds=c, mask_pad_keys=True)
+        positional = unified_voice_forward(m, cfg, None, *args, None, True, True, c, None, True)
     assert torch.equal(engine_call, before) and torch.equal(positional, before)
+
+
+def test_positional_call_of_graft_entry_matches_jax(setup):
+    """The argument list of __graft_entry__.dryrun_multichip's loss
+    (params, cfg, mel, text, text_lens, codes, wav_lens, mel_lens,
+    return_latent=False), positionally, through both functions: JAX's
+    order and defaults (mask_pad_keys off), losses within 1e-4."""
+    cfg, params, model, mel, mel_lens, _, codes = setup
+    wav = CODE_LENS * cfg.mel_length_compression
+    args = (mel, TEXT, TLENS, codes, wav, mel_lens)
+    gold = jax.jit(lambda p, *a: jax_forward(p, cfg, *a, return_latent=False))(params, *map(jnp.asarray, args))
+    with torch.no_grad():
+        mine = unified_voice_forward(model, cfg, *map(torch.from_numpy, args), return_latent=False)
+    for m, g in zip(mine[:2], gold[:2]):
+        np.testing.assert_allclose(float(m), float(g), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(mine[2].numpy(), np.asarray(gold[2]), atol=TOL, rtol=0)
 
 
 @pytest.mark.parametrize("channels,mel_channels,resblocks", [(64, 80, 1), (128, 100, 2)])

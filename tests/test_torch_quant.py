@@ -259,6 +259,8 @@ def test_teacher_forced_latents_on_int8_weights_match_jax(setup):
     gold = jax_forward(qparams, cfg, None, jnp.asarray(TEXT), jnp.asarray(LENS), jnp.asarray(codes),
                        jnp.asarray(wav_lens), None, return_latent=True, conds=jnp.asarray(conds), mask_pad_keys=True)
     with torch.no_grad():
-        mine = unified_voice_forward(models["int8"], cfg, _t(TEXT), _t(LENS), _t(codes), _t(wav_lens), _t(conds))
+        mine = unified_voice_forward(models["int8"], cfg, speech_conditioning_mel=None, text_inputs=_t(TEXT),
+                                     text_lengths=_t(LENS), mel_codes=_t(codes), wav_lengths=_t(wav_lens),
+                                     cond_mel_lengths=None, conds=_t(conds), mask_pad_keys=True)
     assert mine.shape == gold.shape == (2, 16, cfg.model_dim)
     np.testing.assert_allclose(mine.numpy(), np.asarray(gold), atol=TOL, rtol=0)

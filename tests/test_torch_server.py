@@ -1269,9 +1269,7 @@ WEBUI_EDITS = [
     ('help="serve with random weights (demo/testing)")\n',
      'help="serve with random weights (demo/testing)")\n'
      '    parser.add_argument("-d", "--device", default="cuda", help="torch device (default cuda)")\n'),
-    ("""    parser.add_argument(
-        "--tp", type=int, default=None,
-        help="tensor-parallel degree over the TPU mesh (default: all visible "
+    ("""        help="tensor-parallel degree over the TPU mesh (default: all visible "
         "chips on the model axis when more than one is present; ignored "
         "single-chip)",
     )
@@ -1281,13 +1279,39 @@ WEBUI_EDITS = [
         "INDEXTTS_COMPILE_CACHE): with --warmup, a restarted server reaches "
         "steady state in seconds instead of recompiling for minutes",
     )
-""", ""),
+""", """        help="tensor-parallel degree over the ranks of a torchrun launch "
+        "(default 2 when the world is even; one process ignores it): rank 0 "
+        "binds HTTP and the other ranks replay its engine calls",
+    )
+"""),
     ("from indextts_tpu.engine import IndexTTS", "from indextts_tpu_torch.engine import IndexTTS"),
     ("cfg_path=args.config, model_dir=args.model_dir,\n",
      "cfg_path=args.config, model_dir=args.model_dir, device=args.device,\n"),
-    ("            tp=args.tp, compile_cache_dir=args.compile_cache,\n", ""),
+    ("            tp=args.tp, compile_cache_dir=args.compile_cache,\n", "            tp=args.tp,\n"),
     ('print("Successfully initialized IndexTTS TPU engine.")',
      'print(f"Successfully initialized IndexTTS PyTorch engine on {args.device}.")'),
+    # on a mesh (--tp under torchrun) rank 0 serves through the proxy and the
+    # other ranks follow it (server/mesh_proxy.py)
+    ("""        traceback.print_exc()
+
+    if args.warmup and engine is not None:""", """        traceback.print_exc()
+
+    if getattr(engine, "mesh", None) is not None:
+        from indextts_tpu_torch.server.mesh_proxy import EngineProxy, follow
+
+        if engine.mesh.rank != 0:
+            follow(engine)  # until rank 0's server shuts down
+            return
+        engine = EngineProxy(engine)
+
+    if args.warmup and engine is not None:"""),
+    ("""    finally:
+        app.shutdown()
+""", """    finally:
+        app.shutdown()
+        if hasattr(engine, "stop"):  # the mesh's followers end with the server
+            engine.stop()
+"""),
 ]
 
 
@@ -1339,7 +1363,7 @@ def test_tiny_port_engine_behind_the_app(engines, tmp_path):
 
 def test_main_arguments(monkeypatch, tmp_path):
     """--batch-requests with --slot-batching is rejected before the engine is
-    built; --tp and --compile-cache are not options; -d reaches the engine,
+    built; --compile-cache is not an option; -d and --tp reach the engine,
     whose device defaults to cuda, and random weights only with --random-init."""
     from indextts_tpu_torch import engine as engine_mod
     from indextts_tpu_torch.server import webui
@@ -1348,17 +1372,19 @@ def test_main_arguments(monkeypatch, tmp_path):
     monkeypatch.setattr(engine_mod, "IndexTTS", lambda **kw: built.append(kw) or FakeEngine())
     monkeypatch.setattr(webui, "create_app", lambda engine, **kw: create_app(engine, base_dir=str(tmp_path), **kw))
     monkeypatch.setattr(webui.App, "run", lambda self, host, port: ran.append((host, port)))
-    for argv in (["--batch-requests", "2", "--slot-batching", "2"], ["--tp", "2"],
-                 ["--compile-cache", str(tmp_path)]):
+    for argv in (["--batch-requests", "2", "--slot-batching", "2"], ["--compile-cache", str(tmp_path)]):
         with pytest.raises(SystemExit):
             webui.main(argv)
     assert built == [] and ran == []
     webui.main(["-c", "c.yaml", "--model_dir", "m", "-d", "cpu", "--port", "5099", "--slot-batching", "2"])
     webui.main(["--random-init"])
+    webui.main(["--random-init", "--tp", "2"])
     assert built == [
         dict(cfg_path="c.yaml", model_dir="m", device="cpu", allow_random_init=False, fast_latents=False,
-             quant_kv=False),
+             quant_kv=False, tp=None),
         dict(cfg_path="checkpoints/config.yaml", model_dir="checkpoints", device="cuda", allow_random_init=True,
-             fast_latents=False, quant_kv=False),
+             fast_latents=False, quant_kv=False, tp=None),
+        dict(cfg_path="checkpoints/config.yaml", model_dir="checkpoints", device="cuda", allow_random_init=True,
+             fast_latents=False, quant_kv=False, tp=2),
     ]
-    assert ran == [("0.0.0.0", 5099), ("0.0.0.0", 5000)]
+    assert ran == [("0.0.0.0", 5099), ("0.0.0.0", 5000), ("0.0.0.0", 5000)]
