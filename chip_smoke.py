@@ -151,13 +151,30 @@ Phases, in order; any failure exits non-zero:
                vocoder call on each rank), int8 weights at tp = 2 (K5 on
                every shard shape against its plain version, 97 launches a
                step on each rank, its own device ms beside one process's);
+     graphs  — the engine's captured programs (indextts_tpu_torch/
+               graphs.py) at the published widths, bf16: warmup twice (its
+               captures, then replays), then each request under the
+               engine's private eager switch, replayed, and replayed again,
+               its code rows token-exact and K1-K5's launches equal in the
+               three: greedy and sampled num_beams=1, greedy and default
+               num_beams=3, a 320-code segmented request, with fast_latents
+               a sampled and a default request, infer_stream and a
+               SlotSession of 4 slots serving 8 requests, and on the int8 KV
+               cache with int8 weights a greedy and a default request; the
+               vocoder (one 100-code call and one batch of 2) on the four
+               routes (default, INDEXTTS_WIDE_BRANCH, INDEXTTS_WIDE_TMAJOR,
+               INDEXTTS_FUSED_AA), wav within 1 int16 unit, launches a call
+               as eager; host and device ms per step, kernels and the idle
+               share, eager beside replayed, of the B = 4 bf16 and int8 (KV +
+               K5) decode steps, a 4-row slot step, a 3-beam step and a
+               100-code vocoder call; capture seconds and pool growth per key;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
                final {"ok": true, ...} line.
 
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
-small, ckpt, legacy, fidelity, mesh) runs
+small, ckpt, legacy, fidelity, mesh, graphs) runs
 only those phases after the build, for work on one of them, with the per
 vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
 final line, and exits 3. In the kernels line `ms` is a kernel's own device
@@ -1296,13 +1313,13 @@ def forced_slot_chunk(engine, steps: int = 16, n_slots: int = 4, cache_len: int 
 
     def chunk():
         nonlocal state
-        before = state.tick
+        before = int(state.tick)
         torch.cuda.synchronize()
         t = time.perf_counter()
         state = tslots.slot_steps(engine.gpt, cfg, gen, state, steps, g, pos_off=1, **knobs)
         torch.cuda.synchronize()
-        if state.tick - before != steps or not bool(state.active.all()):
-            raise AssertionError(f"the forced slot chunk ran {state.tick - before} of {steps} steps")
+        if int(state.tick) - before != steps or not bool(state.active.all()):
+            raise AssertionError(f"the forced slot chunk ran {int(state.tick) - before} of {steps} steps")
         return 1e3 * (time.perf_counter() - t) / steps
 
     chunk()
@@ -1328,12 +1345,13 @@ def serve_phase(card: str) -> dict:
     from indextts_tpu_torch.ops.cuda import antialias_folded as k4
     from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
 
+    # one vocoder call of an engine: its warm run or a replay of its graph
     voc = {"calls": 0}
-    apply = engine_mod.bigvgan_apply
+    vocoder_call = engine_mod.IndexTTS._vocoder_call
 
-    def counting_apply(*a, **kw):
+    def counting_call(self, *a, **kw):
         voc["calls"] += 1
-        return apply(*a, **kw)
+        return vocoder_call(self, *a, **kw)
 
     def start():
         k1.launches = k3.launches = k4.launches = voc["calls"] = 0
@@ -1344,7 +1362,7 @@ def serve_phase(card: str) -> dict:
             raise AssertionError(f"{what}: launches {got}, want K4 {want[0]}, K3 {want[1]}, K1 {want[2]} per vocoder call")
         return got
 
-    engine_mod.bigvgan_apply = counting_apply
+    engine_mod.IndexTTS._vocoder_call = counting_call
     os.environ["INDEXTTS_FUSED_AA"] = os.environ["INDEXTTS_WIDE_TMAJOR"] = "1"
     try:
         t0 = time.perf_counter()
@@ -1471,7 +1489,7 @@ def serve_phase(card: str) -> dict:
         log(f"[serve] one profiled bigvgan_apply under INDEXTTS_FUSED_AA=1 alone, {voc_prof['codes']} codes, B=1, "
             f"{engine.dtype}: {vocoder_profile_line(voc_prof)} [{card}]")
     finally:
-        engine_mod.bigvgan_apply = apply
+        engine_mod.IndexTTS._vocoder_call = vocoder_call
         os.environ.pop("INDEXTTS_FUSED_AA", None)
         os.environ.pop("INDEXTTS_WIDE_TMAJOR", None)
     return {"init_s": init_s, "warmup_s": warm_s, "warmup": warm, "infer_batch": batch, "slots": slots,
@@ -1848,14 +1866,15 @@ def ckpt_phase(card: str) -> dict:
 
     d = os.path.join(REPO, "build", "ckpt_phase")
     shutil.rmtree(d, ignore_errors=True)
+    # one vocoder call of an engine: its warm run or a replay of its graph
     voc = {"calls": 0}
-    apply = engine_mod.bigvgan_apply
+    vocoder_call = engine_mod.IndexTTS._vocoder_call
 
-    def counting_apply(*a, **kw):
+    def counting_call(self, *a, **kw):
         voc["calls"] += 1
-        return apply(*a, **kw)
+        return vocoder_call(self, *a, **kw)
 
-    engine_mod.bigvgan_apply = counting_apply
+    engine_mod.IndexTTS._vocoder_call = counting_call
     app = None
     try:
         cfg = load_config(FLAGSHIP)
@@ -2090,7 +2109,7 @@ def ckpt_phase(card: str) -> dict:
     finally:
         if app is not None:
             app.shutdown()
-        engine_mod.bigvgan_apply = apply
+        engine_mod.IndexTTS._vocoder_call = vocoder_call
         shutil.rmtree(d, ignore_errors=True)
 
 
@@ -2468,6 +2487,8 @@ def greedy_request(engine, n_codes: int) -> dict:
     """One greedy request (repetition penalty 1, so the raw logits choose)
     through engine.infer: its codes, the top-2 margin of the logits behind
     each code, and the wav."""
+    import contextlib
+
     import numpy as np
     import torch
 
@@ -2488,11 +2509,15 @@ def greedy_request(engine, n_codes: int) -> dict:
         return out
 
     tdec._mel_logits, engine._gpt_generate = recording_logits, recording_generate
+    # the recorder reads every step's logits on the host, which a captured step
+    # cannot: one process runs its steps eagerly here (a mesh captures nothing)
+    eager = engine._graphs.eager()
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        sr, wav = engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, num_beams=1,
-                               repetition_penalty=1.0, max_mel_tokens=n_codes)
+        with eager:
+            sr, wav = engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=False, num_beams=1,
+                                   repetition_penalty=1.0, max_mel_tokens=n_codes)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t
     finally:
@@ -2787,6 +2812,435 @@ def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dic
         "k1_launches": rows[0]["dp_batch"]["k1_launches"], "k1_vocoder_calls": rows[0]["dp_batch"]["vocoder_calls"]}
 
 
+# the kernel wrappers' launch counters, K1-K5 (the graphs phase compares them eager against replayed)
+K_NAMES = ("k1", "k2", "k3", "k4", "k5")
+# the __global__ functions of K1-K5 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
+# steps (or vocoder calls) in the short window where step_profile counts K1-K5's kernels
+COUNT_STEPS = 4
+K_KERNELS = {"k1": ("anti_alias_snake_kernel",), "k2": ("aa_snake_dconv_f32_kernel", "aa_snake_dconv_wgmma_kernel"),
+             "k3": ("tmajor_taps_kernel", "tmajor_ident_kernel", "tmajor_mma_kernel"), "k4": ("folded_aa_kernel",),
+             "k5": ("int8_matmul_kernel",)}
+
+
+def kernel_counts(prof) -> dict:
+    """How many kernels of K1-K5 a profile recorded on the card, by name.
+    Kernels inside a replayed CUDA graph are recorded one by one, so this
+    count does not depend on the wrappers' counters, which a replay does not
+    run."""
+    counts = {k: 0 for k in K_NAMES}
+    for e in prof.key_averages():
+        if getattr(e, "self_device_time_total", 0) <= 0:
+            continue  # not a kernel
+        for k, names in K_KERNELS.items():
+            if any(n in e.key for n in names):
+                counts[k] += e.count
+    return counts
+
+
+def run_profiled(fn, tries: int = 3):
+    """fn() under torch.profiler, device activity only: its result and the
+    profile. The profiler at times records no device event at all (PRs 6-8):
+    such a profile is taken again, up to `tries` runs of fn in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if any(getattr(e, "self_device_time_total", 0) > 0 for e in prof.key_averages()):
+            return out, prof
+        log(f"[profile] no device event recorded (run {attempt + 1} of {tries})")
+    return out, prof
+
+
+def kernel_modules() -> dict:
+    from indextts_tpu_torch.ops.cuda import aa_conv_branch, antialias, antialias_folded, antialias_tmajor, qmatmul
+
+    return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul)))
+
+
+class CodeRecorder:
+    """Records every code row an engine decodes: the rows infer, infer_fast,
+    infer_batch and a SlotSession hand to remove_long_silence, and a
+    stream's codes after each of its decode_steps runs."""
+
+    def __init__(self, engine):
+        import numpy as np
+
+        import indextts_tpu_torch.engine as engine_mod
+
+        self.rows, self.engine, self.mod = [], engine, engine_mod
+        self.silence, self.steps = engine.remove_long_silence, engine_mod.decode_steps
+
+        def silence(codes, *a, **kw):
+            self.rows.append(np.asarray(codes).copy())
+            return self.silence(codes, *a, **kw)
+
+        def steps(model, cfg, state, *a, **kw):
+            out = self.steps(model, cfg, state, *a, **kw)
+            self.rows.append(out.codes[:, : out.i + 1].cpu().numpy())
+            return out
+
+        engine.remove_long_silence = silence
+        engine_mod.decode_steps = steps
+
+    def close(self):
+        del self.engine.remove_long_silence
+        self.mod.decode_steps = self.steps
+
+
+def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dict:
+    """fn() three times: under the engine's private eager switch, then
+    through its graphs (capturing the keys it has not seen), then once more
+    (replays only), the engine's generator reseeded alike before each (a
+    slot session seeds its own). Every code row the three decode must be
+    token-exact, K1-K5's wrappers must count as many launches in each (a
+    replay adds the counts its capture took), and a list fn returns (chunk
+    or wav sizes) must be the same. The profiler's own count of K1-K5's
+    kernels under replay is step_profile's and the vocoder routes'. Returns
+    the wall seconds, the launches of one run and the decode ms per step of
+    each."""
+    import contextlib
+
+    import torch
+
+    mods = kernel_modules()
+    runs = {}
+    for mode in ("eager", "graph", "graph_again"):
+        engine._generator.manual_seed(seed)
+        engine.last_stats = {}
+        rec.rows.clear()
+        for m in mods.values():
+            m.launches = 0  # this run of the path starts here
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            result = fn()
+        torch.cuda.synchronize()
+        runs[mode] = dict(s=time.perf_counter() - t, rows=list(rec.rows), result=result,
+                          launches={k: m.launches for k, m in mods.items()}, stats=dict(engine.last_stats))
+    base = runs["eager"]
+    if not base["rows"]:
+        raise AssertionError(f"{name}: no code rows were recorded")
+    for mode in ("graph", "graph_again"):
+        rows = runs[mode]["rows"]
+        if len(rows) != len(base["rows"]) or any(a.shape != b.shape or not (a == b).all()
+                                                 for a, b in zip(rows, base["rows"])):
+            raise AssertionError(f"{name}: the {mode} run's codes differ from the eager run's")
+        if runs[mode]["launches"] != base["launches"]:
+            raise AssertionError(f"{name}: launches {runs[mode]['launches']} under {mode}, "
+                                 f"{base['launches']} eager")
+        if isinstance(base["result"], list) and runs[mode]["result"] != base["result"]:
+            raise AssertionError(f"{name}: {runs[mode]['result']} under {mode}, {base['result']} eager")
+    steps = lambda r: max(r["stats"].get("gpt_steps", 0), 1)
+    row = {"request": name, "codes": int(sum(r.shape[-1] for r in base["rows"])),
+           "rows": len(base["rows"]), "launches": base["launches"], "segments": base["stats"].get("gpt_segments"),
+           **{f"{mode}_s": runs[mode]["s"] for mode in runs},
+           **{f"{mode}_decode_ms_per_step": 1e3 * runs[mode]["stats"].get("gpt_gen_s", 0.0) / steps(runs[mode])
+              for mode in runs if "gpt_gen_s" in runs[mode]["stats"]}}
+    log(f"[graphs] {name}: {row['rows']} code rows token-exact in eager, graph and graph again; wall "
+        f"{row['eager_s']:.2f} / {row['graph_s']:.2f} / {row['graph_again_s']:.2f} s; launches "
+        f"{ {k: v for k, v in base['launches'].items() if v} } in each [{card}]")
+    return row
+
+
+def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
+    """Host and device ms per step of a decode route, eager beside replayed:
+    prepare() sets up a fresh state (prefill, admission) and returns go(),
+    which runs the steps and returns how many ran. Per mode: one run to warm
+    (and capture), one timed on the host clock (synchronized), one under
+    torch.profiler (the summed device time of every kernel, their count, and
+    the span from the first kernel's start to the last one's end: what the
+    span adds to the sum is the gaps between kernels, what the host time
+    adds to the span is the host's own part of a step). Then one short run,
+    go(COUNT_STEPS), under the profiler again: its count of K1-K5's kernels,
+    by name, must be `want` a step (the wrappers' count) in each mode; under
+    replay, the count that does not rest on the wrappers' counters. The
+    window is short because the profiler drops a kernel record now and then
+    in long ones (1 of 3104 K5 kernels over 32 eager int8 steps, 73 of 109
+    K1 kernels over a whole eager request: PR 12's own calls)."""
+    import contextlib
+
+    import torch
+
+    out = {}
+    for mode in ("eager", "graph"):
+        with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            prepare()()
+            go = prepare()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n = go()
+            torch.cuda.synchronize()
+            host = 1e3 * (time.perf_counter() - t) / n
+            go = prepare()
+            torch.cuda.synchronize()
+            n2, prof = run_profiled(go, tries=1)
+            if not any(getattr(e, "self_device_time_total", 0) > 0 for e in prof.key_averages()):
+                go = prepare()  # the profiler recorded nothing: profile a fresh run again
+                torch.cuda.synchronize()
+                n2, prof = run_profiled(go, tries=1)
+            go = prepare()
+            torch.cuda.synchronize()
+            n3, short = run_profiled(lambda: go(COUNT_STEPS))
+        events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+        counted = kernel_counts(short)
+        if counted != {k: want.get(k, 0) * n3 for k in K_NAMES}:
+            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K5 over {n3} {mode} steps, "
+                                 f"want {want} a step")
+        device = sum(e.self_device_time_total for e in events) / 1e3 / n2 if events else None
+        kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        span = ((max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3 / n2
+                if kernels else None)
+        out[mode] = {"steps": n, "host_ms_per_step": host, "device_ms_per_step": device,
+                     "kernels_per_step": sum(e.count for e in events) / n2 if events else None,
+                     "device_span_ms_per_step": span, "k_kernels": counted, "count_steps": n3,
+                     "device_idle_share": None if device is None else 1.0 - device / host}
+    e, g = out["eager"], out["graph"]
+    dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
+        f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
+        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K5 kernels "
+        f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps")
+    log(f"[graphs] {label}: host {e['host_ms_per_step']:.2f} ms/step eager, {g['host_ms_per_step']:.2f} replayed; "
+        f"device eager {dev(e)}; replayed {dev(g)} [{card}]")
+    return out
+
+
+def graphs_phase(card: str) -> dict:
+    """The engine's captured programs (indextts_tpu_torch/graphs.py) at the
+    published widths, bf16, random init from seed 0: each request eager
+    (the private switch), then replayed twice; codes token-exact and K1-K5
+    launch counts equal; vocoder wav within 1 int16 unit on the four routes;
+    host and device ms per step eager beside replayed; capture seconds and
+    pool bytes per key; warmup seconds."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+    from indextts_tpu_torch.models import gpt_slots as tslots
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
+
+    t0 = time.perf_counter()
+    engine = flagship_engine()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if not engine._graphs.decode.capturing:
+        raise AssertionError("a CUDA engine that captures nothing")
+    # the first warmup captures the keys it visits; the second replays them
+    warm = [engine.warmup(texts=("WARM UP.",), verbose=False, max_mel_tokens=60) for _ in range(2)]
+    log(f"[graphs] flagship built in {init_s:.1f} s; warmup (default kwargs, 60 codes) {warm[0]:.2f} s with its "
+        f"captures, {warm[1]:.2f} s again [{card}]")
+    rec = CodeRecorder(engine)
+    rows = []
+    # run by this phase's profiled replays (the vocoder routes' graph runs and
+    # step_profile's replayed steps), as the profiler counted them
+    graph_launches = {k: 0 for k in K_NAMES}
+    short = dict(audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=60)
+    try:
+        requests = [
+            ("greedy_nb1", lambda: engine.infer(do_sample=False, num_beams=1, **short)),
+            ("sampled_nb1", lambda: engine.infer(num_beams=1, **short)),
+            ("greedy_nb3", lambda: engine.infer(do_sample=False, **short)),
+            ("default_nb3", lambda: engine.infer(**short)),
+            # 320 = two segments of 160: the segmented beam loop, one key per segment
+            ("default_nb3_320_segmented", lambda: engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.",
+                                                               max_mel_tokens=320)),
+        ]
+        for name, fn in requests:
+            rows.append(graph_vs_eager(engine, rec, name, fn, card))
+        if rows[-1]["segments"] != 2:
+            raise AssertionError(f"the 320-code request ran {rows[-1]['segments']} segments, want 2")
+        engine.fast_latents = True
+        rows.append(graph_vs_eager(engine, rec, "fast_latents_sampled_nb1",
+                                   lambda: engine.infer(num_beams=1, **short), card))
+        rows.append(graph_vs_eager(engine, rec, "fast_latents_default_nb3", lambda: engine.infer(**short), card))
+        rows.append(graph_vs_eager(engine, rec, "fast_latents_infer_stream", lambda: [
+            c.size for c in engine.infer_stream(audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=100)], card))
+
+        def slots():
+            sess = engine.slot_session(n_slots=4, chunk_steps=25, max_mel_tokens=60)
+            rids = [sess.submit(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY.", "THIS IS A TEST.", "HI.",
+                                                      "HELLO AGAIN.", "ONE MORE.", "A B C.", "THE END.")]
+            done = sess.drain()
+            return [done[r][1].shape[0] for r in rids]
+
+        rows.append(graph_vs_eager(engine, rec, "slot_session_4x8", slots, card))
+        engine.fast_latents = False
+
+        # the vocoder on the four routes: wav within 1 int16 unit, launches per call as eager
+        g = torch.Generator(device=engine.device).manual_seed(5)
+        latent = torch.randn(1, 100, engine.cfg.gpt.model_dim, device=engine.device, dtype=engine.dtype, generator=g)
+        latent2 = torch.randn(1, 72, engine.cfg.gpt.model_dim, device=engine.device, dtype=engine.dtype, generator=g)
+        mel = engine.extract_features(PROMPT)
+        mods = kernel_modules()
+        routes = {"default": {}, "wide_branch": {"INDEXTTS_WIDE_BRANCH": "1"},
+                  "wide_tmajor": {"INDEXTTS_WIDE_TMAJOR": "1"}, "fused_aa": {"INDEXTTS_FUSED_AA": "1"}}
+        want = {"default": {"k1": 109}, "wide_branch": {"k1": 55, "k2": 54}, "wide_tmajor": {"k1": 55, "k3": 54},
+                "fused_aa": {"k1": 55, "k4": 54}}
+        vocoder = {}
+        for route, env in routes.items():
+            os.environ.update(env)
+            try:
+                outs, counts, by_profiler = {}, {}, {}
+
+                def calls():
+                    for m in mods.values():
+                        m.launches = 0  # this run starts here (a run the profiler missed is made again)
+                    return (engine._vocode(latent, 100, mel),
+                            engine._vocode_many([(latent, 100, mel), (latent2, 72, mel)]))
+
+                for mode in ("eager", "graph", "graph_again"):
+                    with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                        (one, many), prof = run_profiled(calls)
+                    kernels = kernel_counts(prof)
+                    outs[mode] = (np.clip(np.asarray(one) * 32767.0, -32767, 32767).astype(np.int16), many)
+                    counts[mode] = {k: m.launches for k, m in mods.items() if m.launches}
+                    by_profiler[mode] = {k: v for k, v in kernels.items() if v}
+                    if mode != "eager":
+                        for k, v in kernels.items():
+                            graph_launches[k] += v
+            finally:
+                for k in env:
+                    del os.environ[k]
+            err = 0
+            for mode in ("graph", "graph_again"):
+                pairs = [(outs[mode][0], outs["eager"][0])] + list(zip(outs[mode][1], outs["eager"][1]))
+                for a, b in pairs:
+                    if a.shape != b.shape:
+                        raise AssertionError(f"vocoder {route}: {mode} wav {a.shape}, eager {b.shape}")
+                    err = max(err, int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()))
+                if counts[mode] != counts["eager"] or by_profiler[mode] != counts["eager"]:
+                    raise AssertionError(f"vocoder {route}: launches {counts[mode]} (profiler {by_profiler[mode]}) under "
+                                         f"{mode}, eager {counts['eager']}")
+            if by_profiler["eager"] != counts["eager"]:
+                raise AssertionError(f"vocoder {route}: the profiler counted {by_profiler['eager']} eager, the wrappers "
+                                     f"{counts['eager']}")
+            if err > 1:
+                raise AssertionError(f"vocoder {route}: graph and eager wav differ by {err} int16 units (gate 1)")
+            per_call = {k: v // 2 for k, v in counts["eager"].items()}  # one _vocode and one _vocode_many call of 2 rows
+            if per_call != want[route] or any(v % 2 for v in counts["eager"].values()):
+                raise AssertionError(f"vocoder {route}: {counts['eager']} launches over 2 calls, want {want[route]} a call")
+            vocoder[route] = {"max_int16_diff": err, "launches": counts["graph"], "kernels_profiled": by_profiler}
+            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K5 kernels {by_profiler['graph']} "
+                f"for one 100-code call and one batch of 2 by the profiler, as the wrappers launched eager [{card}]")
+
+        # host vs device per step, eager beside replayed
+        cfg, dev = engine.cfg.gpt, engine.device
+        conds1 = engine._conds_for(engine.extract_features(PROMPT))
+        r = np.random.default_rng(7)
+        lens4 = np.asarray([12, 9, 16, 5])
+        text4 = np.full((4, 16), cfg.stop_text_token, np.int64)
+        for i, n in enumerate(lens4):
+            text4[i, :n] = r.integers(0, cfg.number_text_tokens - 1, n)
+        text4_t, lens4_t = torch.from_numpy(text4).to(dev), torch.from_numpy(lens4).to(dev)
+        graphs = engine._graphs
+        steps = 32
+
+        def prepare_b4(quant_kv: bool):
+            def prepare():
+                gen = tdec.GenerationConfig(do_sample=True, top_k=30, max_new_tokens=steps + 1)
+                with torch.no_grad():
+                    st, ctx = tdec.prefill_decode_state(engine.gpt, cfg, gen, conds1.expand(4, -1, -1), text4_t, lens4_t,
+                                                        torch.Generator(device=dev).manual_seed(0), quant_kv=quant_kv)
+
+                def go(n=steps):
+                    i0 = st.i
+                    with torch.no_grad():
+                        tdec.decode_steps(engine.gpt, cfg, st, ctx, n, graphs=graphs.decode)
+                    return st.i - i0
+                return go
+            return prepare
+
+        def prepare_beams():
+            gen = tdec.GenerationConfig(do_sample=True, num_beams=3, top_k=30, max_new_tokens=200)
+            # cache slots: p = 32 latents + 16 text + 3, and 200 generated
+            with torch.no_grad():
+                loop = tdec._BeamLoop(engine.gpt, cfg, gen, conds1, text4_t[:1], lens4_t[:1],
+                                      torch.Generator(device=dev).manual_seed(0), 1.0, 0.8, 10.0, 0.0, 0.9, False,
+                                      False, 2, 200)
+
+            def go(n=steps):
+                i0 = loop.i
+                with torch.no_grad():
+                    loop.run(n, graphs.decode)
+                return loop.i - i0
+            return go
+
+        def prepare_slots():
+            gen = tdec.GenerationConfig(do_sample=True, num_beams=1, top_k=30, max_new_tokens=100)
+            g = torch.Generator(device=dev).manual_seed(0)
+            st = tslots.slot_state_init(cfg, gen, 4, 256, engine.dtype, device=dev, capture_latents=True)
+            for slot in range(4):
+                prod = tslots.slot_prefill(engine.gpt, cfg, gen, conds1.to(engine.dtype), text4_t[slot : slot + 1],
+                                           lens4_t[slot : slot + 1], g, capture_latents=True)
+                tslots.slot_admit(st, prod, slot, cfg)
+            col = lambda v: torch.full((4,), v, device=dev)
+            knobs = dict(temperature=col(1.0), top_p=col(0.8), repetition_penalty=col(10.0), typical_mass=col(0.9))
+
+            def go(n=16):
+                t0 = int(st.tick)
+                tslots.slot_steps(engine.gpt, cfg, gen, st, n, g, pos_off=1, graphs=graphs.slot, **knobs)
+                return int(st.tick) - t0
+            return go
+
+        mel_ref, lens = engine._mel_ref_for(mel, 1)
+
+        def prepare_vocoder():
+            def go(n=1):
+                with torch.no_grad():
+                    for _ in range(n):
+                        engine._vocoder_call(latent, mel_ref, lens)
+                return n
+            return go
+
+        timing = {"b4_bf16": step_profile(engine, prepare_b4(False), card, "decode step, B=4, bf16 cache", {}),
+                  "slot_chunk_4_rows": step_profile(engine, prepare_slots, card, "slot step, 4 sampled rows, 256 slots",
+                                                    {}),
+                  "beams_b1x3": step_profile(engine, prepare_beams, card, "beam step, B=1 x 3 beams, 251 slots", {}),
+                  "vocoder_100_codes": step_profile(engine, prepare_vocoder, card,
+                                                    "vocoder call, 100 codes, default route (per call)", {"k1": 109})}
+
+        # int8: the int8 KV cache and int8 weights (K5 at every decode matmul)
+        engine.quant_kv = True
+        quantize_unified_voice(engine.gpt)
+        for name, fn in (("int8_greedy_nb1", lambda: engine.infer(do_sample=False, num_beams=1, **short)),
+                         ("int8_default_nb3", lambda: engine.infer(**short))):
+            row = graph_vs_eager(engine, rec, name, fn, card)
+            if row["launches"]["k5"] < 97:
+                raise AssertionError(f"{name}: K5 launched {row['launches']['k5']} times")
+            rows.append(row)
+        timing["b4_int8_kv_k5"] = step_profile(engine, prepare_b4(True), card, "decode step, B=4, int8 KV + K5",
+                                               {"k5": 97})
+    finally:
+        rec.close()
+        engine.quant_kv = False
+    stats = engine._graphs.stats()
+    resident = {}
+    for stage_name, lanes in stats.items():
+        captured = [lane for lane in lanes if lane["captured"]]
+        buffers = sum(lane["buffer_bytes"] for lane in lanes)
+        pool = sum(lane["pool_bytes"] for lane in lanes)
+        resident[stage_name] = {"lanes": len(lanes), "live": sum(lane["live"] for lane in lanes),
+                                "buffer_bytes": buffers, "pool_bytes": pool,
+                                "largest_lane_bytes": max((lane["buffer_bytes"] + lane["pool_bytes"] for lane in lanes),
+                                                          default=0)}
+        log(f"[graphs] stage {stage_name}: {len(captured)} captured keys, capture "
+            f"{sum(lane['capture_s'] for lane in captured):.2f} s in all (the most "
+            f"{max((lane['capture_s'] for lane in captured), default=0.0):.3f} s); {len(lanes)} lanes kept "
+            f"({resident[stage_name]['live']} live) hold {buffers / 1e6:.1f} MB of buffers and {pool / 1e6:.1f} MB of "
+            f"pool growth, the largest lane {resident[stage_name]['largest_lane_bytes'] / 1e6:.1f} MB; the stage keeps "
+            f"free lanes within {engine._graphs.keep_bytes / 1e9:.2f} GB [{card}]")
+    for t in timing.values():
+        for k, v in t["graph"]["k_kernels"].items():
+            graph_launches[k] += v
+    return {"init_s": init_s, "warmup_s": warm, "requests": rows, "vocoder": vocoder, "timing": timing,
+            "graph_stats": stats, "resident": resident, "keep_bytes": engine._graphs.keep_bytes,
+            "launches": graph_launches}
+
+
 def load_config(path: str):
     from indextts_tpu_torch.config import load_config as load
 
@@ -2882,7 +3336,7 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
 
 
 PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt", "legacy",
-          "fidelity", "mesh")
+          "fidelity", "mesh", "graphs")
 
 
 def main(argv) -> int:
@@ -2930,7 +3384,7 @@ def main(argv) -> int:
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
-                 "fidelity": fidelity_phase, "mesh": mesh_phase}
+                 "fidelity": fidelity_phase, "mesh": mesh_phase, "graphs": graphs_phase}
     if only is not None:
         summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
@@ -2954,6 +3408,7 @@ def main(argv) -> int:
     legacy = legacy_phase(card)
     fidelity = fidelity_phase(card)
     mesh = mesh_phase(card)
+    graphs = graphs_phase(card)
 
     layers = load_config(FLAGSHIP).gpt.layers
 
@@ -3037,6 +3492,7 @@ def main(argv) -> int:
         "legacy": legacy,
         "fidelity": fidelity,
         "mesh": mesh,
+        "graphs": graphs,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke_report.json"), "w") as f:
@@ -3052,12 +3508,14 @@ def main(argv) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in kern["rows"]),
         "ms": k1_per_voc["k1"], "plain_ms": k1_per_voc["plain"],
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None, "call_ms": k1_per_voc["call"],
+        "launches_graphs_phase": graphs["launches"]["k1"],
     }, {
         "name": "aa_snake_dconv", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": beam["k2_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern2["rows"]),
         "ms": per_voc("device_ms", "ms"), "plain_ms": per_voc("device_plain_ms", "plain_ms"),
         "bound_ms": 1e3 * k2_terms[k2_by], "bound_by": k2_by, "library_ms": None,
         "call_ms": per_voc("device_ms", "ms"),  # the wrapper launches nothing but the kernel: ms is the whole call
+        "launches_graphs_phase": graphs["launches"]["k2"],
     }, {
         "name": "fused_anti_alias_snake_tmajor", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
         "launches": stream["k3_launches"],
@@ -3067,11 +3525,13 @@ def main(argv) -> int:
         # the other bodies' own ms and bounds, beside K1's own ms at the same shapes
         "bodies_ms": {"mma": k3_per_voc["mma"], "ident": k3_per_voc["ident"], "k1": k3_per_voc["k1"]},
         "bodies_bound_ms": {body: ms for body, (ms, _) in k3_per_voc["bound"].items()},
+        "launches_graphs_phase": graphs["launches"]["k3"],
     }, {
         "name": "fused_folded_aa", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
         "launches": serve["k4_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern4["rows"]),
         "ms": k4_per_voc["k4"], "plain_ms": k4_per_voc["plain"],
         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "call_ms": k4_per_voc["call"],
+        "launches_graphs_phase": graphs["launches"]["k4"],
     }, {
         "name": "int8_matmul", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
         "launches": int8["k5_launches"], "max_abs_err": max(r["max_abs_err"] for r in kern5["rows"]),
@@ -3079,6 +3539,7 @@ def main(argv) -> int:
         "bound_ms": 1e3 * k5_terms[k5_by], "bound_by": k5_by, "library_ms": None,
         "call_ms": per_step("device_ms", "ms"),  # the wrapper launches nothing but the kernel at bf16
         "bf16_linear_ms": k5_per_step[4]["bf16_linear_ms"],  # another function (bf16 weights): a yardstick only
+        "launches_graphs_phase": graphs["launches"]["k5"],
         # one rank's int8 shards at tp = 2, per decode step at M = 4: launches, own device ms (profiler, in the
         # forced steps), the bound of the shards' bytes / operations, and one process's own ms beside them
         "mesh_tp2": {"launches_per_step_per_rank": mesh["k5_launches_per_step_per_rank"],

@@ -11,9 +11,16 @@ torch_empty_cache(), remove_long_silence(), bucket_sentences(),
 pad_tokens_cat(), and the JAX engine's infer_stream(), a generator of
 float32 chunks, infer_batch(), slot_session(), infer_slots(), warmup() and
 start_profiling() / stop_profiling() (a torch.profiler trace).
-Underneath, PyTorch runs eagerly on `device` (default
-"cuda"), in bf16 there when `is_fp16`, with the fused anti-aliased activation
-kernel (K1) at every vocoder activation when `use_cuda_kernel` (the default).
+Underneath, PyTorch runs on `device` (default "cuda"), in bf16 there when
+`is_fp16`, with the fused anti-aliased activation kernel (K1) at every
+vocoder activation when `use_cuda_kernel` (the default). As the JAX engine
+runs every device computation as a jitted program over static shape
+buckets, a CUDA engine captures each decode loop's step and each vocoder
+call once per key as a CUDA graph and replays it (graphs.py: the keys are
+the JAX engine's `_decode_fn` / `_vocoder_fn` keys); the prefill, the
+teacher-forced latent pass and the conditioning encoders run eagerly. On the
+CPU and on a mesh the same steps and calls run through the same stages
+without capture.
 `quant_kv` selects the int8 KV cache, as in the JAX engine; int8 GPT weights
 (the K5 kernel in every decode matmul) come from
 ops/quant.quantize_unified_voice(engine.gpt), a library call as in JAX. The
@@ -55,7 +62,8 @@ import torch.distributed as dist
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
 from indextts_tpu_torch.convert import (convert_bigvgan, convert_unified_voice, load_params_npz, load_torch_state_dict,
                                         save_params_npz)
-from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
+from indextts_tpu_torch.graphs import Graphs, weights_key
+from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply, vocoder_route
 from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
 from indextts_tpu_torch.models.gpt_decode import (
     GenerationConfig,
@@ -96,6 +104,11 @@ def make_tokenizer(bpe_path: str, normalizer: TextNormalizer, allow_random_init:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _int16(wav: torch.Tensor) -> torch.Tensor:
+    """float32 samples in [-1, 1] scaled, clipped and cast to int16."""
+    return torch.clamp(wav * 32767.0, -32767.0, 32767.0).to(torch.int16)
 
 
 class IndexTTS:
@@ -192,6 +205,10 @@ class IndexTTS:
         self.last_stats: Dict[str, Any] = {}
         # segments the segmented decode loops ran since a request last zeroed it
         self._decode_segments = 0
+        # the captured decode steps and vocoder calls (graphs.py); the CPU
+        # captures nothing, and a mesh neither: gloo's collectives are host
+        # round trips that a graph cannot hold
+        self._graphs = Graphs(self.device, capture=self.mesh is None)
 
     @staticmethod
     def _load_weights(module, name: str, path: str, key: Optional[str], convert, allow_random_init: bool,
@@ -459,7 +476,7 @@ class IndexTTS:
                 torch.as_tensor(text_lengths, dtype=torch.long, device=self.device), generator)
         kw = dict(temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty,
                   typical_mass=typical_mass, quant_kv=self.quant_kv, capture_latents=capture,
-                  pos_off=1 if capture else 2)
+                  pos_off=1 if capture else 2, graphs=self._graphs.decode)
         stats = {}
         if gen.max_new_tokens >= 2 * DECODE_SEGMENT:
             kw.update(segment=DECODE_SEGMENT, stats=stats)
@@ -579,6 +596,24 @@ class IndexTTS:
         digest = hashlib.sha1(np.ascontiguousarray(prompt_mel)).hexdigest()
         return self._cache_value(("melref", digest, b), make, 16)
 
+    def _vocoder_call(self, latent: torch.Tensor, mel_ref: torch.Tensor, lens: torch.Tensor,
+                      int16_out: bool = False) -> torch.Tensor:
+        """bigvgan_apply on latent [b, m, D], mel_ref [b, frames, 100] and
+        ECAPA's relative lengths [b] -> wav [b, samples] float32, or int16
+        scaled and clipped on the device. The call runs through the vocoder
+        stage under the JAX engine's key ("voc", b, m, frames, int16_out),
+        with the kernels' route, the dtype and the weights: on a CUDA engine
+        a captured program."""
+
+        def call(lat, mel, ln):
+            wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, lat, mel, lens=ln,
+                                use_cuda_kernel=self.use_cuda_kernel)[:, :, 0].float()
+            return _int16(wav) if int16_out else wav
+
+        key = ("voc", latent.shape[0], latent.shape[1], mel_ref.shape[1], int16_out,
+               vocoder_route(self.use_cuda_kernel), latent.dtype, weights_key(self.bigvgan))
+        return self._graphs.vocoder.call(key, call, (latent, mel_ref, lens))
+
     @torch.no_grad()
     def _vocode(self, latent: torch.Tensor, n_valid: int, prompt_mel: np.ndarray) -> np.ndarray:
         """latent [1, m, D] -> wav [1, samples] float32; pads the latent to a
@@ -587,22 +622,21 @@ class IndexTTS:
         m = max(_round_up(m0, 16), 16)
         latent = torch.nn.functional.pad(latent, (0, 0, 0, m - m0))
         mel_ref, lens = self._mel_ref_for(prompt_mel, latent.shape[0])
-        wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, latent.to(self.dtype), mel_ref, lens=lens,
-                            use_cuda_kernel=self.use_cuda_kernel)
-        wav = wav[..., 0].float().cpu().numpy()
+        wav = self._vocoder_call(latent.to(self.dtype), mel_ref, lens).cpu().numpy()
         return wav[:, : n_valid * self._samples_per_code()]
 
     def _vocode_rows(self, latent: torch.Tensor, mel_ref: torch.Tensor, lens: torch.Tensor,
-                     split: bool = False) -> torch.Tensor:
+                     split: bool = False, int16_out: bool = False) -> torch.Tensor:
         """One vocoder call: latent [b, m, D], mel_ref [b, frames, 100] and
-        ECAPA's relative lengths [b] -> wav [b, samples] float32. `split`
-        (a mesh with data groups, b a multiple of dp): each data group
-        vocodes its slice of the rows and the waves are gathered."""
-        if split:
-            latent, mel_ref, lens = shard_batch(self.mesh, (latent, mel_ref, lens))
-        wav = bigvgan_apply(self.bigvgan, self.cfg.bigvgan, latent, mel_ref, lens=lens,
-                            use_cuda_kernel=self.use_cuda_kernel)[:, :, 0].float()
-        return self.mesh.data.gather(wav) if split else wav
+        ECAPA's relative lengths [b] -> wav [b, samples] float32 (int16 with
+        `int16_out`). `split` (a mesh with data groups, b a multiple of dp):
+        each data group vocodes its slice of the rows and the waves are
+        gathered."""
+        if not split:
+            return self._vocoder_call(latent, mel_ref, lens, int16_out)
+        latent, mel_ref, lens = shard_batch(self.mesh, (latent, mel_ref, lens))
+        wav = self.mesh.data.gather(self._vocoder_call(latent, mel_ref, lens))
+        return _int16(wav) if int16_out else wav
 
     @staticmethod
     def _vocode_batches(chunks) -> List[Tuple[int, List[int]]]:
@@ -650,10 +684,9 @@ class IndexTTS:
                 mel = chunks[i][2]
                 mel_b[j, : mel.shape[-1]] = mel[0].T
                 rel[j] = mel.shape[-1] / fb
-            wav = self._vocode_rows(torch.cat(lat_rows, dim=0), torch.from_numpy(mel_b).to(self.device, self.dtype),
-                                    torch.from_numpy(rel).to(self.device), split=dp > 1)
-            wav16 = torch.clamp(wav[:b0] * 32767.0, -32767.0, 32767.0).to(torch.int16)
-            wav_np = wav16.cpu().numpy()
+            wav16 = self._vocode_rows(torch.cat(lat_rows, dim=0), torch.from_numpy(mel_b).to(self.device, self.dtype),
+                                      torch.from_numpy(rel).to(self.device), split=dp > 1, int16_out=True)
+            wav_np = wav16[:b0].cpu().numpy()
             for j, i in enumerate(part):
                 out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
         return out
@@ -850,7 +883,8 @@ class IndexTTS:
             temperature=dyn["temperature"], top_p=dyn["top_p"], repetition_penalty=dyn["repetition_penalty"],
             typical_mass=dyn["typical_mass"], quant_kv=self.quant_kv, capture_latents=fast,
         )
-        state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, n_steps, pos_off=pos_off)
+        state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, n_steps, pos_off=pos_off,
+                             graphs=self._graphs.decode)
         w = n_steps + 1
         lc = max(_round_up(w, 16), 16)
         codes_w = state.codes[:, :w].cpu().numpy()
@@ -933,7 +967,8 @@ class IndexTTS:
             emitted = valid_n
             while not bool(state.done.all()) and state.i + 1 < gen.max_new_tokens:
                 with torch.no_grad():
-                    state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, chunk_codes, pos_off=pos_off)
+                    state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, chunk_codes, pos_off=pos_off,
+                                         graphs=self._graphs.decode)
                 n_codes = state.i + 1
                 # only completed (non-stop) codes are vocoded
                 codes_np = state.codes[:, :n_codes].cpu().numpy()
@@ -1267,10 +1302,12 @@ class IndexTTS:
         """Pay a serving process's first-call costs in advance by synthesizing
         each text against a silent synthetic prompt through the same public
         entry points serving uses (results discarded). In the JAX engine
-        those costs are compilations; here nothing is compiled per shape, and
-        what the first call of a shape pays is the kernels' build and load
-        (ops/cuda/build.py), cuDNN's and cuBLAS's set-up for each new shape
-        and the allocator's first blocks. Same routing as the JAX engine:
+        those costs are compilations; here, on a CUDA engine, they are the
+        captures of the CUDA graphs of the keys the requests visit (each
+        decode loop's step and each vocoder call, graphs.py), besides the
+        kernels' build and load (ops/cuda/build.py), cuDNN's and cuBLAS's
+        set-up for each new shape and the allocator's first blocks; a later
+        request of a visited key replays. Same routing as the JAX engine:
         the slot session when n_slots > 0 (num_beams forced to 1; with
         streaming on a fast_latents engine also a streaming request per text
         and a window vocoder call at every power-of-two batch up to n_slots,

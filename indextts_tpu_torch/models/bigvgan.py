@@ -158,6 +158,18 @@ class BigVGAN(nn.Module):
                             p.fill_(0.0 if self.h.snake_logscale else 1.0)
 
 
+def vocoder_route(use_cuda_kernel: bool = True) -> tuple:
+    """The kernels a bigvgan_apply call takes, as its environment selects
+    them now: (K1 at all, INDEXTTS_WIDE_BRANCH, INDEXTTS_WIDE_TMAJOR, its
+    _MXU and _POLY, INDEXTTS_FUSED_AA). Part of a captured vocoder call's
+    key: a graph keeps the kernels it was captured with."""
+    env = os.environ.get
+    on = lambda name: env(name, "") == "1"
+    k = bool(use_cuda_kernel)
+    return (k, k and on("INDEXTTS_WIDE_BRANCH"), k and on("INDEXTTS_WIDE_TMAJOR"), on("INDEXTTS_WIDE_TMAJOR_MXU"),
+            on("INDEXTTS_WIDE_TMAJOR_POLY"), k and on("INDEXTTS_FUSED_AA"))
+
+
 def bigvgan_apply(
     model: BigVGAN,
     h: BigVGANConfig,
@@ -183,12 +195,8 @@ def bigvgan_apply(
     # cast to the trunk dtype, or a bf16 trunk silently turns float32
     spk = speaker_embedding.to(x.dtype).transpose(1, 2)  # [B, spk_dim, 1]
 
-    env = os.environ.get
-    wide_tmajor = use_cuda_kernel and env("INDEXTTS_WIDE_TMAJOR", "") == "1"
-    tmajor_mxu = env("INDEXTTS_WIDE_TMAJOR_MXU", "") == "1"
-    tmajor_poly = True if env("INDEXTTS_WIDE_TMAJOR_POLY", "") == "1" else None
-
-    fused_aa = use_cuda_kernel and env("INDEXTTS_FUSED_AA", "") == "1"
+    _, wide_branch, wide_tmajor, tmajor_mxu, tmajor_poly, fused_aa = vocoder_route(use_cuda_kernel)
+    tmajor_poly = True if tmajor_poly else None
 
     def act(p: SnakeParams, y: torch.Tensor, resblock: bool = True) -> torch.Tensor:
         if fused_aa and resblock and y.shape[1] <= FOLDED_MAX_CHANNELS:
@@ -203,7 +211,6 @@ def bigvgan_apply(
     def branch(p: SnakeParams, conv: nn.Conv1d, y: torch.Tensor) -> torch.Tensor:
         return fused_aa_snake_dconv(y, p.alpha, p.beta, conv.weight, conv.bias, conv.dilation[0], h.snake_logscale)
 
-    wide_branch = use_cuda_kernel and env("INDEXTTS_WIDE_BRANCH", "") == "1"
     y = x.transpose(1, 2)  # [B, D, T]
     if h.feat_upsample:
         y = linear_interp_x4(y)

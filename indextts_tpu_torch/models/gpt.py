@@ -15,7 +15,7 @@ the weight bridge unstacks them).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -45,6 +45,13 @@ def _attn(q, k, v, bias):
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     attn = torch.softmax(scores.float() + bias, dim=-1).to(q.dtype)
     return attn @ v
+
+
+def write_at(buf: torch.Tensor, dim: int, idx: Union[int, torch.Tensor], val: torch.Tensor) -> None:
+    """buf.select(dim, idx) = val in place, by index_copy_: `idx` is a
+    one-element long tensor on buf's device (a captured step reads no host
+    value), or an int, moved there."""
+    buf.index_copy_(dim, torch.as_tensor(idx, device=buf.device).reshape(1), val.unsqueeze(dim))
 
 
 def _col(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -109,12 +116,13 @@ class GPT2Block(nn.Module):
         a = _attn(q, k, v, bias).transpose(1, 2).reshape(b, t, -1)
         return self.proj(x, a), (k, v)
 
-    def step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+    def step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: Union[int, torch.Tensor],
              bias: torch.Tensor, heads: int) -> torch.Tensor:
         """One new token x [B, D] against the caches [B, H, S, Dh]. `bias`
         [B, 1, S] masks slot `pos`: the token's own K/V enter the softmax as
         an extra logit, as in JAX _decode_block, and are then written into
-        slot `pos` of the caches in place."""
+        slot `pos` of the caches in place. `pos` is an int or a one-element
+        long tensor on the device (a captured step reads no host value)."""
         b = x.shape[0]
         q, k, v = self.qkv(x, heads)
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -122,8 +130,8 @@ class GPT2Block(nn.Module):
         scores = torch.cat([s * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         a = (attn[:, :, None, :-1] @ v_cache)[:, :, 0] + attn[..., -1:] * v
-        k_cache[:, :, pos] = k
-        v_cache[:, :, pos] = v
+        write_at(k_cache, 2, pos, k)
+        write_at(v_cache, 2, pos, v)
         return self.proj(x, a.reshape(b, -1))
 
 

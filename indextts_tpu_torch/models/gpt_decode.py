@@ -34,10 +34,18 @@ cache, monolithic or with a cache that grows by segments).
     generate_speech_beam_segmented) start with a cache of p + segment slots
     and grow it by `segment` between runs of steps (grow_cache), so a
     step's attention reads the slots written so far and not the whole
-    max_new_tokens budget. They give the monolithic loops' codes; PyTorch
-    runs eagerly, so there is nothing to compile per segment and the JAX
-    functions' jit_cache argument has no counterpart. They take no forced
-    prefix, as in JAX.
+    max_new_tokens budget. They give the monolithic loops' codes; the cache
+    length of a segment is part of the key of its captured step (graphs.py),
+    as it is of the JAX functions' jit_cache. They take no forced prefix, as
+    in JAX.
+  * Each loop is a host loop over one step function whose every write is in
+    place and indexed by a device step counter, with every dynamic knob a
+    [B] tensor and a sampled step's uniforms drawn into a buffer before the
+    step runs. The loop state is bound to the static buffers of its key in
+    a graph stage (`graphs`, the engine's; graphs.py), which on a CUDA
+    engine captures the step once per key as a CUDA graph and replays it,
+    and elsewhere runs it as it is; the one host check a step (every row
+    stopped, the beams' early stop) stays.
   * A forced prefix `input_tokens` [B, S0] (model.py:673-688, HF generate's
     input_ids) joins the prefill after start_mel at mel positions 1..S0, its
     codes join the repetition penalty's seen set, and every decode position
@@ -56,15 +64,19 @@ from typing import Optional, Tuple, Union
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt import NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits
+from indextts_tpu_torch.graphs import GraphStage, stage_or_uncaptured, weights_key
+from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
+                                           write_at)
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
     Knob,
+    RowDraw,
     apply_repetition_penalty,
     apply_typical,
     apply_warpers,
     greedy_token,
     process_logits,
+    row_knob,
     sample_token,
     uniforms,
 )
@@ -92,7 +104,9 @@ class DecodeState:
     (k, v) [L, B, H, S, Dh] or, int8, (k8, ks, v8, vs), done [B], seen [B, V]
     for the repetition penalty, the last token cur [B] and, under latent
     capture, lat [B, max_new, D] (lat[:, j] is the final-norm hidden that
-    predicted code j). Updated in place by decode_steps."""
+    predicted code j). Updated in place by decode_steps, which keeps i on
+    the host (for its checks) and in t, a [1] long device counter that the
+    step reads and advances."""
 
     i: int
     codes: torch.Tensor
@@ -100,6 +114,7 @@ class DecodeState:
     done: torch.Tensor
     seen: torch.Tensor
     cur: torch.Tensor
+    t: torch.Tensor
     lat: Optional[torch.Tensor] = None
 
 
@@ -107,18 +122,25 @@ class DecodeState:
 class DecodeContext:
     """What the loop needs besides the state: the prefill length p, the
     prefill key mask padded to the cache length, the sampling settings
-    (each dynamic knob a float, or a [B] tensor with one value per row) and
-    s0, the length of a forced prefix (decode positions shift by s0)."""
+    (each dynamic knob a [B] float32 tensor, one value per row) and s0, the
+    length of a forced prefix (decode positions shift by s0). When sampling,
+    `u` [B] holds the uniforms of the next draw, drawn from `generator` by
+    draw() before the step runs (a captured step draws nothing)."""
 
     p: int
     prefill_valid: torch.Tensor
     gen: GenerationConfig
-    generator: torch.Generator
-    temperature: Knob
-    top_p: Knob
-    repetition_penalty: Knob
-    typical_mass: Knob = 0.9
+    generator: Union[torch.Generator, RowDraw]
+    temperature: torch.Tensor
+    top_p: torch.Tensor
+    repetition_penalty: torch.Tensor
+    typical_mass: torch.Tensor
     s0: int = 0
+    u: Optional[torch.Tensor] = None
+
+    def draw(self) -> None:
+        if self.u is not None:
+            self.u.copy_(uniforms(tuple(self.u.shape), self.generator, self.u.device))
 
     def sample(self, logits: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
         lf = process_logits(
@@ -127,9 +149,7 @@ class DecodeContext:
             temperature=self.temperature, top_k=self.gen.top_k if self.gen.do_sample else 0,
             top_p=self.top_p, do_sample=self.gen.do_sample,
         )
-        if self.gen.do_sample:
-            return sample_token(lf, self.generator)
-        return greedy_token(lf)
+        return sample_token(lf, self.u) if self.gen.do_sample else greedy_token(lf)
 
 
 def prepare_gpt_inputs(
@@ -229,11 +249,12 @@ def _quant_cols(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor, v8: torch.Tensor,
-                    vs: torch.Tensor, pos: int, bias: torch.Tensor, heads: int) -> torch.Tensor:
+                    vs: torch.Tensor, pos: Union[int, torch.Tensor], bias: torch.Tensor, heads: int) -> torch.Tensor:
     """GPT2Block.step against the int8 cache of one layer: k8 / v8 [B, H, S,
     Dh], ks / vs [B, H/2, S]. `bias` [B, 1, S] masks slot `pos`: the new
     token's exact K / V enter the softmax as an extra logit, and are then
-    quantized into slot `pos` in place. Dequantization in JAX's order
+    quantized into slot `pos` (an int or a [1] device index) in place.
+    Dequantization in JAX's order
     (_decode_block_q): scores contract in x's dtype and then take ks in
     float32; the attention weights take vs in float32 before the cast."""
     b = x.shape[0]
@@ -247,16 +268,17 @@ def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: tor
     a = (a2[:, :, None] @ v8.to(x.dtype))[:, :, 0] + attn[..., -1:].to(x.dtype) * v
     for cache8, cache_s, new in ((k8, ks, k), (v8, vs, v)):
         q8, qs = _quant_cols(new[:, :, None])
-        cache8[:, :, pos] = q8[:, :, 0]
-        cache_s[:, :, pos] = qs[:, :, 0]
+        write_at(cache8, 2, pos, q8[:, :, 0])
+        write_at(cache_s, 2, pos, qs[:, :, 0])
     return block.proj(x, a.reshape(b, -1))
 
 
 def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: Union[int, torch.Tensor], cache,
-                 pos: int, valid: torch.Tensor, return_hidden: bool = False):
-    """One step: token [B] at mel position `mel_pos` (an int, or a [B] long
-    tensor where the rows sit at different ages, as slot rows do), its K/V
-    written into the one shared cache slot `pos` (in place). valid: [B, S]
+                 pos: Union[int, torch.Tensor], valid: torch.Tensor, return_hidden: bool = False):
+    """One step: token [B] at mel position `mel_pos` (an int, a [1] long
+    tensor, or a [B] one where the rows sit at different ages, as slot rows
+    do), its K/V written into the one shared cache slot `pos` (an int or a
+    [1] long device index; in place). valid: [B, S]
     bool, the cache slots already written that the token attends, `pos`
     excluded (JAX's base_mask). The cache is (k, v) or int8 (k8, ks, v8, vs).
     Returns logits [B, V], and with return_hidden also the final-norm hidden
@@ -309,9 +331,11 @@ def prefill_decode_state(
     seen = _initial_seen(cfg, b, dev, input_tokens)
     ctx = DecodeContext(
         p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
-        generator=generator, temperature=_knob(temperature), top_p=_knob(top_p),
-        repetition_penalty=_knob(repetition_penalty), typical_mass=_knob(typical_mass), s0=s0,
+        generator=generator, temperature=row_knob(temperature, b, dev), top_p=row_knob(top_p, b, dev),
+        repetition_penalty=row_knob(repetition_penalty, b, dev), typical_mass=row_knob(typical_mass, b, dev), s0=s0,
+        u=torch.empty(b, device=dev) if gen.do_sample else None,
     )
+    ctx.draw()
     tok1 = ctx.sample(logits0, seen)
     codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
     codes[:, 0] = tok1
@@ -321,13 +345,8 @@ def prefill_decode_state(
         lat = emb.new_zeros((b, max_new, emb.shape[-1]))
         lat[:, 0] = h0[0]
     state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1,
-                        lat=lat)
+                        t=torch.zeros(1, dtype=torch.long, device=dev), lat=lat)
     return state, ctx
-
-
-def _knob(v: Knob) -> Knob:
-    """A dynamic knob as given per row ([B] tensor), else as a float."""
-    return v if isinstance(v, torch.Tensor) and v.dim() == 1 else float(v)
 
 
 def _initial_seen(cfg: GPTConfig, rows: int, dev, input_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -358,32 +377,67 @@ def grow_cache(state: DecodeState, ctx: DecodeContext, extra: int) -> Tuple[Deco
     return state, ctx
 
 
+def _decode_iteration(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext,
+                      pos_off: int) -> None:
+    """One iteration of decode_steps at the device step counter i = state.t,
+    which it then advances. Every write is in place."""
+    dev = state.codes.device
+    i = state.t
+    positions = torch.arange(ctx.prefill_valid.shape[1], device=dev)[None, :]
+    write_pos = ctx.p + i
+    valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions < write_pos))
+    logits = _decode_step(model, cfg, state.cur, i + pos_off + ctx.s0, state.cache, write_pos, valid,
+                          return_hidden=state.lat is not None)
+    if state.lat is not None:
+        logits, hidden = logits
+        write_at(state.lat, 1, i + 1, hidden)
+    nxt = ctx.sample(logits, state.seen)
+    nxt = torch.where(state.done, torch.full_like(nxt, cfg.stop_mel_token), nxt)
+    write_at(state.codes, 1, i + 1, nxt)
+    state.done |= nxt == cfg.stop_mel_token
+    state.seen.scatter_(1, nxt[:, None], True)
+    state.cur.copy_(nxt)
+    state.t.add_(1)
+
+
+_DECODE_STATE_BUFFERS = ("codes", "cache", "done", "seen", "cur", "lat", "t")
+_DECODE_CONTEXT_BUFFERS = ("prefill_valid", "temperature", "top_p", "repetition_penalty", "typical_mass", "u")
+
+
+def _bind_decode(stage: GraphStage, model: UnifiedVoice, state: DecodeState, ctx: DecodeContext,
+                 pos_off: int):
+    """Move a greedy / sampled loop onto the static buffers of its key, the
+    JAX engine's ("dec", b, text bucket, gen, capture, quant_kv) with the
+    prefill length p standing for the text bucket, the cache length of the
+    segment, the positional offsets, the dtype and the weights; the device
+    counter t is set to the host's i."""
+    b = state.codes.shape[0]
+    key = ("dec", b, ctx.p, ctx.gen, state.lat is not None, len(state.cache) == 4, ctx.prefill_valid.shape[1],
+           pos_off, ctx.s0, state.cache[0].dtype, weights_key(model))
+    lane = stage.bind(key, state, [(state, _DECODE_STATE_BUFFERS), (ctx, _DECODE_CONTEXT_BUFFERS)])
+    state.t.fill_(state.i)
+    return lane
+
+
 def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext, n_steps: int,
-                 pos_off: int = 2) -> DecodeState:
+                 pos_off: int = 2, graphs: Optional[GraphStage] = None) -> DecodeState:
     """Run up to `n_steps` decode iterations, stopping early when every row
-    has emitted stop_mel_token or the code buffer is full. Token g_{i+1} is
-    decoded at cache slot p+i and mel position i+pos_off+s0; under capture
-    its final-norm hidden goes to lat[:, i+1]."""
+    has emitted stop_mel_token or the code buffer is full (one host check a
+    step). Token g_{i+1} is decoded at cache slot p+i and mel position
+    i+pos_off+s0; under capture its final-norm hidden goes to lat[:, i+1].
+    The state moves onto its key's static buffers in `graphs`, the engine's
+    decode stage (without one, a stage that never captures), and each step
+    runs through it: on a CUDA engine a replay of the key's captured graph;
+    a sampled step's uniforms are drawn into ctx.u before it."""
     max_new = state.codes.shape[1]
-    positions = torch.arange(ctx.prefill_valid.shape[1], device=state.codes.device)[None, :]
     stop = state.i + n_steps
-    rows = torch.arange(state.codes.shape[0], device=state.codes.device)
-    capture = state.lat is not None
+    stage = stage_or_uncaptured(graphs, state.codes.device)
+    lane = _bind_decode(stage, model, state, ctx, pos_off)
+    step = lambda: _decode_iteration(model, cfg, state, ctx, pos_off)
     while state.i < max_new - 1 and state.i < stop and not bool(state.done.all()):
-        i = state.i
-        write_pos = ctx.p + i
-        valid = ctx.prefill_valid | ((positions >= ctx.p) & (positions < write_pos))
-        logits = _decode_step(model, cfg, state.cur, i + pos_off + ctx.s0, state.cache, write_pos, valid,
-                              return_hidden=capture)
-        if capture:
-            logits, state.lat[:, i + 1] = logits
-        nxt = ctx.sample(logits, state.seen)
-        nxt = torch.where(state.done, torch.full_like(nxt, cfg.stop_mel_token), nxt)
-        state.codes[:, i + 1] = nxt
-        state.done |= nxt == cfg.stop_mel_token
-        state.seen[rows, nxt] = True
-        state.cur = nxt
-        state.i = i + 1
+        ctx.draw()
+        stage.run(lane, step)
+        state.i += 1
     return state
 
 
@@ -404,6 +458,7 @@ def generate_speech(
     typical_mass: float = 0.9,
     capture_latents: bool = False,
     input_tokens: Optional[torch.Tensor] = None,
+    graphs: Optional[GraphStage] = None,
 ):
     """Greedy / sampled generation (num_beams == 1). Returns (codes [B,
     max_new_tokens] right-padded with stop_mel_token, lengths [B] counting
@@ -414,25 +469,27 @@ def generate_speech(
     hidden that predicted code j. They equal the teacher-forced latents of
     the same codes only with pos_off=1 (the consistent-positions mode).
     `input_tokens` [B, S0]: a forced prefix, excluded from the codes (the
-    reference truncates at trunc_index, model.py:704-708)."""
+    reference truncates at trunc_index, model.py:704-708). `graphs`: the
+    engine's decode stage (decode_steps)."""
     state, ctx = prefill_decode_state(
         model, cfg, gen, conds, text_tokens, text_lengths, generator,
         temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
         typical_mass=typical_mass, capture_latents=capture_latents, input_tokens=input_tokens,
     )
-    state = decode_steps(model, cfg, state, ctx, gen.max_new_tokens - 1, pos_off=pos_off)
+    state = decode_steps(model, cfg, state, ctx, gen.max_new_tokens - 1, pos_off=pos_off, graphs=graphs)
     return _finish(cfg, state, capture_latents)
 
 
 def _finish(cfg: GPTConfig, state: DecodeState, capture_latents: bool):
-    """(codes, lengths[, lat]) of a finished greedy / sampled state."""
+    """(codes, lengths[, lat]) of a finished greedy / sampled state, copied
+    out of the state (a captured key's buffers serve the next request)."""
     max_new = state.codes.shape[1]
     is_stop = state.codes == cfg.stop_mel_token
     first_stop = torch.argmax(is_stop.int(), dim=1)
     lengths = torch.where(is_stop.any(dim=1), first_stop + 1, torch.full_like(first_stop, max_new))
     if capture_latents:
-        return state.codes, lengths, state.lat
-    return state.codes, lengths
+        return state.codes.clone(), lengths, state.lat.clone()
+    return state.codes.clone(), lengths
 
 
 @torch.no_grad()
@@ -453,6 +510,7 @@ def generate_speech_segmented(
     capture_latents: bool = False,
     segment: int = 160,
     stats: Optional[dict] = None,
+    graphs: Optional[GraphStage] = None,
 ):
     """generate_speech with a KV cache that grows by segments: the same
     sampling state machine and outputs, but segment k runs against a cache
@@ -460,7 +518,8 @@ def generate_speech_segmented(
     reads scale with the generated length and not with max_new_tokens. The
     first segment runs the prefill and segment - 1 steps; between segments
     the host checks whether every row has stopped and skips the rest.
-    `stats`, a dict, receives "segments", the segments run."""
+    `stats`, a dict, receives "segments", the segments run. `graphs`: the
+    engine's decode stage; each segment's cache length is a key of its own."""
     max_new = gen.max_new_tokens
     n_segments = -(-max_new // segment)
     p = conds.shape[1] + text_tokens.shape[1] + 2 + 1
@@ -469,14 +528,14 @@ def generate_speech_segmented(
         temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty, quant_kv=quant_kv,
         typical_mass=typical_mass, capture_latents=capture_latents, cache_len=p + min(segment, max_new),
     )
-    state = decode_steps(model, cfg, state, ctx, segment - 1, pos_off=pos_off)
+    state = decode_steps(model, cfg, state, ctx, segment - 1, pos_off=pos_off, graphs=graphs)
     ran = 1
     for k in range(1, n_segments):
         if bool(state.done.all()):
             break
         cache_len = p + min(segment * (k + 1), max_new)
         grow_cache(state, ctx, cache_len - ctx.prefill_valid.shape[1])
-        state = decode_steps(model, cfg, state, ctx, cache_len - p - segment * k, pos_off=pos_off)
+        state = decode_steps(model, cfg, state, ctx, cache_len - p - segment * k, pos_off=pos_off, graphs=graphs)
         ran += 1
     if stats is not None:
         stats["segments"] = ran
@@ -508,10 +567,10 @@ def _beam_joint_scores(logits: torch.Tensor, seen: torch.Tensor, beam_scores: to
     return joint
 
 
-def beam_uniforms(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """The uniforms of one sampled successor draw (the tests replace this
-    function with a recorded stream); a RowDraw takes its rows of the whole
-    batch's draw (ops/sampling.uniforms)."""
+def beam_uniforms(shape, generator: Union[torch.Generator, RowDraw], device) -> torch.Tensor:
+    """The uniforms of one sampled successor draw, made before the step that
+    consumes them (the tests replace this function with a recorded stream);
+    a RowDraw takes its rows of the whole batch's draw (ops/sampling.uniforms)."""
     return uniforms(shape, generator, device)
 
 
@@ -521,15 +580,16 @@ def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _select_successors(logp_joint: torch.Tensor, generator: torch.Generator, gen: GenerationConfig,
-                       nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _select_successors(logp_joint: torch.Tensor, generator: Union[torch.Generator, RowDraw, torch.Tensor],
+                       gen: GenerationConfig, nb: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """[b, nb*V] joint scores -> (vals, idx) of the 2*nb successors of each
     row, in descending true score. Sampling draws them by Gumbel top-k (HF
-    beam_sample's multinomial without replacement over softmax(joint)) and
-    sorts the draw by true score; greedy is plain top-k."""
+    beam_sample's multinomial without replacement over softmax(joint)), its
+    uniforms from `generator` or a [b, nb*V] tensor of them already drawn,
+    and sorts the draw by true score; greedy is plain top-k."""
     k = 2 * nb
     if gen.do_sample:
-        u = beam_uniforms(logp_joint.shape, generator, logp_joint.device)
+        u = uniforms(logp_joint.shape, generator, logp_joint.device)
         g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
         _, idx = _top_k_stable(logp_joint + g, k)
         vals = torch.gather(logp_joint, 1, idx)
@@ -572,29 +632,32 @@ class BeamBest:
     lat: Optional[torch.Tensor] = None
 
 
-def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Tensor, codes: torch.Tensor,
+def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: Union[int, torch.Tensor], logits: torch.Tensor,
+               codes: torch.Tensor,
                beam_scores: torch.Tensor, seen: torch.Tensor, best: BeamBest, joint_fn, select, b: int, nb: int,
                length_penalty: Knob = 0.0, prefill_len: int = 0, lat: Optional[torch.Tensor] = None):
     """One successor selection, shared by generate_speech_beam and the tests.
     joint_fn(logits, seen, beam_scores) -> [bb, V] (_beam_joint_scores);
     select(cand [b, nb*V]) -> (vals, idx) (_select_successors). The code
-    chosen here goes to codes[:, si]. An eos candidate among the top nb
+    chosen here goes to codes[:, si] (si a [1] long device index, or an int
+    moved there). An eos candidate among the top nb
     ranks finishes a hypothesis scored vals / (prefill_len + si) **
     length_penalty (HF's base: the eos is not yet appended; length_penalty a
     float, or [b] with one value per request); lower-ranked eos
     candidates are dropped (HF's rank filter). lat [bb, max_new, D], the
     beams' latents in the same row order as codes, is snapshotted with a
-    finished hypothesis. Updates `best` in place; returns (codes, beam
-    scores [bb], seen, flat_src [bb], next tokens [bb])."""
+    finished hypothesis. Updates `best`'s tensors in place; returns (codes,
+    beam scores [bb], seen, flat_src [bb], next tokens [bb])."""
     v = cfg.number_mel_codes
     dev = logits.device
+    si = torch.as_tensor(si, device=dev).reshape(1)
     cand = joint_fn(logits, seen, beam_scores).reshape(b, nb * v)
     vals, idx = select(cand)
     src_beam = torch.div(idx, v, rounding_mode="floor")
     tok = idx % v
     is_eos = tok == cfg.stop_mel_token
-    base = float(prefill_len + si)
-    lp = _length_norm(base, length_penalty, column=True) if base > 0 else 1.0
+    base = (prefill_len + si).float()
+    lp = torch.where(base > 0, _length_norm(base, length_penalty, column=True), 1.0)
     ranks = torch.arange(2 * nb, device=dev)[None, :]
     finished = torch.where(is_eos & (ranks < nb), vals / lp, torch.full_like(vals, NEG_INF))
     fbest, fargmax = finished.max(dim=1)
@@ -603,21 +666,22 @@ def _beam_step(cfg: GPTConfig, gen: GenerationConfig, si: int, logits: torch.Ten
     fin_tok = torch.gather(tok, 1, fargmax[:, None])[:, 0]
     flat_fin = torch.arange(b, device=dev) * nb + fin_beam
     fin_codes = codes[flat_fin]
-    fin_codes[:, si] = fin_tok
-    best.codes = torch.where(improve[:, None], fin_codes, best.codes)
-    best.length = torch.where(improve, torch.full_like(best.length, si + 1), best.length)
-    best.score = torch.where(improve, fbest, best.score)
+    write_at(fin_codes, 1, si, fin_tok)
+    length = (si + 1).expand_as(best.length)
+    best.codes.copy_(torch.where(improve[:, None], fin_codes, best.codes))
+    best.length.copy_(torch.where(improve, length, best.length))
+    best.score.copy_(torch.where(improve, fbest, best.score))
     if lat is not None:
-        best.lat = torch.where(improve[:, None, None], lat[flat_fin], best.lat)
+        best.lat.copy_(torch.where(improve[:, None, None], lat[flat_fin], best.lat))
     cont = torch.where(is_eos, torch.full_like(vals, NEG_INF), vals)
     cont_vals, cont_pick = _top_k_stable(cont, nb)
     new_beam = torch.gather(src_beam, 1, cont_pick)
     new_tok = torch.gather(tok, 1, cont_pick).reshape(-1)
     flat_src = (torch.arange(b, device=dev)[:, None] * nb + new_beam).reshape(-1)
     codes = codes[flat_src]
-    codes[:, si] = new_tok
+    write_at(codes, 1, si, new_tok)
     seen = seen[flat_src]
-    seen[torch.arange(b * nb, device=dev), new_tok] = True
+    seen.scatter_(1, new_tok[:, None], True)
     return codes, cont_vals.reshape(-1), seen, flat_src, new_tok
 
 
@@ -644,24 +708,34 @@ class _BeamLoop:
     repeated to [L, B*nb, H, S, Dh], row b*nb + m is beam m of row b), the
     first successor choice, then run(n) for up to n decode steps and grow(n)
     for n more cache and latent slots. After every step the cache rows, both
-    kinds ((k, v) or int8 (k8, ks, v8, vs)), follow their beams by
-    index_select. Iteration i consumes the code at codes[:, i], writes cache
-    slot p+i at mel position i+pos_off+s0 and chooses codes[:, i+1]. `gen_slots`
-    is the number of generated-token slots the cache and the latent buffer
-    start with. A forced prefix `input_tokens` [B, S0] rides each row's
-    prefill, and its codes are repeated for the row's beams in the seen set
-    (JAX it_bb)."""
+    kinds ((k, v) or int8 (k8, ks, v8, vs)), follow their beams: each is
+    gathered by index_select and copied back in place (the JAX package
+    resolves beam lineage inside attention instead, to avoid a TPU
+    relayout), so that the state keeps its addresses. Iteration i consumes
+    the code at codes[:, i], writes cache slot p+i at mel position
+    i+pos_off+s0 and chooses codes[:, i+1]. `gen_slots` is the number of
+    generated-token slots the cache and the latent buffer start with. A
+    forced prefix `input_tokens` [B, S0] rides each row's prefill, and its
+    codes are repeated for the row's beams in the seen set (JAX it_bb). The
+    knobs are float32 tensors, one value per beam row ([b] for
+    length_penalty); t is the device step counter, u [b, nb*V] the next
+    successor draw when sampling."""
+
+    # the tensors a captured step reads and writes (the static buffers of its key)
+    _BUFFERS = ("cache", "codes", "beam_scores", "seen", "lat", "cur", "t", "prefill_valid", "temperature", "top_p",
+                "repetition_penalty", "typical_mass", "length_penalty", "u")
 
     def __init__(self, model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
                  repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, gen_slots,
                  input_tokens=None):
-        self.model, self.cfg, self.gen = model, cfg, gen
+        self.model, self.cfg, self.gen, self.generator = model, cfg, gen, generator
         self.nb = nb = gen.num_beams
         self.b = b = text_tokens.shape[0]
-        self.length_penalty, self.pos_off, self.capture = _knob(length_penalty), pos_off, capture_latents
+        self.pos_off, self.capture = pos_off, capture_latents
         self.max_new = max_new = gen.max_new_tokens
         bb = b * nb
         dev = text_tokens.device
+        self.length_penalty = row_knob(length_penalty, b, dev)
         emb, prefill_mask, self.s0 = _with_prefix(
             model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths), input_tokens)
         self.p = p = emb.shape[1]
@@ -676,12 +750,9 @@ class _BeamLoop:
             self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
             self.lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
         # a knob with one value per request repeats for the request's beams
-        temperature, top_p, repetition_penalty, typical_mass = (
-            v.repeat_interleave(nb) if isinstance(v, torch.Tensor) and v.dim() == 1 else v
+        self.temperature, self.top_p, self.repetition_penalty, self.typical_mass = (
+            row_knob(v.repeat_interleave(nb) if isinstance(v, torch.Tensor) and v.dim() == 1 else v, bb, dev)
             for v in (temperature, top_p, repetition_penalty, typical_mass))
-        self.joint_fn = lambda logits, seen, scores: _beam_joint_scores(
-            logits, seen, scores, gen, temperature, top_p, repetition_penalty, typical_mass)
-        self.select = lambda cand: _select_successors(cand, generator, gen, nb)
         beam_scores = torch.full((b, nb), NEG_INF, device=dev)
         beam_scores[:, 0] = 0.0
         self.beam_scores = beam_scores.reshape(-1)
@@ -691,17 +762,53 @@ class _BeamLoop:
                              length=torch.zeros((b,), dtype=torch.long, device=dev),
                              lat=None if self.lat is None else self.lat.new_zeros((b,) + self.lat.shape[1:]))
         self.i = 0
+        self.t = torch.zeros(1, dtype=torch.long, device=dev)
+        self.u = torch.empty(b, nb * cfg.number_mel_codes, device=dev) if gen.do_sample else None
         # the beams of a row are copies until the first decode step writes, so
         # the first selection needs no cache reorder
-        _, self.cur = self._select(0, logits0)
+        self._draw()
+        _, self.cur = self._select(self.t, logits0)
+
+    def _joint(self, logits, seen, scores):
+        return _beam_joint_scores(logits, seen, scores, self.gen, self.temperature, self.top_p,
+                                  self.repetition_penalty, self.typical_mass)
+
+    def _choose(self, cand):
+        return _select_successors(cand, self.u, self.gen, self.nb)
+
+    def _draw(self) -> None:
+        if self.u is not None:
+            self.u.copy_(beam_uniforms(tuple(self.u.shape), self.generator, self.u.device))
 
     def _select(self, si, logits):
-        self.codes, self.beam_scores, self.seen, flat_src, nxt = _beam_step(
-            self.cfg, self.gen, si, logits, self.codes, self.beam_scores, self.seen, self.best, self.joint_fn,
-            self.select, self.b, self.nb, length_penalty=self.length_penalty, prefill_len=self.p, lat=self.lat)
+        """One successor choice; the beams' codes, scores, seen set and
+        latents follow it in place."""
+        codes, scores, seen, flat_src, nxt = _beam_step(
+            self.cfg, self.gen, si, logits, self.codes, self.beam_scores, self.seen, self.best, self._joint,
+            self._choose, self.b, self.nb, length_penalty=self.length_penalty, prefill_len=self.p, lat=self.lat)
+        self.codes.copy_(codes)
+        self.beam_scores.copy_(scores)
+        self.seen.copy_(seen)
         if self.lat is not None:
-            self.lat = self.lat[flat_src]
+            self.lat.copy_(self.lat[flat_src])
         return flat_src, nxt
+
+    def _iteration(self) -> None:
+        """One decode step at the device step counter i = self.t, which it
+        then advances."""
+        p, i = self.p, self.t
+        positions = torch.arange(self.prefill_valid.shape[1], device=self.codes.device)[None, :]
+        valid = self.prefill_valid | ((positions >= p) & (positions < p + i))
+        logits = _decode_step(self.model, self.cfg, self.cur, i + self.pos_off + self.s0, self.cache, p + i, valid,
+                              return_hidden=self.capture)
+        if self.capture:
+            logits, hidden = logits
+            write_at(self.lat, 1, i + 1, hidden)
+        flat_src, nxt = self._select(i + 1, logits)
+        for c in self.cache:
+            c.copy_(c.index_select(1, flat_src))
+        self.cur.copy_(nxt)
+        self.t.add_(1)
 
     def live(self) -> bool:
         """Whether another step can still change the result: steps are left,
@@ -715,19 +822,25 @@ class _BeamLoop:
         bound = self.beam_scores.reshape(self.b, self.nb).max(dim=1).values / _length_norm(base, self.length_penalty)
         return bool((bound > self.best.score).any())
 
-    def run(self, n_steps: int) -> None:
+    def _bind(self, stage: GraphStage):
+        """Move the loop onto the static buffers of its key (_bind_decode's,
+        with gen.num_beams > 1); the device counter t is set to the host's i."""
+        key = ("dec", self.b, self.p, self.gen, self.capture, len(self.cache) == 4, self.prefill_valid.shape[1],
+               self.pos_off, self.s0, self.cache[0].dtype, weights_key(self.model))
+        lane = stage.bind(key, self, [(self, self._BUFFERS), (self.best, ("score", "codes", "length", "lat"))])
+        self.t.fill_(self.i)
+        return lane
+
+    def run(self, n_steps: int, graphs: Optional[GraphStage] = None) -> None:
+        """Up to n_steps steps while live(), each through `graphs`, the
+        engine's decode stage, as in decode_steps."""
         stop = self.i + n_steps
-        positions = torch.arange(self.prefill_valid.shape[1], device=self.codes.device)[None, :]
+        stage = stage_or_uncaptured(graphs, self.codes.device)
+        lane = self._bind(stage)
         while self.i < stop and self.live():
-            i, p = self.i, self.p
-            valid = self.prefill_valid | ((positions >= p) & (positions < p + i))
-            logits = _decode_step(self.model, self.cfg, self.cur, i + self.pos_off + self.s0, self.cache, p + i,
-                                  valid, return_hidden=self.capture)
-            if self.capture:
-                logits, self.lat[:, i + 1] = logits
-            flat_src, self.cur = self._select(i + 1, logits)
-            self.cache = tuple(c.index_select(1, flat_src) for c in self.cache)
-            self.i = i + 1
+            self._draw()
+            stage.run(lane, self._iteration)
+            self.i += 1
 
     def grow(self, extra: int) -> None:
         """`extra` more generated-token slots: the cache, the key mask and,
@@ -765,6 +878,7 @@ def generate_speech_beam(
     pos_off: int = 2,
     stats: Optional[dict] = None,
     input_tokens: Optional[torch.Tensor] = None,
+    graphs: Optional[GraphStage] = None,
 ):
     """Beam search (gen.num_beams = nb > 1): HF beam_search, or beam_sample
     with gen.do_sample, with JAX's admissible early stop (checked once a
@@ -775,12 +889,13 @@ def generate_speech_beam(
     with capture_latents its latents [B, max_new, D] (slot j predicted code
     j; pos_off=1 for the teacher-forced pass's positions): the latent buffer
     is reordered with the beams, and a finished hypothesis keeps a copy.
-    `stats`, a dict, receives "steps", the decode steps the loop ran."""
+    `stats`, a dict, receives "steps", the decode steps the loop ran.
+    `graphs`: the engine's decode stage (decode_steps)."""
     max_new = gen.max_new_tokens
     loop = _BeamLoop(model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
                      repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, max_new,
                      input_tokens=input_tokens)
-    loop.run(max_new - 1)
+    loop.run(max_new - 1, graphs)
     if stats is not None:
         stats["steps"] = loop.i
     return loop.finalize()
@@ -805,6 +920,7 @@ def generate_speech_beam_segmented(
     pos_off: int = 2,
     segment: int = 160,
     stats: Optional[dict] = None,
+    graphs: Optional[GraphStage] = None,
 ):
     """generate_speech_beam with the generated part of the cache, and the
     latent buffers, growing by `segment` slots between runs of steps: the
@@ -812,20 +928,21 @@ def generate_speech_beam_segmented(
     written so far, not the whole max_new_tokens budget. The same loop and
     the same outputs, token for token; between segments the host makes the
     loop's own early-stop check and skips the rest. `stats` receives "steps"
-    and "segments"."""
+    and "segments". `graphs`: the engine's decode stage; each segment's
+    cache length is a key of its own."""
     max_new = gen.max_new_tokens
     n_segments = -(-max_new // segment)
     loop = _BeamLoop(model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
                      repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off,
                      min(segment, max_new))
-    loop.run(min(segment, max_new) - 1)
+    loop.run(min(segment, max_new) - 1, graphs)
     ran = 1
     for k in range(1, n_segments):
         if not loop.live():
             break
         slots = min(segment * (k + 1), max_new)
         loop.grow(slots - segment * k)
-        loop.run(slots - segment * k)
+        loop.run(slots - segment * k, graphs)
         ran += 1
     if stats is not None:
         stats["steps"], stats["segments"] = loop.i, ran

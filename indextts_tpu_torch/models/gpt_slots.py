@@ -26,8 +26,10 @@ What differs: the cache is the port's [L, B, H, S, Dh] (int8: k8, ks, v8, vs
 with one scale per head pair and position), not the head-paired one. The
 admission and the per-row writes of codes / seen / latents are indexed
 writes, the plain form on a GPU (the JAX package uses roll-pad-where and
-dense masked selects because XLA on a TPU serializes scatters). The loop is
-eager; the step counter and the cursor live on the host.
+dense masked selects because XLA on a TPU serializes scatters). The step
+counter and the cursor are device scalars and every write of a step is in
+place, so the engine captures the step once per session shape as a CUDA
+graph (graphs.py); the loop keeps one host check a step (any row active).
 
 Greedy slot decode equals `generate_speech` token for token per row, for
 rows admitted mid-decode, across the cache wrap and after slot reuse
@@ -38,14 +40,16 @@ from one generator. Forced mel prefixes and beams are not supported.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.models.gpt import UnifiedVoice
+from indextts_tpu_torch.graphs import GraphStage, stage_or_uncaptured, weights_key
+from indextts_tpu_torch.models.gpt import UnifiedVoice, write_at
 from indextts_tpu_torch.models.gpt_decode import GenerationConfig, _decode_step, prefill_decode_state
-from indextts_tpu_torch.ops.sampling import Knob, greedy_token, process_logits, sample_token
+from indextts_tpu_torch.ops.sampling import Knob, greedy_token, process_logits, row_knob, sample_token, uniforms
 
 
 @dataclass
@@ -57,8 +61,8 @@ class SlotState:
     column written each step, but their mask bit stays False, so it is never
     attended. Updated in place by slot_admit and slot_steps."""
 
-    tick: int              # steps run so far
-    cursor: int            # the shared circular write cursor, in [0, S)
+    tick: torch.Tensor     # 0-dim long, steps run so far
+    cursor: torch.Tensor   # 0-dim long, the shared circular write cursor, in [0, S)
     i_b: torch.Tensor      # [B] long, each row's index of its last code
     codes: torch.Tensor    # [B, max_new] long, stop-filled
     cache: Tuple[torch.Tensor, ...]  # (k, v) or int8 (k8, ks, v8, vs)
@@ -68,6 +72,7 @@ class SlotState:
     cur: torch.Tensor      # [B] long, the last code emitted
     mask: torch.Tensor     # [B, S] bool, each row's valid cache slots
     lat: Optional[torch.Tensor] = None  # [B, max_new, D] captured latents
+    u: Optional[torch.Tensor] = None    # [B] when sampling, the step's uniforms, drawn before it runs
 
 
 def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_len: int, dtype: torch.dtype,
@@ -87,7 +92,7 @@ def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_l
     else:
         cache = (torch.zeros(shape5, dtype=dtype, device=dev), torch.zeros(shape5, dtype=dtype, device=dev))
     return SlotState(
-        tick=0, cursor=0,
+        tick=torch.zeros((), dtype=torch.long, device=dev), cursor=torch.zeros((), dtype=torch.long, device=dev),
         i_b=torch.zeros(b, dtype=torch.long, device=dev),
         codes=torch.full((b, gen.max_new_tokens), cfg.stop_mel_token, dtype=torch.long, device=dev),
         cache=cache,
@@ -97,6 +102,7 @@ def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_l
         cur=torch.full((b,), cfg.stop_mel_token, dtype=torch.long, device=dev),
         mask=torch.zeros(b, cache_len, dtype=torch.bool, device=dev),
         lat=torch.zeros(b, gen.max_new_tokens, cfg.model_dim, dtype=dtype, device=dev) if capture_latents else None,
+        u=torch.zeros(b, device=dev) if gen.do_sample else None,
     )
 
 
@@ -158,52 +164,82 @@ def slot_admit(state: SlotState, prod: Dict[str, Any], slot: int, cfg: GPTConfig
     return state
 
 
-@torch.no_grad()
-def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state: SlotState, n_steps: int,
-               generator: torch.Generator, temperature: Knob = 1.0, top_p: Knob = 0.8,
-               repetition_penalty: Knob = 10.0, typical_mass: Knob = 0.9, pos_off: int = 2) -> SlotState:
-    """Run up to `n_steps` decode steps at the shared cursor, ending early
-    when no row is active. The sampling knobs are floats or [n_slots]
-    tensors, one value per row (the session sets a row's at admission, so
-    requests with different knobs share the batch). Row r decodes at mel
-    position i_b[r] + pos_off; inactive rows emit the stop code."""
+def _slot_iteration(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state: SlotState, knobs,
+                    pos_off: int) -> None:
+    """One slot step; every write is in place, and the cursor and the tick
+    are device scalars, so the step reads no host value. `knobs`: the four
+    dynamic knobs as [n_slots] attributes; a sampled row takes its uniform
+    from state.u."""
     s_len = state.mask.shape[1]
     max_new = state.codes.shape[1]
     stop = cfg.stop_mel_token
     rows = torch.arange(state.codes.shape[0], device=state.codes.device)
-    capture = state.lat is not None
+    act = state.active.clone()
+    wp = (state.cursor % s_len).reshape(1)
+    # slot wp is invalid for every active row: a row's span never laps the cursor
+    logits = _decode_step(model, cfg, state.cur, state.i_b + pos_off, state.cache, wp, state.mask,
+                          return_hidden=state.lat is not None)
+    if state.lat is not None:
+        logits, hnorm = logits
+    lf = process_logits(
+        logits, seen_mask=state.seen, repetition_penalty=knobs.repetition_penalty,
+        typical_sampling=gen.typical_sampling, typical_mass=knobs.typical_mass, temperature=knobs.temperature,
+        top_k=gen.top_k if gen.do_sample else 0, top_p=knobs.top_p, do_sample=gen.do_sample,
+    )
+    nxt = sample_token(lf, state.u) if gen.do_sample else greedy_token(lf)
+    nxt = torch.where(act, nxt, torch.full_like(nxt, stop))
+    # indexed writes at each row's own index; an inactive row writes back what it holds
+    # (a boolean row selection would cost a host round trip per step)
+    widx = (state.i_b + 1).clamp(max=max_new - 1)
+    state.codes[rows, widx] = torch.where(act, nxt, state.codes[rows, widx])
+    state.seen[rows, nxt] = state.seen[rows, nxt] | act
+    if state.lat is not None:
+        state.lat[rows, widx] = torch.where(act[:, None], hnorm.to(state.lat.dtype), state.lat[rows, widx])
+    write_at(state.mask, 1, wp, act)  # the cursor column becomes attendable for the rows that really wrote
+    newly_done = act & ((nxt == stop) | (state.i_b + 1 >= max_new - 1))
+    state.i_b.copy_(torch.where(act, state.i_b + 1, state.i_b))
+    state.cur.copy_(torch.where(act, nxt, state.cur))
+    state.active.copy_(act & ~newly_done)
+    state.done |= newly_done
+    state.tick.add_(1)
+    state.cursor.copy_((state.cursor + 1) % s_len)
+
+
+# the dynamic knobs of a slot step, each [n_slots]
+_KNOBS = ("temperature", "top_p", "repetition_penalty", "typical_mass")
+
+
+@torch.no_grad()
+def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state: SlotState, n_steps: int,
+               generator: torch.Generator, temperature: Knob = 1.0, top_p: Knob = 0.8,
+               repetition_penalty: Knob = 10.0, typical_mass: Knob = 0.9, pos_off: int = 2,
+               graphs: Optional[GraphStage] = None) -> SlotState:
+    """Run up to `n_steps` decode steps at the shared cursor, ending early
+    when no row is active (one host check a step). The sampling knobs are
+    floats or [n_slots] tensors, one value per row (the session sets a row's
+    at admission, so requests with different knobs share the batch). Row r
+    decodes at mel position i_b[r] + pos_off; inactive rows emit the stop
+    code. The state, allocated once per session by slot_state_init, is the
+    static buffers of its key in `graphs`, the engine's slot stage (without
+    one, a stage that never captures; the knobs are copied into [n_slots]
+    buffers each call), and each step runs through it: on a CUDA engine a
+    replay of the key's captured graph, its uniforms drawn into state.u
+    before it."""
+    b, dev = state.codes.shape[0], state.codes.device
+    knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
+        _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
+    stage = stage_or_uncaptured(graphs, dev)
+    key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, len(state.cache) == 4,
+           state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model))
+    lane = stage.bind(key, state, [(state, ("tick", "cursor", "i_b", "codes", "cache", "active", "done", "seen",
+                                            "cur", "mask", "lat", "u")), (knobs, _KNOBS)])
+    step = lambda: _slot_iteration(model, cfg, gen, state, knobs, pos_off)
     for _ in range(n_steps):
         if not bool(state.active.any()):
             break
-        act = state.active
-        wp = state.cursor % s_len
-        # slot wp is invalid for every active row: a row's span never laps the cursor
-        logits = _decode_step(model, cfg, state.cur, state.i_b + pos_off, state.cache, wp, state.mask,
-                              return_hidden=capture)
-        if capture:
-            logits, hnorm = logits
-        lf = process_logits(
-            logits, seen_mask=state.seen, repetition_penalty=repetition_penalty,
-            typical_sampling=gen.typical_sampling, typical_mass=typical_mass, temperature=temperature,
-            top_k=gen.top_k if gen.do_sample else 0, top_p=top_p, do_sample=gen.do_sample,
-        )
-        nxt = sample_token(lf, generator) if gen.do_sample else greedy_token(lf)
-        nxt = torch.where(act, nxt, torch.full_like(nxt, stop))
-        # indexed writes at each row's own index; an inactive row writes back what it holds
-        # (a boolean row selection would cost a host round trip per step)
-        widx = (state.i_b + 1).clamp(max=max_new - 1)
-        state.codes[rows, widx] = torch.where(act, nxt, state.codes[rows, widx])
-        state.seen[rows, nxt] = state.seen[rows, nxt] | act
-        if capture:
-            state.lat[rows, widx] = torch.where(act[:, None], hnorm.to(state.lat.dtype), state.lat[rows, widx])
-        state.mask[:, wp] = act  # the cursor column becomes attendable for the rows that really wrote
-        newly_done = act & ((nxt == stop) | (state.i_b + 1 >= max_new - 1))
-        state.i_b = torch.where(act, state.i_b + 1, state.i_b)
-        state.cur = torch.where(act, nxt, state.cur)
-        state.active = act & ~newly_done
-        state.done = state.done | newly_done
-        state.tick += 1
-        state.cursor = (state.cursor + 1) % s_len
+        if state.u is not None:
+            state.u.copy_(uniforms(tuple(state.u.shape), generator, dev))
+        stage.run(lane, step)
     return state
 
 

@@ -52,10 +52,16 @@ def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> 
     return filt.astype(np.float32)
 
 
+@lru_cache(maxsize=64)
+def _filter_tensor(ratio: int, kernel_size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The resampling filter on `device`, made once (a captured vocoder call
+    copies nothing from the host)."""
+    return torch.as_tensor(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, kernel_size), dtype=dtype, device=device)
+
+
 def _depthwise_filter(x: torch.Tensor, ratio: int, kernel_size: int) -> torch.Tensor:
     """The resampling filter as a depthwise weight [C, 1, K] in x's dtype."""
-    filt = kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, kernel_size)
-    w = torch.as_tensor(filt, dtype=x.dtype, device=x.device)
+    w = _filter_tensor(ratio, kernel_size, x.dtype, x.device)
     return w.view(1, 1, -1).expand(x.shape[1], 1, kernel_size)
 
 

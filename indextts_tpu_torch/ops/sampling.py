@@ -30,6 +30,15 @@ def _colp(p: Knob, like: torch.Tensor) -> Knob:
     return float(p)
 
 
+def row_knob(p: Knob, rows: int, device) -> torch.Tensor:
+    """A dynamic knob as one float32 value per row [rows] on `device`: how a
+    captured step takes it, from a static buffer (a float would be baked
+    into the graph)."""
+    if isinstance(p, torch.Tensor) and p.dim() == 1:
+        return p.to(device=device, dtype=torch.float32)
+    return torch.full((rows,), float(p), dtype=torch.float32, device=device)
+
+
 def apply_temperature(logits: torch.Tensor, temperature: Knob) -> torch.Tensor:
     t = _colp(temperature, logits)
     return logits / (t.clamp(min=1e-6) if isinstance(t, torch.Tensor) else max(t, 1e-6))
@@ -49,7 +58,7 @@ def apply_top_p(logits: torch.Tensor, top_p: Knob, min_tokens_to_keep: int = 1) 
     sorted_logits = torch.sort(logits, dim=-1).values  # ascending
     cum = torch.cumsum(torch.softmax(sorted_logits.float(), dim=-1), dim=-1)
     keep_sorted = cum > (1.0 - _colp(top_p, logits))
-    keep_sorted[..., -min_tokens_to_keep:] = True
+    keep_sorted[..., -min_tokens_to_keep:].fill_(True)
     # threshold = smallest kept logit
     inf = torch.full_like(sorted_logits, float("inf"))
     thresh = torch.where(keep_sorted, sorted_logits, inf).min(dim=-1, keepdim=True).values
@@ -72,7 +81,7 @@ def apply_top_k_top_p(logits: torch.Tensor, top_k: int, top_p: Knob, min_tokens_
     at_or_below = lf[..., None, :] <= vals[..., :, None]  # [B, k, V]
     c = torch.where(at_or_below, ex[..., None, :], torch.zeros((), device=lf.device)).sum(dim=-1) / z
     keep = c > (1.0 - _colp(top_p, logits))
-    keep[..., :min_tokens_to_keep] = True
+    keep[..., :min_tokens_to_keep].fill_(True)
     thresh = torch.where(keep, vals, torch.full_like(vals, float("inf"))).min(dim=-1, keepdim=True).values
     return torch.where(logits < thresh, torch.full_like(logits, NEG_INF), logits)
 
@@ -160,17 +169,24 @@ class RowDraw:
     total: int
 
 
-def uniforms(shape: Sequence[int], generator: Union[torch.Generator, RowDraw], device) -> torch.Tensor:
+def uniforms(shape: Sequence[int], generator: Union[torch.Generator, RowDraw, torch.Tensor], device) -> torch.Tensor:
     """torch.rand(shape) from `generator`; from a RowDraw, the rows [start,
-    start + shape[0]) of the whole batch's draw."""
+    start + shape[0]) of the whole batch's draw; a tensor is a draw already
+    made (a captured step's uniforms, drawn before its replay) and is
+    returned as it is."""
+    if isinstance(generator, torch.Tensor):
+        if tuple(generator.shape) != tuple(shape):
+            raise ValueError(f"uniforms: a draw of shape {tuple(generator.shape)} where {tuple(shape)} is needed")
+        return generator
     if isinstance(generator, RowDraw):
         u = torch.rand((generator.total, *shape[1:]), generator=generator.generator, device=device)
         return u[generator.start : generator.start + shape[0]]
     return torch.rand(tuple(shape), generator=generator, device=device)
 
 
-def sample_token(logits: torch.Tensor, generator: Union[torch.Generator, RowDraw]) -> torch.Tensor:
+def sample_token(logits: torch.Tensor, generator: Union[torch.Generator, RowDraw, torch.Tensor]) -> torch.Tensor:
     """Categorical sample over masked logits [B, V] -> [B], one uniform per
-    row from `generator` (which lives on the logits' device)."""
+    row from `generator` (which lives on the logits' device), or from a [B]
+    tensor of uniforms already drawn."""
     u = uniforms((logits.shape[0],), generator, logits.device)
     return inverse_cdf_token(logits, u)

@@ -19,9 +19,9 @@ for a session; the dynamic knobs ride per-row columns, as infer_batch's
 BATCH_DYNAMIC_PARAMS do.
 
 The JAX session reads each chunk's done / i_b / codes snapshot one tick late,
-to hide a device round trip behind the next chunk. Here the loop is eager and
-the snapshot is read right after its chunk, so a row completes in the tick
-that finishes it. The admit_seq guard stays: a snapshot never harvests a slot
+to hide a device round trip behind the next chunk. Here the snapshot is read
+right after its chunk (each step a replay of the session's captured step on
+a CUDA engine, graphs.py), so a row completes in the tick that finishes it. The admit_seq guard stays: a snapshot never harvests a slot
 that was admitted after it was taken.
 """
 
@@ -381,7 +381,7 @@ class SlotSession:
                 self.engine.gpt, self.engine.cfg.gpt, self.gen, self.state, self.chunk_steps, self.generator,
                 temperature=cols["temperature"], top_p=cols["top_p"],
                 repetition_penalty=cols["repetition_penalty"], typical_mass=cols["typical_mass"],
-                pos_off=self.pos_off,
+                pos_off=self.pos_off, graphs=self.engine._graphs.slot,
             )
             self._seq += 1
             st = self.state
