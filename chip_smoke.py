@@ -5,7 +5,8 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1, K2, K3, K4 and K5 kernels from
+  2. build   — nvcc builds the K1, K2, K3, K4 and K5 kernels and the decode
+               block's graph assembly (graph_block.cu) from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
                for ~100 codes, B = 1 and 4, bf16 and float32, with CUDA-event
@@ -152,20 +153,29 @@ Phases, in order; any failure exits non-zero:
                every shard shape against its plain version, 97 launches a
                step on each rank, its own device ms beside one process's);
      graphs  — the engine's captured programs (indextts_tpu_torch/
-               graphs.py) at the published widths, bf16: warmup twice (its
-               captures, then replays), then each request under the
-               engine's private eager switch, replayed, and replayed again,
-               its code rows token-exact and K1-K5's launches equal in the
-               three: greedy and sampled num_beams=1, greedy and default
-               num_beams=3, a 320-code segmented request, with fast_latents
-               a sampled and a default request, infer_stream and a
-               SlotSession of 4 slots serving 8 requests, and on the int8 KV
-               cache with int8 weights a greedy and a default request; the
-               vocoder (one 100-code call and one batch of 2) on the four
-               routes (default, INDEXTTS_WIDE_BRANCH, INDEXTTS_WIDE_TMAJOR,
-               INDEXTTS_FUSED_AA), wav within 1 int16 unit, launches a call
-               as eager; host and device ms per step, kernels and the idle
-               share, eager beside replayed, of the B = 4 bf16 and int8 (KV +
+               graphs.py) at the published widths, bf16: first a toy loop in
+               blocks of conditional steps (csrc/graph_block.cu; torch's and
+               the driver's CUDA versions printed), replayed against eager
+               with a stop mid-block; warmup twice (its captures, then
+               replays), then each request under the engine's private eager
+               switch, replayed, and replayed again, its code rows
+               token-exact, K1-K5's launches and the blocks' host reads
+               equal in the three: greedy and sampled num_beams=1, greedy
+               and default num_beams=3, a 320-code segmented request, with
+               fast_latents a sampled and a default request, infer_stream
+               and a SlotSession of 4 slots serving 8 requests, then all of
+               them again with the stop code's bias raised so that rows stop
+               mid-block, and on the int8 KV cache with int8 weights a greedy
+               and a default request, without and with the raise; the
+               conditioning (b = 1, 2; and each legacy condition type in the
+               legacy phase) and latent passes (b = 1 and 4, and on int8
+               weights, where K5 must not launch) replayed within 1 bf16 unit
+               of eager, ms of each; the vocoder (one 100-code call and one
+               batch of 2) on the four routes (default, INDEXTTS_WIDE_BRANCH,
+               INDEXTTS_WIDE_TMAJOR, INDEXTTS_FUSED_AA), wav within 1 int16
+               unit, launches a call as eager; host and device ms per step,
+               kernels and the idle share, eager beside replayed in blocks
+               and replayed one step a call, of the B = 4 bf16 and int8 (KV +
                K5) decode steps, a 4-row slot step, a 3-beam step and a
                100-code vocoder call; capture seconds and pool growth per key;
   8. report  — one JSON line of kernel results, the nvidia-smi line, and the
@@ -2239,6 +2249,8 @@ def legacy_phase(card: str) -> dict:
             f"cpu f32| = {err:.4g} (tolerance {LEGACY_COND_RTOL} x max|cpu| = {LEGACY_COND_RTOL * scale:.4g}) [{card}]")
         if not ok:
             raise AssertionError(f"{ct}: the card's conditioning disagrees with the CPU's")
+        # the engine's conditioning stage on this condition type, replayed against eager
+        out["conditioning"][ct]["stage"] = conditioning_vs_eager(engine, card, ct)
         del engine, cpu
         torch.cuda.empty_cache()
 
@@ -2817,6 +2829,10 @@ K_NAMES = ("k1", "k2", "k3", "k4", "k5")
 # the __global__ functions of K1-K5 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
 # steps (or vocoder calls) in the short window where step_profile counts K1-K5's kernels
 COUNT_STEPS = 4
+# a window whose count of K1-K5's kernels falls short of the launches (the profiler dropped
+# records: a replayed int8 window once read 387 of 388 K5 kernels over 4 steps) is taken
+# again, up to this many windows; a count above the launches fails at once
+COUNT_TRIES = 3
 K_KERNELS = {"k1": ("anti_alias_snake_kernel",), "k2": ("aa_snake_dconv_f32_kernel", "aa_snake_dconv_wgmma_kernel"),
              "k3": ("tmajor_taps_kernel", "tmajor_ident_kernel", "tmajor_mma_kernel"), "k4": ("folded_aa_kernel",),
              "k5": ("int8_matmul_kernel",)}
@@ -2906,6 +2922,9 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
     import torch
 
     mods = kernel_modules()
+    import numpy as np
+
+    loops = (engine._graphs.decode, engine._graphs.slot)
     runs = {}
     for mode in ("eager", "graph", "graph_again"):
         engine._generator.manual_seed(seed)
@@ -2913,13 +2932,15 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
         rec.rows.clear()
         for m in mods.values():
             m.launches = 0  # this run of the path starts here
+        reads = sum(stage.reads for stage in loops)
         torch.cuda.synchronize()
         t = time.perf_counter()
         with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
             result = fn()
         torch.cuda.synchronize()
         runs[mode] = dict(s=time.perf_counter() - t, rows=list(rec.rows), result=result,
-                          launches={k: m.launches for k, m in mods.items()}, stats=dict(engine.last_stats))
+                          launches={k: m.launches for k, m in mods.items()}, stats=dict(engine.last_stats),
+                          reads=sum(stage.reads for stage in loops) - reads)
     base = runs["eager"]
     if not base["rows"]:
         raise AssertionError(f"{name}: no code rows were recorded")
@@ -2933,16 +2954,156 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
                                  f"{base['launches']} eager")
         if isinstance(base["result"], list) and runs[mode]["result"] != base["result"]:
             raise AssertionError(f"{name}: {runs[mode]['result']} under {mode}, {base['result']} eager")
+    if runs["graph"]["reads"] != base["reads"] or runs["graph_again"]["reads"] != base["reads"]:
+        raise AssertionError(f"{name}: host reads {[r['reads'] for r in runs.values()]} (eager, graph, again)")
     steps = lambda r: max(r["stats"].get("gpt_steps", 0), 1)
+    stop = engine.cfg.gpt.stop_mel_token
+    # each recorded row's length up to its first stop code (its budget if none)
+    lengths = sorted(int(np.argmax(r == stop)) if (r == stop).any() else r.shape[-1]
+                     for rr in base["rows"] for r in np.atleast_2d(rr))
     row = {"request": name, "codes": int(sum(r.shape[-1] for r in base["rows"])),
            "rows": len(base["rows"]), "launches": base["launches"], "segments": base["stats"].get("gpt_segments"),
+           "gpt_steps": base["stats"].get("gpt_steps"), "host_reads": base["reads"], "row_lengths": lengths,
            **{f"{mode}_s": runs[mode]["s"] for mode in runs},
            **{f"{mode}_decode_ms_per_step": 1e3 * runs[mode]["stats"].get("gpt_gen_s", 0.0) / steps(runs[mode])
-              for mode in runs if "gpt_gen_s" in runs[mode]["stats"]}}
-    log(f"[graphs] {name}: {row['rows']} code rows token-exact in eager, graph and graph again; wall "
-        f"{row['eager_s']:.2f} / {row['graph_s']:.2f} / {row['graph_again_s']:.2f} s; launches "
-        f"{ {k: v for k, v in base['launches'].items() if v} } in each [{card}]")
+              for mode in runs if "gpt_gen_s" in runs[mode]["stats"]},
+           **{f"{mode}_{key}_ms": 1e3 * runs[mode]["stats"][stat] for mode in runs
+              for key, stat in (("latent", "gpt_forward_s"), ("cond", "cond_s")) if stat in runs[mode]["stats"]}}
+    gs = row["gpt_steps"]
+    reads = (f"{row['host_reads']} host reads for {gs} decode steps (one a step before blocks)" if gs
+             else f"{row['host_reads']} host reads")
+    lat = (f"; latent pass {row['eager_latent_ms']:.1f} ms eager, {row['graph_again_latent_ms']:.1f} replayed"
+           if "eager_latent_ms" in row else "")
+    log(f"[graphs] {name}: {row['rows']} code rows token-exact in eager, graph and graph again (lengths to the "
+        f"first stop {lengths}); {reads}; wall {row['eager_s']:.2f} / {row['graph_s']:.2f} / "
+        f"{row['graph_again_s']:.2f} s{lat}; launches { {k: v for k, v in base['launches'].items() if v} } in each "
+        f"[{card}]")
     return row
+
+
+def bf16_units(got, want) -> float:
+    """The largest |got - want|, element by element, in units of the bf16
+    spacing at |want| (a bit-equal pair reads 0)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return float(((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def stage_vs_eager(engine, name: str, fn, card: str, iters: int = 5) -> dict:
+    """fn() (one of the engine's latent or conditioning passes) under
+    Graphs.eager() and replayed from its stage: the replay within 1 bf16
+    unit of eager (bit-equal unless cuBLAS picks another algorithm under
+    capture), and ms per call of each, host clock synchronized, the least of
+    `iters` (the first graph call of a new key captures and is not timed)."""
+    import torch
+
+    with torch.no_grad():
+        with engine._graphs.eager():
+            want = fn()
+        fn()  # a new key's warm run and capture
+        got = fn()
+        units = bf16_units(got, want)
+        ms = {}
+        for mode in ("eager", "replayed"):
+            times = []
+            for _ in range(iters):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if mode == "eager":
+                    with engine._graphs.eager():
+                        fn()
+                else:
+                    fn()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t))
+            ms[mode] = min(times)
+    log(f"[graphs] {name}: replayed within {units:.3g} bf16 unit(s) of eager (gate 1), {tuple(got.shape)}; "
+        f"{ms['eager']:.2f} ms eager, {ms['replayed']:.2f} ms replayed [{card}]")
+    if not units <= 1.0 or got.shape != want.shape:
+        raise AssertionError(f"{name}: the replayed pass differs from eager by {units} bf16 units")
+    return {"bf16_units": units, "shape": list(got.shape), "eager_ms": ms["eager"], "replayed_ms": ms["replayed"]}
+
+
+def conditioning_vs_eager(engine, card: str, label: str) -> dict:
+    """The engine's conditioning stage on the sample prompt (its frame
+    bucket, b = 1) and on a batch of two prompts (the prompt and its first
+    half, one bucket: _conds_for_many's batched call), replayed against
+    eager (stage_vs_eager)."""
+    import numpy as np
+    import torch
+
+    prompt = engine.extract_features(PROMPT)  # [1, 100, frames]
+    frames = prompt.shape[-1]
+    bucket = max(-(-frames // 100) * 100, 100)
+    mel = np.zeros((2, bucket, prompt.shape[1]), np.float32)
+    mel[0, :frames] = prompt[0].T
+    mel[1, : frames // 2] = prompt[0, :, : frames // 2].T
+    mel_t = torch.from_numpy(mel).to(engine.device, engine.dtype)
+    lens = torch.tensor([frames, frames // 2], device=engine.device)
+    return {f"b{b}": stage_vs_eager(engine, f"{label} conditioning, b={b}, {bucket} frames",
+                                    lambda b=b: engine._conditioning(mel_t[:b], lens[:b]), card) for b in (1, 2)}
+
+
+def raise_stop_bias(engine, card: str):
+    """Random weights never emit the stop code. Raise its mel-head bias, in
+    place (the captured programs read it at its address), until a sampled
+    one-row 60-code request, eager, stops after 4 codes and before its
+    budget: the first raise of a grid that does, else a bisection between
+    the last raise that never stopped and the first that stopped at once
+    (which it keeps when the bisection finds nothing between: the request
+    then stops at its first steps). The rows of the routes then stop before
+    their budgets, mid-block. Returns (the raise, left applied; the bias
+    before it, to put back)."""
+    import torch
+
+    bias = engine.gpt.mel_head.bias
+    stop = engine.cfg.gpt.stop_mel_token
+    base = bias[stop].item()
+    tried = []
+
+    def steps_at(delta: float) -> int:
+        with torch.no_grad():
+            bias[stop] = base + delta
+        engine._generator.manual_seed(11)
+        with engine._graphs.eager():
+            engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", num_beams=1, max_mel_tokens=60)
+        tried.append((round(delta, 4), engine.last_stats["gpt_steps"]))
+        return engine.last_stats["gpt_steps"]
+
+    lo = hi = None
+    for delta in (1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0):
+        n = steps_at(delta)
+        if 4 <= n < 59:
+            lo = hi = delta
+            break
+        if n >= 59:
+            lo = delta
+        else:
+            hi = delta
+            break
+    for _ in range(10):
+        if lo is None or hi is None or lo == hi:
+            break
+        mid = 0.5 * (lo + hi)
+        n = steps_at(mid)
+        if 4 <= n < 59:
+            lo = hi = mid
+        elif n >= 59:
+            lo = mid
+        else:
+            hi = mid
+    if hi is None:
+        with torch.no_grad():
+            bias[stop] = base
+        raise AssertionError(f"no raise of the stop bias stopped a sampled 60-code request: {tried}")
+    lo = hi
+    with torch.no_grad():
+        bias[stop] = base + lo
+    log(f"[graphs] stop code's bias raised by {lo:.4f} (tried {tried}: decode steps of a sampled 60-code request): "
+        f"rows now stop mid-block [{card}]")
+    return lo, base
 
 
 def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
@@ -2959,68 +3120,182 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
     replay, the count that does not rest on the wrappers' counters. The
     window is short because the profiler drops a kernel record now and then
     in long ones (1 of 3104 K5 kernels over 32 eager int8 steps, 73 of 109
-    K1 kernels over a whole eager request: PR 12's own calls)."""
+    K1 kernels over a whole eager request, in earlier runs). The replayed
+    route runs twice: in blocks (go(n): up to graphs.BLOCK steps a replay,
+    one host read a block) and one step a call (go(1) n times: a replay and
+    a read each step, the host's pattern before blocks)."""
     import contextlib
+    import inspect
 
     import torch
 
+    def per_step(go):
+        """go, one step a call: a replay and a host read each step."""
+        default = inspect.signature(go).parameters["n"].default
+        return lambda n=default: sum(go(1) for _ in range(n))
+
     out = {}
-    for mode in ("eager", "graph"):
+    for mode in ("eager", "graph", "graph_per_step"):
+        fresh = (lambda: per_step(prepare())) if mode == "graph_per_step" else prepare
         with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
-            prepare()()
-            go = prepare()
+            fresh()()
+            go = fresh()
             torch.cuda.synchronize()
             t = time.perf_counter()
             n = go()
             torch.cuda.synchronize()
             host = 1e3 * (time.perf_counter() - t) / n
-            go = prepare()
+            go = fresh()
             torch.cuda.synchronize()
             n2, prof = run_profiled(go, tries=1)
             if not any(getattr(e, "self_device_time_total", 0) > 0 for e in prof.key_averages()):
-                go = prepare()  # the profiler recorded nothing: profile a fresh run again
+                go = fresh()  # the profiler recorded nothing: profile a fresh run again
                 torch.cuda.synchronize()
                 n2, prof = run_profiled(go, tries=1)
-            go = prepare()
-            torch.cuda.synchronize()
-            n3, short = run_profiled(lambda: go(COUNT_STEPS))
+            dropped = []
+            for _ in range(COUNT_TRIES):
+                go = fresh()
+                torch.cuda.synchronize()
+                n3, short = run_profiled(lambda: go(COUNT_STEPS))
+                counted = kernel_counts(short)
+                expected = {k: want.get(k, 0) * n3 for k in K_NAMES}
+                if counted == expected or any(counted[k] > expected[k] for k in K_NAMES):
+                    break
+                dropped.append(counted)  # fewer records than launches: the profiler dropped some
         events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
-        counted = kernel_counts(short)
-        if counted != {k: want.get(k, 0) * n3 for k in K_NAMES}:
+        if dropped:
+            log(f"[profile] {label}, {mode}: windows with records dropped, taken again: {dropped} [{card}]")
+        if counted != expected:
             raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K5 over {n3} {mode} steps, "
-                                 f"want {want} a step")
+                                 f"want {want} a step (earlier windows: {dropped})")
         device = sum(e.self_device_time_total for e in events) / 1e3 / n2 if events else None
         kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
         span = ((max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)) / 1e3 / n2
                 if kernels else None)
+        go = None  # the mode's last state goes, and its lane is free for the next mode's runs
         out[mode] = {"steps": n, "host_ms_per_step": host, "device_ms_per_step": device,
                      "kernels_per_step": sum(e.count for e in events) / n2 if events else None,
                      "device_span_ms_per_step": span, "k_kernels": counted, "count_steps": n3,
                      "device_idle_share": None if device is None else 1.0 - device / host}
-    e, g = out["eager"], out["graph"]
+    e, g, g1 = out["eager"], out["graph"], out["graph_per_step"]
     dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
         f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
         f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K5 kernels "
         f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps")
-    log(f"[graphs] {label}: host {e['host_ms_per_step']:.2f} ms/step eager, {g['host_ms_per_step']:.2f} replayed; "
-        f"device eager {dev(e)}; replayed {dev(g)} [{card}]")
+    log(f"[graphs] {label}: host {e['host_ms_per_step']:.2f} ms/step eager, {g['host_ms_per_step']:.2f} replayed in "
+        f"blocks, {g1['host_ms_per_step']:.2f} replayed one step a call; device eager {dev(e)}; replayed in blocks "
+        f"{dev(g)}; one step a call {dev(g1)} [{card}]")
     return out
+
+
+def cuda_driver_version() -> int:
+    """The CUDA driver's version (cuDriverGetVersion: 12040 is 12.4)."""
+    import ctypes
+
+    v = ctypes.c_int(0)
+    if ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(v)) != 0:
+        raise RuntimeError("cuDriverGetVersion failed")
+    return v.value
+
+
+def if_node_check(card: str) -> dict:
+    """The block of conditional steps (graphs.py, csrc/graph_block.cu) on a
+    toy loop, before any model: a counter loop whose condition is t < stop,
+    each step adding its row of a uniforms buffer, run through a decode
+    stage in blocks of BLOCK, replayed and under Graphs.eager(); budgets of
+    3, 16 and 16 with the stop at 10 must run 3, 7 (a stop mid-block, read
+    back as the condition false) and 0 steps in both, to the same state.
+    Then a step of cuBLAS (a bf16 [4, 1280] x [1280, 8194] product), a sort,
+    a top-k and a 64 MiB temporary: replayed equal to eager, and the pool
+    growth of its block against one step's temporaries. Prints torch's
+    CUDA and the driver's."""
+    import contextlib
+
+    import torch
+
+    from indextts_tpu_torch.graphs import BLOCK, Graphs
+
+    class Toy:  # a loop state (held weakly by its lane)
+        def __init__(self, **tensors):
+            self.__dict__.update(tensors)
+
+    info = {"torch": torch.__version__, "torch_cuda": torch.version.cuda, "driver": cuda_driver_version(),
+            "block": BLOCK}
+    log(f"[ifnode] torch {info['torch']}, torch.version.cuda {info['torch_cuda']}, CUDA driver {info['driver']}; "
+        f"blocks of {BLOCK} conditional steps [{card}]")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(1280, 8194, device=dev, dtype=torch.bfloat16, generator=g)
+
+    def loop(graphs, heavy: bool):
+        st = Toy(t=torch.zeros(1, dtype=torch.long, device=dev), x=torch.zeros(4, device=dev),
+                 stop=torch.full((1,), 10, dtype=torch.long, device=dev),
+                 h=torch.randn(4, 1280, device=dev, dtype=torch.bfloat16, generator=g),
+                 top=torch.zeros(4, 30, device=dev), u=torch.zeros(BLOCK, 4, device=dev))
+        lane = graphs.decode.bind(("toy", heavy), st, [(st, ("t", "x", "stop", "h", "top", "u"))])
+
+        def step():
+            st.x.add_(st.u.index_select(0, lane.ctl.ran)[0])
+            if heavy:
+                tmp = torch.empty(16 << 20, device=dev)
+                tmp.fill_(1.0)
+                logits = (st.h @ w).float() + tmp[:1]
+                vals, _ = torch.sort(logits, dim=-1, descending=True)
+                st.top.copy_(torch.topk(vals, 30, dim=-1)[0])
+                st.h.add_(st.top[:, :1].to(st.h.dtype) * 1e-3)
+            st.t.add_(1)
+
+        runs = []
+        for budget in (3, 16, 16):
+            st.u.copy_(torch.rand(BLOCK, 4, device=dev, generator=g))
+            runs.append(graphs.decode.run(lane, step, lambda: st.t < st.stop, budget))
+        torch.cuda.synchronize()
+        return runs, st, lane
+
+    out = {}
+    for heavy in (False, True):
+        res = {}
+        for mode in ("eager", "graph"):
+            graphs = Graphs("cuda")
+            g.manual_seed(3)
+            with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                runs, st, lane = loop(graphs, heavy)
+            res[mode] = (runs, st, lane)
+        (re, se, _), (rg, sg, lg) = res["eager"], res["graph"]
+        if [r for r, _ in re] != [3, 7, 0] or [a for _, a in re] != [True, False, False] or re != rg:
+            raise AssertionError(f"blocks ran {rg} replayed, {re} eager; want (3, True), (7, False), (0, False)")
+        if lg.graph is None or lg.replays != 2:
+            raise AssertionError(f"the toy block was not captured and replayed twice ({lg.replays} replays)")
+        for name in ("t", "x", "h", "top"):
+            if not torch.equal(getattr(se, name), getattr(sg, name)):
+                raise AssertionError(f"toy block ({'heavy' if heavy else 'light'}): {name} replayed differs from eager")
+        out["heavy" if heavy else "light"] = {"runs": rg, "capture_s": lg.capture_s, "pool_bytes": lg.pool_bytes}
+    info.update(out)
+    log(f"[ifnode] toy blocks replayed as eager: budgets 3, 16, 16 ran {[r for r, _ in out['light']['runs']]} steps "
+        f"(a stop mid-block); a cuBLAS + sort + top-k step with a 64 MiB temporary: equal to eager, block "
+        f"captured in {out['heavy']['capture_s']:.3f} s, pool +{out['heavy']['pool_bytes'] / 2**20:.1f} MiB for "
+        f"{BLOCK} copies of one step [{card}]")
+    return info
 
 
 def graphs_phase(card: str) -> dict:
     """The engine's captured programs (indextts_tpu_torch/graphs.py) at the
-    published widths, bf16, random init from seed 0: each request eager
-    (the private switch), then replayed twice; codes token-exact and K1-K5
-    launch counts equal; vocoder wav within 1 int16 unit on the four routes;
-    host and device ms per step eager beside replayed; capture seconds and
-    pool bytes per key; warmup seconds."""
+    published widths, bf16, random init from seed 0: the toy block check;
+    each request eager (the private switch), then replayed twice, also with
+    the stop code's bias raised (rows stop mid-block); codes token-exact,
+    K1-K5 launch counts and host reads equal; conditioning and latent passes
+    within 1 bf16 unit; vocoder wav within 1 int16 unit on the four routes;
+    host and device ms per step eager beside replayed in blocks and one step
+    a call; capture seconds and pool bytes per key; warmup seconds."""
     import contextlib
 
     import numpy as np
     import torch
 
+    from indextts_tpu_torch.graphs import BLOCK
     from indextts_tpu_torch.models import gpt_decode as tdec
     from indextts_tpu_torch.models import gpt_slots as tslots
+    from indextts_tpu_torch.ops.cuda import qmatmul
     from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
     t0 = time.perf_counter()
@@ -3029,6 +3304,7 @@ def graphs_phase(card: str) -> dict:
     init_s = time.perf_counter() - t0
     if not engine._graphs.decode.capturing:
         raise AssertionError("a CUDA engine that captures nothing")
+    ifnode = if_node_check(card)
     # the first warmup captures the keys it visits; the second replays them
     warm = [engine.warmup(texts=("WARM UP.",), verbose=False, max_mel_tokens=60) for _ in range(2)]
     log(f"[graphs] flagship built in {init_s:.1f} s; warmup (default kwargs, 60 codes) {warm[0]:.2f} s with its "
@@ -3049,17 +3325,6 @@ def graphs_phase(card: str) -> dict:
             ("default_nb3_320_segmented", lambda: engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.",
                                                                max_mel_tokens=320)),
         ]
-        for name, fn in requests:
-            rows.append(graph_vs_eager(engine, rec, name, fn, card))
-        if rows[-1]["segments"] != 2:
-            raise AssertionError(f"the 320-code request ran {rows[-1]['segments']} segments, want 2")
-        engine.fast_latents = True
-        rows.append(graph_vs_eager(engine, rec, "fast_latents_sampled_nb1",
-                                   lambda: engine.infer(num_beams=1, **short), card))
-        rows.append(graph_vs_eager(engine, rec, "fast_latents_default_nb3", lambda: engine.infer(**short), card))
-        rows.append(graph_vs_eager(engine, rec, "fast_latents_infer_stream", lambda: [
-            c.size for c in engine.infer_stream(audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=100)], card))
-
         def slots():
             sess = engine.slot_session(n_slots=4, chunk_steps=25, max_mel_tokens=60)
             rids = [sess.submit(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY.", "THIS IS A TEST.", "HI.",
@@ -3067,8 +3332,49 @@ def graphs_phase(card: str) -> dict:
             done = sess.drain()
             return [done[r][1].shape[0] for r in rids]
 
-        rows.append(graph_vs_eager(engine, rec, "slot_session_4x8", slots, card))
-        engine.fast_latents = False
+        def bf16_routes(suffix: str) -> list:
+            out = [graph_vs_eager(engine, rec, name + suffix, fn, card) for name, fn in requests]
+            engine.fast_latents = True
+            try:
+                out.append(graph_vs_eager(engine, rec, "fast_latents_sampled_nb1" + suffix,
+                                          lambda: engine.infer(num_beams=1, **short), card))
+                out.append(graph_vs_eager(engine, rec, "fast_latents_default_nb3" + suffix,
+                                          lambda: engine.infer(**short), card))
+                out.append(graph_vs_eager(engine, rec, "fast_latents_infer_stream" + suffix, lambda: [
+                    c.size for c in engine.infer_stream(audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=100)],
+                                          card))
+                out.append(graph_vs_eager(engine, rec, "slot_session_4x8" + suffix, slots, card))
+            finally:
+                engine.fast_latents = False
+            return out
+
+        rows += bf16_routes("")
+        if rows[4]["segments"] != 2:
+            raise AssertionError(f"the 320-code request ran {rows[4]['segments']} segments, want 2")
+        # the same routes with the stop code's bias raised: rows stop at scattered steps, mid-block
+        stop_raise, stop_base = raise_stop_bias(engine, card)
+        try:
+            stopped = bf16_routes("+stop")
+        finally:
+            with torch.no_grad():
+                engine.gpt.mel_head.bias[engine.cfg.gpt.stop_mel_token] = stop_base
+        mid_block = [r["request"] for r in stopped if any((n - 1) % BLOCK and n < 60 for n in r["row_lengths"])]
+        if not mid_block:
+            raise AssertionError("no route stopped a row mid-block with the stop bias raised")
+        log(f"[graphs] with the stop bias raised by {stop_raise}, rows stopped mid-block in {mid_block} [{card}]")
+        rows += stopped
+
+        # the latent and conditioning stages, replayed against eager
+        mel = engine.extract_features(PROMPT)
+        conds1 = engine._conds_for(mel)
+        r = np.random.default_rng(5)
+        passes = {"cond": conditioning_vs_eager(engine, card, "flagship"), "latent": {}}
+        for b, n_codes in ((1, 200), (4, 100)):
+            codes = r.integers(0, engine.cfg.gpt.stop_mel_token, (b, n_codes))
+            text = r.integers(2, engine.cfg.gpt.number_text_tokens - 1, (b, 12))
+            passes["latent"][f"b{b}_{n_codes}"] = stage_vs_eager(
+                engine, f"latent pass, b={b}, {n_codes} codes", lambda: engine._gpt_latent(
+                    conds1, text, codes, np.full(b, n_codes)), card)
 
         # the vocoder on the four routes: wav within 1 int16 unit, launches per call as eager
         g = torch.Generator(device=engine.device).manual_seed(5)
@@ -3129,7 +3435,6 @@ def graphs_phase(card: str) -> dict:
 
         # host vs device per step, eager beside replayed
         cfg, dev = engine.cfg.gpt, engine.device
-        conds1 = engine._conds_for(engine.extract_features(PROMPT))
         r = np.random.default_rng(7)
         lens4 = np.asarray([12, 9, 16, 5])
         text4 = np.full((4, 16), cfg.stop_text_token, np.int64)
@@ -3206,12 +3511,30 @@ def graphs_phase(card: str) -> dict:
         # int8: the int8 KV cache and int8 weights (K5 at every decode matmul)
         engine.quant_kv = True
         quantize_unified_voice(engine.gpt)
-        for name, fn in (("int8_greedy_nb1", lambda: engine.infer(do_sample=False, num_beams=1, **short)),
-                         ("int8_default_nb3", lambda: engine.infer(**short))):
+        int8_routes = (("int8_greedy_nb1", lambda: engine.infer(do_sample=False, num_beams=1, **short)),
+                       ("int8_default_nb3", lambda: engine.infer(**short)))
+        for name, fn in int8_routes:
             row = graph_vs_eager(engine, rec, name, fn, card)
             if row["launches"]["k5"] < 97:
                 raise AssertionError(f"{name}: K5 launched {row['launches']['k5']} times")
             rows.append(row)
+        # the latent pass on int8 weights: a new key (the weights moved), and K5 nowhere (a 3-D input dequantizes)
+        k5_before = qmatmul.launches
+        passes["latent"]["int8_b1_100"] = stage_vs_eager(
+            engine, "latent pass on int8 weights, b=1, 100 codes", lambda: engine._gpt_latent(
+                conds1, text[:1], codes[:1], np.full(1, 100)), card)
+        if qmatmul.launches != k5_before:
+            raise AssertionError(f"the latent pass launched K5 {qmatmul.launches - k5_before} times")
+        stop_raise8, stop_base8 = raise_stop_bias(engine, card)
+        try:
+            for name, fn in int8_routes:
+                row = graph_vs_eager(engine, rec, name + "+stop", fn, card)
+                if row["launches"]["k5"] < 97:
+                    raise AssertionError(f"{name}+stop: K5 launched {row['launches']['k5']} times")
+                rows.append(row)
+        finally:
+            with torch.no_grad():
+                engine.gpt.mel_head.bias[cfg.stop_mel_token] = stop_base8
         timing["b4_int8_kv_k5"] = step_profile(engine, prepare_b4(True), card, "decode step, B=4, int8 KV + K5",
                                                {"k5": 97})
     finally:
@@ -3233,12 +3556,16 @@ def graphs_phase(card: str) -> dict:
             f"({resident[stage_name]['live']} live) hold {buffers / 1e6:.1f} MB of buffers and {pool / 1e6:.1f} MB of "
             f"pool growth, the largest lane {resident[stage_name]['largest_lane_bytes'] / 1e6:.1f} MB; the stage keeps "
             f"free lanes within {engine._graphs.keep_bytes / 1e9:.2f} GB [{card}]")
+        if stage_name in ("dec", "slot"):
+            log(f"[graphs] stage {stage_name}, each captured block key ({BLOCK} conditional steps): capture s and pool MB "
+                f"{[(round(lane['capture_s'], 3), round(lane['pool_bytes'] / 1e6, 1)) for lane in captured]} [{card}]")
     for t in timing.values():
         for k, v in t["graph"]["k_kernels"].items():
             graph_launches[k] += v
     return {"init_s": init_s, "warmup_s": warm, "requests": rows, "vocoder": vocoder, "timing": timing,
             "graph_stats": stats, "resident": resident, "keep_bytes": engine._graphs.keep_bytes,
-            "launches": graph_launches}
+            "launches": graph_launches, "if_nodes": ifnode, "passes": passes, "block": BLOCK,
+            "stop_raise": [stop_raise, stop_raise8]}
 
 
 def load_config(path: str):
@@ -3366,11 +3693,13 @@ def main(argv) -> int:
     from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
     from indextts_tpu_torch.ops.cuda import build
     from indextts_tpu_torch.config import load_config
+    from indextts_tpu_torch.ops.cuda import graph_block
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
-    # one nvcc per source, started together
+    # one nvcc per source, started together (K1-K5, and the decode block's
+    # predicate kernel and graph assembly, which every CUDA engine's loops use)
     t = time.perf_counter()
-    kernels_built = (k1, k2, k3, k4, k5)
+    kernels_built = (k1, k2, k3, k4, k5, graph_block)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()

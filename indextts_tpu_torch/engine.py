@@ -350,6 +350,15 @@ class IndexTTS:
             self._value_cache[key] = make()
         return self._value_cache[key]
 
+    def _conditioning(self, mel: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+        """get_conditioning on a padded prompt mel [b, frame bucket, 100] and
+        its frame counts [b], through the conditioning stage under the JAX
+        engine's key ("cond", bucket) with the batch, the condition type, the
+        dtype and the weights: on a CUDA engine a captured program. Returns
+        a tensor of its own (the value cache keeps it)."""
+        key = ("cond", mel.shape[0], mel.shape[1], self.cfg.gpt.condition_type, self.dtype, weights_key(self.gpt))
+        return self._graphs.cond.call(key, lambda m, n: get_conditioning(self.gpt, self.cfg.gpt, m, n), (mel, lens))
+
     @torch.no_grad()
     def _conds_for(self, prompt_mel: np.ndarray) -> torch.Tensor:
         """Conditioning latents [1, latents, D] for a [1, 100, frames] prompt
@@ -362,7 +371,7 @@ class IndexTTS:
             mel[0, :frames] = prompt_mel[0].T
             mel_t = torch.from_numpy(mel).to(self.device, self.dtype)
             lens = torch.tensor([frames], device=self.device)
-            return get_conditioning(self.gpt, self.cfg.gpt, mel_t, lens)
+            return self._conditioning(mel_t, lens)
 
         digest = hashlib.sha1(np.ascontiguousarray(prompt_mel)).hexdigest()
         return self._cache_value(("condval", digest), make, 128)
@@ -402,8 +411,8 @@ class IndexTTS:
                 f = prompt_mels[i].shape[-1]
                 mel[r, :f] = prompt_mels[i][0].T
                 lens[r] = f
-            conds = get_conditioning(self.gpt, self.cfg.gpt, torch.from_numpy(mel).to(self.device, self.dtype),
-                                     torch.from_numpy(lens).to(self.device))
+            conds = self._conditioning(torch.from_numpy(mel).to(self.device, self.dtype),
+                                       torch.from_numpy(lens).to(self.device))
             for r, (d, i) in enumerate(entries):
                 out[d] = self._cache_value(("condval", d), lambda r=r: conds[r : r + 1].clone(), 128)
         return [out[d] for d in digests]
@@ -522,7 +531,10 @@ class IndexTTS:
                     text_lengths: Optional[np.ndarray] = None) -> torch.Tensor:
         """Teacher-forced latents [B, code bucket, D] for the generated codes.
         text_lengths [B]: each row's true text length (default: the full
-        width, for per-row callers)."""
+        width, for per-row callers). The pass runs through the latent stage
+        under the JAX engine's key ("lat", b, text bucket, code bucket) with
+        the dtype and the weights: on a CUDA engine a captured program, on
+        static inputs (conds materialized to [b, C, D])."""
         b, lt0 = text_tokens.shape
         if text_lengths is None:
             text_lengths = np.full(b, lt0, np.int64)
@@ -532,14 +544,20 @@ class IndexTTS:
         codes_p = np.full((b, self._code_bucket(lc0)), self.stop_mel_token, np.int64)
         codes_p[:, :lc0] = codes
         dev = self.device
-        return unified_voice_forward(
-            self.gpt, self.cfg.gpt, None,
-            text_inputs=torch.from_numpy(text).to(dev),
-            text_lengths=torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
-            mel_codes=torch.from_numpy(codes_p).to(dev),
-            wav_lengths=torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, device=dev),
-            cond_mel_lengths=None, conds=conds.expand(b, -1, -1).to(self.dtype), mask_pad_keys=True,
-        )
+        inputs = (torch.from_numpy(text).to(dev),
+                  torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
+                  torch.from_numpy(codes_p).to(dev),
+                  torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, dtype=torch.long,
+                                  device=dev),
+                  conds.expand(b, -1, -1).to(self.dtype).contiguous())
+
+        def latent(text_t, text_lens, codes_t, wav_lens, conds_t):
+            return unified_voice_forward(self.gpt, self.cfg.gpt, None, text_inputs=text_t, text_lengths=text_lens,
+                                         mel_codes=codes_t, wav_lengths=wav_lens, cond_mel_lengths=None,
+                                         conds=conds_t, mask_pad_keys=True)
+
+        key = ("lat", b, text.shape[1], codes_p.shape[1], self.dtype, weights_key(self.gpt))
+        return self._graphs.latent.call(key, latent, inputs)
 
     def _gpt_latent_many(self, rows) -> List[torch.Tensor]:
         """Batched teacher-forced latents (port of the JAX engine's
@@ -965,7 +983,7 @@ class IndexTTS:
             if valid_n > 0:
                 yield emitted_chunk(wav, valid_n)
             emitted = valid_n
-            while not bool(state.done.all()) and state.i + 1 < gen.max_new_tokens:
+            while state.live and state.i + 1 < gen.max_new_tokens:
                 with torch.no_grad():
                     state = decode_steps(self.gpt, self.cfg.gpt, state, ctx, chunk_codes, pos_off=pos_off,
                                          graphs=self._graphs.decode)

@@ -1,58 +1,70 @@
-"""Captured step programs: the port's counterpart of the JAX engine's
+"""Captured device programs: the port's counterpart of the JAX engine's
 compiled programs over static shape buckets (indextts_tpu/engine.py:9,
-`_decode_fn`, `_vocoder_fn`).
+`_decode_fn`, `_vocoder_fn`, `_latent_fn`, the conditioning programs).
 
 JAX keeps one jitted program per key (`("dec", b, l, gen, capture,
-quant_kv)`, `("voc", b, m, frames, int16_out)`); a decode loop is one
-`lax.while_loop` inside it. Here a decode loop's STEP, and a whole vocoder
-call, is captured once per key as a `torch.cuda.CUDAGraph` and replayed after
-that; the host keeps its one check per step (every row stopped, the beams'
-early stop), so a loop runs exactly the steps JAX's while_loop runs.
+quant_kv)`, `("voc", b, m, frames, int16_out)`, `("lat", b, l_text,
+l_code)`, `("cond", bucket)`); a decode loop is one `lax.while_loop` inside
+its program, the condition evaluated on the device. Here a decode loop runs
+in BLOCKS of `BLOCK` steps: one CUDA graph per key holds BLOCK copies of the
+captured step, step j inside a conditional IF node whose predicate the card
+computes just before it (the steps before it ran, the host's budget for the
+block, and the loop's own condition: a row still live, the beams' early
+stop, a slot still active), so the steps after a stop are skipped on the
+card as the while_loop skips them. The host replays a block and then reads
+one small tensor (the steps the block ran, the condition after them): one
+read per BLOCK steps. A vocoder call, a teacher-forced latent pass and a
+conditioning pass are each captured once per key and replayed whole.
 
-What a captured step needs, and how the loops give it:
+What a captured block needs, and how the loops give it:
 
 * Fixed addresses. A key owns one set of static buffers (the decode state:
   codes, KV cache, masks, the step counter, the per-row sampling knobs and
-  the uniforms of the next draw). The first state bound to a key becomes its
-  buffers; a later one is copied into them (`GraphStage.bind`), so the
-  prefill's output lands in the key's buffers. A lane of a key belongs to
-  one live state at a time (held by a weak reference): two streams decoding
-  at one key at once take two lanes. No two lanes share a buffer: a state
-  that moves to a new key (a grown cache) takes copies of the tensors its
-  old lane keeps, so a later state bound to the old key cannot write into
-  the moved one.
+  the uniforms of the block's steps) and the block's control buffers
+  (`BlockControl`). The first state bound to a key becomes its buffers; a
+  later one is copied into them (`GraphStage.bind`), so the prefill's output
+  lands in the key's buffers. A lane of a key belongs to one live state at a
+  time (held by a weak reference): two streams decoding at one key at once
+  take two lanes. No two lanes share a buffer: a state that moves to a new
+  key (a grown cache) takes copies of the tensors its old lane keeps, so a
+  later state bound to the old key cannot write into the moved one.
 * No host reads and no shapes that depend on data inside the step: the step
   index is a device counter, cache slots and codes are written by
-  `index_copy_`, and the random draw of a step is made outside the graph,
-  into the static uniforms buffer, right before the replay, from the same
-  generator in the same order as the eager loop draws it.
-* Warm before capture: the first step of a key runs eagerly on a side
-  stream (it is that step: the state advances once), which builds every
-  kernel library, K2's packed weights, the snake parameters and
-  cudaFuncSetAttribute's shared-memory sizes, and lets cuDNN and cuBLAS pick
-  their algorithms; then the same step is captured, which launches nothing.
-  A vocoder key's first call is its warm run, and is captured after it;
-  every later call replays. So each step and each call runs once, and the
-  first one of a key runs eagerly.
+  `index_copy_`, and the random draws of a block are made outside the graph,
+  before the replay, one per step the budget allows, from the same generator
+  in the same order as the steps consume them, into rows of a [BLOCK, ...]
+  buffer; step j reads row `ctl.ran` (j) of it.
+* Warm before capture: a key's first block runs eagerly on a side stream (it
+  is that block: the state advances), which builds every kernel library, K2's
+  packed weights, the snake parameters and cudaFuncSetAttribute's
+  shared-memory sizes, and lets cuDNN and cuBLAS pick their algorithms; once
+  a warm block has run a step, the block's head and one step are captured
+  (which launches nothing) and assembled into the block graph
+  (ops/cuda/graph_block.py). Every later block replays it. A vocoder,
+  latent or conditioning key's first call is its warm run, captured after it.
 * The kernel wrappers count their launches on the host, which a replay does
-  not run: the counts a capture adds are taken back and added on every
-  replay, so K1-K5's `launches` count what ran on the card.
+  not run: the counts a capture adds are taken back, per step for a block
+  (the step is captured once) and per call otherwise, and a replay adds them
+  times the steps it ran (read back with the block's status), so K1-K5's
+  `launches` count what ran on the card.
 
 The graphs of a stage share one memory pool; only temporaries live there
-(the steps write their results into the static buffers), and the graphs of
-one engine replay one after another on one stream. A lane keeps its buffers
-and its graph after its state is gone, for the key's next request: a stage
-keeps at most `limit` lanes, and its free lanes only while all its lanes
-hold at most `keep_bytes` (buffers and the memory each capture added to
-the pool); beyond either it drops the least recently used free lanes.
+(the steps write their results into the static buffers), the BLOCK copies of
+a step share one step's temporaries, and the graphs of one engine replay one
+after another on one stream. A lane keeps its buffers and its graph after
+its state is gone, for the key's next request: a stage keeps at most `limit`
+lanes, and its free lanes only while all its lanes hold at most
+`keep_bytes` (buffers and the memory each capture added to the pool);
+beyond either it drops the least recently used free lanes.
 
-Nothing falls back: a capture or a replay that fails raises. `Graphs.eager()`
-is the private switch that runs the same steps, on the same static buffers,
-without capture (chip_smoke.py compares the two, and it is the way to debug
-on the card). The loops always run their steps through a stage: on the CPU,
-and on a multi-device engine (parallel/mesh.py, `capture=False`: gloo's
-collectives are host round trips that a graph cannot hold), the stage runs
-the same bound steps without capture.
+Nothing falls back: a capture, a block's assembly or a replay that fails
+raises. `Graphs.eager()` is the private switch that runs the same blocks, on
+the same static buffers, without capture, the IF decided on the host
+(chip_smoke.py compares the two, and it is the way to debug on the card).
+The loops always run their blocks through a stage: on the CPU, and on a
+multi-device engine (parallel/mesh.py, `capture=False`: gloo's collectives
+are host round trips that a graph cannot hold), the stage runs the same
+head and steps without capture.
 """
 
 from __future__ import annotations
@@ -64,6 +76,10 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+# the steps of a decode loop's block: one captured graph holds BLOCK
+# conditional steps, and the host reads the device once per block
+BLOCK = 16
 
 
 def _counters() -> Dict[Any, int]:
@@ -115,6 +131,31 @@ def _storages(tensors) -> Dict[int, int]:
     return {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
 
 
+def block_row(buf: Optional[torch.Tensor], ran: torch.Tensor) -> Optional[torch.Tensor]:
+    """Row `ran` ([1] long, a step's place in its block: BlockControl.ran)
+    of a block's [BLOCK, ...] draws buffer; None for None (a greedy loop)."""
+    return None if buf is None else buf.index_select(0, ran)[0]
+
+
+class BlockControl:
+    """A loop lane's block control, on the lane's device: `status` int64 [2]
+    (the steps this block has run, and the loop's condition as the last
+    step left it) and `budget` int64 [1] (the steps the host allows the
+    block, written before each block). `ran` is status[:1], the index of
+    the block's next step: the row of the block's uniforms it reads."""
+
+    def __init__(self, device):
+        self.status = torch.zeros(2, dtype=torch.long, device=device)
+        self.budget = torch.zeros(1, dtype=torch.long, device=device)
+        self.ran = self.status[:1]
+        self.live = self.status[1:]
+
+    def holds(self) -> torch.Tensor:
+        """The next step's predicate: inside the budget and the condition
+        holds (what the block graph's predicate kernel computes)."""
+        return (self.ran < self.budget) & (self.live != 0)
+
+
 class Lane:
     """One set of static buffers of a key, and the graph captured on them."""
 
@@ -122,9 +163,10 @@ class Lane:
         self.key = key
         self.tensors = tensors
         self.owner: Optional[weakref.ref] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.deltas: Dict[Any, int] = {}
-        self.outputs: Any = None  # a called function's static outputs (vocoder keys)
+        self.graph: Any = None  # a torch.cuda.CUDAGraph (a call) or a BlockGraph (a loop)
+        self.ctl: Optional[BlockControl] = None  # a loop lane's block control
+        self.deltas: Dict[Any, int] = {}  # launches a replay adds: per step (a loop), per call otherwise
+        self.outputs: Any = None  # a called function's static outputs (vocoder, latent, conditioning keys)
         self.capture_s = 0.0
         self.pool_bytes = 0  # device memory the capture reserved (the pool's growth)
         self.replays = 0
@@ -144,14 +186,16 @@ class Lane:
 
 
 class GraphStage:
-    """The captured programs of one stage ("dec", "slot" or "voc"): lanes of
-    static buffers by key, one CUDA graph each, one memory pool."""
+    """The captured programs of one stage ("dec", "slot", "voc", "lat" or
+    "cond"): lanes of static buffers by key, one CUDA graph each, one memory
+    pool."""
 
     def __init__(self, name: str, graphs: "Graphs", limit: int):
         self.name, self.graphs, self.limit = name, graphs, limit
         self.keep_bytes = graphs.keep_bytes
         self.lanes: "OrderedDict[Tuple[Any, int], Lane]" = OrderedDict()
         self._pool = None
+        self.reads = 0  # the blocks' host reads, one per block
 
     @property
     def capturing(self) -> bool:
@@ -165,22 +209,28 @@ class GraphStage:
         """Give `owner` (a decode state, held weakly) a lane of `key` and
         point the holders' tensor attributes at its buffers: a new lane takes
         the holders' tensors as they are, or copies of those another lane
-        keeps; a lane that held another state gets them copied in; the
-        owner's own lane only copies what changed objects (per-call inputs
-        such as a session's knob columns). The owner's lanes of other keys
-        are freed (a grown cache moves to a new key)."""
+        keeps; a lane that held another state gets them copied in (a free
+        lane with a graph before one without: the state then replays at
+        once); the owner's own lane only copies what changed objects
+        (per-call inputs such as a session's knob columns). The owner's lanes
+        of other keys are freed (a grown cache moves to a new key)."""
         live = _flatten(holders)
-        lane = None
+        own = free = None
         for (k, _n), cand in self.lanes.items():
-            if cand.owner is not None and cand.owner() is owner and k != key:
+            held = None if cand.owner is None else cand.owner()
+            if held is owner and k != key:
                 cand.owner = None
-            elif k == key and lane is None and cand.free_for(owner):
-                lane = cand
+            elif k == key and held is owner:
+                own = cand
+            elif k == key and held is None and (free is None or (free.graph is None and cand.graph is not None)):
+                free = cand
+        lane = own or free
         if lane is None:
             kept = _storages(t for cand in self.lanes.values() for t in cand.tensors)
             tensors = [t.clone() if t.untyped_storage().data_ptr() in kept else t for t in live]
             _unflatten(holders, tensors)
             lane = Lane(key, tensors)
+            lane.ctl = BlockControl(tensors[0].device)
             n = next(n for n in range(len(self.lanes) + 1) if (key, n) not in self.lanes)
             self.lanes[(key, n)] = lane
         else:
@@ -222,28 +272,50 @@ class GraphStage:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def _capture(self, lane: Lane, fn: Callable[[], Any]):
-        """Capture fn() into lane.graph (it launches nothing) and keep what
-        it returns; the launch counts it added move to lane.deltas."""
-        dev = self.graphs.device
+    @staticmethod
+    @contextlib.contextmanager
+    def _counts_to(lane: Lane):
+        """The launch counts the kernel wrappers add inside the `with` (a
+        capture, which launches nothing) are taken back and kept in
+        lane.deltas, what a replay adds per step or call."""
         before = _counters()
-        # torch.cuda.graph empties the allocator's cache as it starts: empty it
-        # first, so that the growth of the reserved memory is the capture's
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool_handle(), capture_error_mode="thread_local"):
-            out = fn()
-        lane.capture_s = time.perf_counter() - t0
-        lane.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        after = _counters()
-        for m, n in before.items():
-            m.launches = n
-        lane.deltas = {m: after[m] - n for m, n in before.items() if after[m] != n}
-        lane.graph = graph
-        return out
+        try:
+            yield
+        finally:
+            after = _counters()
+            for m, n in before.items():
+                m.launches = n
+            lane.deltas = {m: after[m] - n for m, n in before.items() if after[m] != n}
+
+    def _capture(self, lane: Lane, fns: Sequence[Callable[[], Any]], keep_graph: bool = False):
+        """Capture each of fns into a CUDA graph of its own (they launch
+        nothing); returns the graphs and what the last fn returned. The
+        launch counts they added move to lane.deltas; the capture seconds
+        and the pool's growth go to the lane."""
+        dev = self.graphs.device
+        with self._counts_to(lane):
+            # torch.cuda.graph empties the allocator's cache as it starts: empty it
+            # first, so that the growth of the reserved memory is the capture's
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            graphs, out = [], None
+            for fn in fns:
+                graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._pool_handle(), capture_error_mode="thread_local"):
+                    out = fn()
+                graphs.append(graph)
+            lane.capture_s = time.perf_counter() - t0
+            lane.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        return graphs, out
+
+    def _assemble(self, lane: Lane, graphs) -> Any:
+        """The block graph of a lane from its captured head and step."""
+        from indextts_tpu_torch.ops.cuda.graph_block import BlockGraph
+
+        head, step = graphs
+        return BlockGraph(head, step, BLOCK, lane.ctl.status, lane.ctl.budget)
 
     def _warm(self, fn: Callable[[], Any]):
         """fn() eagerly on a side stream, ordered against the current one."""
@@ -260,21 +332,73 @@ class GraphStage:
     def _replay(self, lane: Lane) -> None:
         lane.graph.replay()
         lane.replays += 1
-        for m, n in lane.deltas.items():
-            m.launches += n
 
-    def run(self, lane: Lane, fn: Callable[[], None]) -> None:
-        """One step of a bound loop: fn() updates the lane's buffers in
-        place. The first step of a lane runs eagerly (warm) and is then
-        captured; every later step replays."""
+    def _count(self, lane: Lane, times: int) -> None:
+        """Add a replay's launches: the capture's counts, `times` over."""
+        for m, n in lane.deltas.items():
+            m.launches += n * times
+
+    # -- a loop's block -------------------------------------------------------
+
+    def _holds(self, ctl: BlockControl) -> bool:
+        """The IF of a block run without capture: the next step's predicate,
+        read on the host."""
+        return bool(ctl.holds())
+
+    def _block(self, lane: Lane, head: Callable[[], None], body: Callable[[], None]) -> None:
+        """A block without capture: head(), then body() while the predicate
+        holds (once it fails it stays failed: the state no longer moves)."""
+        head()
+        for _ in range(BLOCK):
+            if not self._holds(lane.ctl):
+                break
+            body()
+
+    def _read(self, ctl: BlockControl) -> Tuple[int, bool]:
+        """The block's one host read: (steps run, the loop's condition)."""
+        self.reads += 1
+        ran, live = ctl.status.to("cpu", copy=True).tolist()
+        return ran, bool(live)
+
+    def run(self, lane: Lane, step: Callable[[], None], live: Callable[[], torch.Tensor],
+            budget: int) -> Tuple[int, bool]:
+        """One block of a bound loop: up to min(budget, BLOCK) steps, each
+        run while the steps before it ran and live() holds. step() updates
+        the lane's buffers in place and finds its place in the block at
+        lane.ctl.ran; live() is the loop's condition, a one-element bool
+        tensor computed from the buffers. Returns (steps run, live() after
+        them), the block's one host read. A lane's first block runs eagerly
+        (warm); once a block has run a step, the block is captured, and later
+        blocks replay it."""
+        ctl = lane.ctl
+        ctl.budget.fill_(min(int(budget), BLOCK))
+
+        def head():
+            ctl.status.zero_()
+            ctl.live.copy_(live().reshape(1))
+
+        def body():
+            step()
+            ctl.ran.add_(1)
+            ctl.live.copy_(live().reshape(1))
+
         if not self.capturing:
-            fn()
-        elif lane.graph is None:
-            self._warm(fn)
-            self._capture(lane, fn)
-            self._evict()
-        else:
+            self._block(lane, head, body)
+            return self._read(ctl)
+        if lane.graph is not None:
             self._replay(lane)
+            ran, alive = self._read(ctl)
+            self._count(lane, ran)
+            return ran, alive
+        self._warm(lambda: self._block(lane, head, body))
+        ran, alive = self._read(ctl)
+        if ran > 0:  # capture only a step that has run warm
+            graphs, _ = self._capture(lane, (head, body), keep_graph=True)
+            lane.graph = self._assemble(lane, graphs)
+            self._evict()
+        return ran, alive
+
+    # -- a whole call ---------------------------------------------------------
 
     def call(self, key, fn: Callable[..., torch.Tensor], inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         """fn(*inputs) as a captured program of `key`: the inputs are copied
@@ -288,13 +412,14 @@ class GraphStage:
             lane = Lane(key, [t.clone() for t in inputs])
             self.lanes[(key, 0)] = lane
             out = self._warm(lambda: fn(*lane.tensors))
-            lane.outputs = self._capture(lane, lambda: fn(*lane.tensors))
+            (lane.graph,), lane.outputs = self._capture(lane, (lambda: fn(*lane.tensors),))
             self._evict()
             return out
         self.lanes.move_to_end((key, 0))
         for s, t in zip(lane.tensors, inputs):
             s.copy_(t)
         self._replay(lane)
+        self._count(lane, 1)
         return lane.outputs.clone()
 
     def stats(self) -> List[Dict[str, Any]]:
@@ -309,16 +434,19 @@ class GraphStage:
 
 class Graphs:
     """An engine's captured programs, by stage: `decode` (the greedy /
-    sampled and the beam loops' steps), `slot` (slot_steps) and `vocoder`
-    (a whole bigvgan_apply call). `capture=False` (a multi-device engine)
-    runs every stage's steps without capture, as the CPU does.
+    sampled and the beam loops' blocks), `slot` (slot_steps' blocks),
+    `vocoder` (a whole bigvgan_apply call), `latent` (a teacher-forced
+    latent pass) and `cond` (get_conditioning). `capture=False` (a
+    multi-device engine) runs every stage's blocks and calls without
+    capture, as the CPU does.
 
     What a stage keeps: at most `limit` lanes (16 decode keys, 4 slot
-    sessions, 32 vocoder keys), and its free lanes only while all its lanes
-    hold at most `keep_bytes`, an eighth of the card's memory (1 GiB on the
-    CPU): a decode lane holds its key's whole KV cache, k and v of [layers,
-    rows x beams, heads, slots, head dim] each, so a few lanes of large
-    batches reach the budget before the count does."""
+    sessions, 32 vocoder keys, 32 latent keys, 16 conditioning keys), and
+    its free lanes only while all its lanes hold at most `keep_bytes`, an
+    eighth of the card's memory (1 GiB on the CPU): a decode lane holds its
+    key's whole KV cache, k and v of [layers, rows x beams, heads, slots,
+    head dim] each, so a few lanes of large batches reach the budget before
+    the count does."""
 
     def __init__(self, device, capture: bool = True, keep_bytes: Optional[int] = None):
         self.device = torch.device(device)
@@ -332,23 +460,28 @@ class Graphs:
         self.decode = GraphStage("dec", self, 16)
         self.slot = GraphStage("slot", self, 4)
         self.vocoder = GraphStage("voc", self, 32)
+        self.latent = GraphStage("lat", self, 32)
+        self.cond = GraphStage("cond", self, 16)
 
     @contextlib.contextmanager
     def eager(self):
-        """Run the steps eagerly, on the same static buffers, inside the
-        block: the comparison and debugging path; nothing else turns capture
-        off."""
+        """Run the blocks and calls eagerly, on the same static buffers,
+        inside the `with`: the comparison and debugging path; nothing else
+        turns capture off."""
         was, self.enabled = self.enabled, False
         try:
             yield
         finally:
             self.enabled = was
 
+    def stages(self) -> Tuple[GraphStage, ...]:
+        return self.decode, self.slot, self.vocoder, self.latent, self.cond
+
     def stats(self) -> Dict[str, List[Dict[str, Any]]]:
-        return {s.name: s.stats() for s in (self.decode, self.slot, self.vocoder)}
+        return {s.name: s.stats() for s in self.stages()}
 
 
 def stage_or_uncaptured(stage: Optional[GraphStage], device) -> GraphStage:
     """`stage`, or for a loop run without an engine's stage, a stage of its
-    own that runs the same bound steps without capture."""
+    own that runs the same bound blocks without capture."""
     return stage if stage is not None else Graphs(device, capture=False, keep_bytes=0).decode

@@ -38,14 +38,18 @@ cache, monolithic or with a cache that grows by segments).
     length of a segment is part of the key of its captured step (graphs.py),
     as it is of the JAX functions' jit_cache. They take no forced prefix, as
     in JAX.
-  * Each loop is a host loop over one step function whose every write is in
-    place and indexed by a device step counter, with every dynamic knob a
-    [B] tensor and a sampled step's uniforms drawn into a buffer before the
-    step runs. The loop state is bound to the static buffers of its key in
-    a graph stage (`graphs`, the engine's; graphs.py), which on a CUDA
-    engine captures the step once per key as a CUDA graph and replays it,
-    and elsewhere runs it as it is; the one host check a step (every row
-    stopped, the beams' early stop) stays.
+  * Each loop runs one step function whose every write is in place and
+    indexed by a device step counter, with every dynamic knob a [B] tensor
+    and a sampled step's uniforms drawn into a [BLOCK, ...] buffer before
+    its block runs, in blocks of graphs.BLOCK steps: step j of a block runs
+    while the budget allows it and the loop's condition, computed on the
+    device (some row not stopped; under early_stopping some live beam's
+    bound above the best finished score), holds, the port of the JAX loops'
+    lax.while_loop. The loop state is bound to the static buffers of its
+    key in a graph stage (`graphs`, the engine's; graphs.py), which on a
+    CUDA engine captures the block once per key as one CUDA graph of
+    conditional steps and replays it, and elsewhere runs the same block
+    deciding each step on the host; the host reads the device once a block.
   * A forced prefix `input_tokens` [B, S0] (model.py:673-688, HF generate's
     input_ids) joins the prefill after start_mel at mel positions 1..S0, its
     codes join the repetition penalty's seen set, and every decode position
@@ -64,7 +68,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.graphs import GraphStage, stage_or_uncaptured, weights_key
+from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
                                            write_at)
 from indextts_tpu_torch.ops.norms import layer_norm
@@ -105,8 +109,9 @@ class DecodeState:
     for the repetition penalty, the last token cur [B] and, under latent
     capture, lat [B, max_new, D] (lat[:, j] is the final-norm hidden that
     predicted code j). Updated in place by decode_steps, which keeps i on
-    the host (for its checks) and in t, a [1] long device counter that the
-    step reads and advances."""
+    the host (for the budget) and in t, a [1] long device counter that the
+    step reads and advances, and `live`, whether some row was still
+    decoding when the last block ended (read back with the block)."""
 
     i: int
     codes: torch.Tensor
@@ -116,6 +121,7 @@ class DecodeState:
     cur: torch.Tensor
     t: torch.Tensor
     lat: Optional[torch.Tensor] = None
+    live: bool = True
 
 
 @dataclass
@@ -124,8 +130,9 @@ class DecodeContext:
     prefill key mask padded to the cache length, the sampling settings
     (each dynamic knob a [B] float32 tensor, one value per row) and s0, the
     length of a forced prefix (decode positions shift by s0). When sampling,
-    `u` [B] holds the uniforms of the next draw, drawn from `generator` by
-    draw() before the step runs (a captured step draws nothing)."""
+    `u` [BLOCK, B] holds the uniforms of a block's steps, row j for its step
+    j, drawn from `generator` by draw() before the block runs (a captured
+    step draws nothing)."""
 
     p: int
     prefill_valid: torch.Tensor
@@ -138,18 +145,21 @@ class DecodeContext:
     s0: int = 0
     u: Optional[torch.Tensor] = None
 
-    def draw(self) -> None:
+    def draw(self, steps: int) -> None:
+        """The uniforms of the next `steps` steps, one draw a step, in order."""
         if self.u is not None:
-            self.u.copy_(uniforms(tuple(self.u.shape), self.generator, self.u.device))
+            for j in range(steps):
+                self.u[j].copy_(uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
 
-    def sample(self, logits: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
+    def sample(self, logits: torch.Tensor, seen: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
+        """The next token of each row; `u` [B], a row of self.u, when sampling."""
         lf = process_logits(
             logits, seen_mask=seen, repetition_penalty=self.repetition_penalty,
             typical_sampling=self.gen.typical_sampling, typical_mass=self.typical_mass,
             temperature=self.temperature, top_k=self.gen.top_k if self.gen.do_sample else 0,
             top_p=self.top_p, do_sample=self.gen.do_sample,
         )
-        return sample_token(lf, self.u) if self.gen.do_sample else greedy_token(lf)
+        return sample_token(lf, u) if self.gen.do_sample else greedy_token(lf)
 
 
 def prepare_gpt_inputs(
@@ -333,10 +343,10 @@ def prefill_decode_state(
         p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
         generator=generator, temperature=row_knob(temperature, b, dev), top_p=row_knob(top_p, b, dev),
         repetition_penalty=row_knob(repetition_penalty, b, dev), typical_mass=row_knob(typical_mass, b, dev), s0=s0,
-        u=torch.empty(b, device=dev) if gen.do_sample else None,
+        u=torch.empty(BLOCK, b, device=dev) if gen.do_sample else None,
     )
-    ctx.draw()
-    tok1 = ctx.sample(logits0, seen)
+    ctx.draw(1)
+    tok1 = ctx.sample(logits0, seen, None if ctx.u is None else ctx.u[0])
     codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
     codes[:, 0] = tok1
     seen[torch.arange(b, device=dev), tok1] = True
@@ -378,9 +388,10 @@ def grow_cache(state: DecodeState, ctx: DecodeContext, extra: int) -> Tuple[Deco
 
 
 def _decode_iteration(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext,
-                      pos_off: int) -> None:
+                      pos_off: int, row: torch.Tensor) -> None:
     """One iteration of decode_steps at the device step counter i = state.t,
-    which it then advances. Every write is in place."""
+    which it then advances; a sampled step takes row `row` ([1] long, its
+    place in the block) of ctx.u. Every write is in place."""
     dev = state.codes.device
     i = state.t
     positions = torch.arange(ctx.prefill_valid.shape[1], device=dev)[None, :]
@@ -391,7 +402,7 @@ def _decode_iteration(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, c
     if state.lat is not None:
         logits, hidden = logits
         write_at(state.lat, 1, i + 1, hidden)
-    nxt = ctx.sample(logits, state.seen)
+    nxt = ctx.sample(logits, state.seen, block_row(ctx.u, row))
     nxt = torch.where(state.done, torch.full_like(nxt, cfg.stop_mel_token), nxt)
     write_at(state.codes, 1, i + 1, nxt)
     state.done |= nxt == cfg.stop_mel_token
@@ -409,11 +420,11 @@ def _bind_decode(stage: GraphStage, model: UnifiedVoice, state: DecodeState, ctx
     """Move a greedy / sampled loop onto the static buffers of its key, the
     JAX engine's ("dec", b, text bucket, gen, capture, quant_kv) with the
     prefill length p standing for the text bucket, the cache length of the
-    segment, the positional offsets, the dtype and the weights; the device
-    counter t is set to the host's i."""
+    segment, the positional offsets, the dtype, the weights and the block's
+    steps; the device counter t is set to the host's i."""
     b = state.codes.shape[0]
     key = ("dec", b, ctx.p, ctx.gen, state.lat is not None, len(state.cache) == 4, ctx.prefill_valid.shape[1],
-           pos_off, ctx.s0, state.cache[0].dtype, weights_key(model))
+           pos_off, ctx.s0, state.cache[0].dtype, weights_key(model), BLOCK)
     lane = stage.bind(key, state, [(state, _DECODE_STATE_BUFFERS), (ctx, _DECODE_CONTEXT_BUFFERS)])
     state.t.fill_(state.i)
     return lane
@@ -422,22 +433,24 @@ def _bind_decode(stage: GraphStage, model: UnifiedVoice, state: DecodeState, ctx
 def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: DecodeContext, n_steps: int,
                  pos_off: int = 2, graphs: Optional[GraphStage] = None) -> DecodeState:
     """Run up to `n_steps` decode iterations, stopping early when every row
-    has emitted stop_mel_token or the code buffer is full (one host check a
-    step). Token g_{i+1} is decoded at cache slot p+i and mel position
-    i+pos_off+s0; under capture its final-norm hidden goes to lat[:, i+1].
-    The state moves onto its key's static buffers in `graphs`, the engine's
-    decode stage (without one, a stage that never captures), and each step
-    runs through it: on a CUDA engine a replay of the key's captured graph;
-    a sampled step's uniforms are drawn into ctx.u before it."""
-    max_new = state.codes.shape[1]
-    stop = state.i + n_steps
+    has emitted stop_mel_token or the code buffer is full. Token g_{i+1} is
+    decoded at cache slot p+i and mel position i+pos_off+s0; under capture
+    its final-norm hidden goes to lat[:, i+1]. The state moves onto its
+    key's static buffers in `graphs`, the engine's decode stage (without
+    one, a stage that never captures), and the steps run through it in
+    blocks (graphs.GraphStage.run): on a CUDA engine a replay of the key's
+    captured block, whose steps after the last row stopped are skipped on
+    the card; the uniforms of a block's steps are drawn into ctx.u before
+    it, one draw for each step the budget allows. One host read a block."""
+    stop = min(state.i + n_steps, state.codes.shape[1] - 1)
     stage = stage_or_uncaptured(graphs, state.codes.device)
     lane = _bind_decode(stage, model, state, ctx, pos_off)
-    step = lambda: _decode_iteration(model, cfg, state, ctx, pos_off)
-    while state.i < max_new - 1 and state.i < stop and not bool(state.done.all()):
-        ctx.draw()
-        stage.run(lane, step)
-        state.i += 1
+    step = lambda: _decode_iteration(model, cfg, state, ctx, pos_off, lane.ctl.ran)
+    live = lambda: ~state.done.all()
+    while state.i < stop and state.live:
+        ctx.draw(min(BLOCK, stop - state.i))
+        ran, state.live = stage.run(lane, step, live, stop - state.i)
+        state.i += ran
     return state
 
 
@@ -516,8 +529,9 @@ def generate_speech_segmented(
     sampling state machine and outputs, but segment k runs against a cache
     of p + min(segment * (k + 1), max_new) slots, so a step's attention
     reads scale with the generated length and not with max_new_tokens. The
-    first segment runs the prefill and segment - 1 steps; between segments
-    the host checks whether every row has stopped and skips the rest.
+    first segment runs the prefill and segment - 1 steps; a segment's last
+    block tells the host whether every row has stopped, and then it skips
+    the rest.
     `stats`, a dict, receives "segments", the segments run. `graphs`: the
     engine's decode stage; each segment's cache length is a key of its own."""
     max_new = gen.max_new_tokens
@@ -531,7 +545,7 @@ def generate_speech_segmented(
     state = decode_steps(model, cfg, state, ctx, segment - 1, pos_off=pos_off, graphs=graphs)
     ran = 1
     for k in range(1, n_segments):
-        if bool(state.done.all()):
+        if not state.live:
             break
         cache_len = p + min(segment * (k + 1), max_new)
         grow_cache(state, ctx, cache_len - ctx.prefill_valid.shape[1])
@@ -598,15 +612,18 @@ def _select_successors(logp_joint: torch.Tensor, generator: Union[torch.Generato
     return _top_k_stable(logp_joint, k)
 
 
-def _beam_stop_bound_base(length_penalty: Knob, prefill_len: int, max_new: int, i: int):
+def _beam_stop_bound_base(length_penalty: Knob, prefill_len: int, max_new: int, i: Union[int, torch.Tensor]):
     """The admissible hypothesis-length base of the early-stop bound: scores
     divide by (prefill + length) ** length_penalty, so the best reachable
     finish is at max_new when length_penalty > 0 and at the next step
     otherwise (HF's BeamHypotheses.is_done switches the same way). A float,
-    or [b] for a length_penalty with one value per request."""
+    or [b] for a length_penalty with one value per request; i, the steps
+    run, is an int or the loop's [1] device counter (no host read)."""
     if isinstance(length_penalty, torch.Tensor):
         far = torch.full_like(length_penalty, float(prefill_len + max_new))
-        return torch.where(length_penalty > 0, far, torch.full_like(far, float(prefill_len + i + 1)))
+        near = ((i + (prefill_len + 1)).to(far.dtype) if isinstance(i, torch.Tensor)
+                else torch.full_like(far, float(prefill_len + i + 1)))
+        return torch.where(length_penalty > 0, far, near)
     return float(prefill_len + max_new) if length_penalty > 0 else float(prefill_len + i + 1)
 
 
@@ -718,8 +735,9 @@ class _BeamLoop:
     forced prefix `input_tokens` [B, S0] rides each row's prefill, and its
     codes are repeated for the row's beams in the seen set (JAX it_bb). The
     knobs are float32 tensors, one value per beam row ([b] for
-    length_penalty); t is the device step counter, u [b, nb*V] the next
-    successor draw when sampling."""
+    length_penalty); t is the device step counter, u [BLOCK, b, nb*V] the
+    successor draws of a block's steps when sampling, row j for its step j;
+    `alive` is the early-stop condition as the last block left it."""
 
     # the tensors a captured step reads and writes (the static buffers of its key)
     _BUFFERS = ("cache", "codes", "beam_scores", "seen", "lat", "cur", "t", "prefill_valid", "temperature", "top_p",
@@ -762,30 +780,32 @@ class _BeamLoop:
                              length=torch.zeros((b,), dtype=torch.long, device=dev),
                              lat=None if self.lat is None else self.lat.new_zeros((b,) + self.lat.shape[1:]))
         self.i = 0
+        self.alive = True
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
-        self.u = torch.empty(b, nb * cfg.number_mel_codes, device=dev) if gen.do_sample else None
+        self.u = torch.empty(BLOCK, b, nb * cfg.number_mel_codes, device=dev) if gen.do_sample else None
         # the beams of a row are copies until the first decode step writes, so
         # the first selection needs no cache reorder
-        self._draw()
-        _, self.cur = self._select(self.t, logits0)
+        self._draw(1)
+        _, self.cur = self._select(self.t, logits0, None if self.u is None else self.u[0])
 
     def _joint(self, logits, seen, scores):
         return _beam_joint_scores(logits, seen, scores, self.gen, self.temperature, self.top_p,
                                   self.repetition_penalty, self.typical_mass)
 
-    def _choose(self, cand):
-        return _select_successors(cand, self.u, self.gen, self.nb)
-
-    def _draw(self) -> None:
+    def _draw(self, steps: int) -> None:
+        """The successor draws of the next `steps` steps, one a step, in order."""
         if self.u is not None:
-            self.u.copy_(beam_uniforms(tuple(self.u.shape), self.generator, self.u.device))
+            for j in range(steps):
+                self.u[j].copy_(beam_uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
 
-    def _select(self, si, logits):
-        """One successor choice; the beams' codes, scores, seen set and
-        latents follow it in place."""
+    def _select(self, si, logits, u: Optional[torch.Tensor]):
+        """One successor choice, sampled from the draw `u` [b, nb*V] (a row
+        of self.u); the beams' codes, scores, seen set and latents follow it
+        in place."""
         codes, scores, seen, flat_src, nxt = _beam_step(
             self.cfg, self.gen, si, logits, self.codes, self.beam_scores, self.seen, self.best, self._joint,
-            self._choose, self.b, self.nb, length_penalty=self.length_penalty, prefill_len=self.p, lat=self.lat)
+            lambda cand: _select_successors(cand, u, self.gen, self.nb), self.b, self.nb,
+            length_penalty=self.length_penalty, prefill_len=self.p, lat=self.lat)
         self.codes.copy_(codes)
         self.beam_scores.copy_(scores)
         self.seen.copy_(seen)
@@ -793,9 +813,10 @@ class _BeamLoop:
             self.lat.copy_(self.lat[flat_src])
         return flat_src, nxt
 
-    def _iteration(self) -> None:
+    def _iteration(self, row: torch.Tensor) -> None:
         """One decode step at the device step counter i = self.t, which it
-        then advances."""
+        then advances; sampled, it takes row `row` ([1] long, its place in the
+        block) of self.u."""
         p, i = self.p, self.t
         positions = torch.arange(self.prefill_valid.shape[1], device=self.codes.device)[None, :]
         valid = self.prefill_valid | ((positions >= p) & (positions < p + i))
@@ -804,43 +825,44 @@ class _BeamLoop:
         if self.capture:
             logits, hidden = logits
             write_at(self.lat, 1, i + 1, hidden)
-        flat_src, nxt = self._select(i + 1, logits)
+        flat_src, nxt = self._select(i + 1, logits, block_row(self.u, row))
         for c in self.cache:
             c.copy_(c.index_select(1, flat_src))
         self.cur.copy_(nxt)
         self.t.add_(1)
 
-    def live(self) -> bool:
-        """Whether another step can still change the result: steps are left,
-        and (under early_stopping) some live beam's best reachable score beats
-        the best finished hypothesis. One host check."""
-        if self.i >= self.max_new - 1:
-            return False
+    def _live(self) -> torch.Tensor:
+        """Whether another step can still change the result, on the device
+        (the budget is the block's): under early_stopping, some live beam's
+        best reachable score beats the best finished hypothesis, with the
+        step counter t read on the device."""
         if not self.gen.early_stopping:
-            return True
-        base = _beam_stop_bound_base(self.length_penalty, self.p, self.max_new, self.i)
+            return torch.ones((), dtype=torch.bool, device=self.t.device)
+        base = _beam_stop_bound_base(self.length_penalty, self.p, self.max_new, self.t)
         bound = self.beam_scores.reshape(self.b, self.nb).max(dim=1).values / _length_norm(base, self.length_penalty)
-        return bool((bound > self.best.score).any())
+        return (bound > self.best.score).any()
 
     def _bind(self, stage: GraphStage):
         """Move the loop onto the static buffers of its key (_bind_decode's,
         with gen.num_beams > 1); the device counter t is set to the host's i."""
         key = ("dec", self.b, self.p, self.gen, self.capture, len(self.cache) == 4, self.prefill_valid.shape[1],
-               self.pos_off, self.s0, self.cache[0].dtype, weights_key(self.model))
+               self.pos_off, self.s0, self.cache[0].dtype, weights_key(self.model), BLOCK)
         lane = stage.bind(key, self, [(self, self._BUFFERS), (self.best, ("score", "codes", "length", "lat"))])
         self.t.fill_(self.i)
         return lane
 
     def run(self, n_steps: int, graphs: Optional[GraphStage] = None) -> None:
-        """Up to n_steps steps while live(), each through `graphs`, the
-        engine's decode stage, as in decode_steps."""
-        stop = self.i + n_steps
+        """Up to n_steps steps (at most to max_new - 1) while _live(), in
+        blocks through `graphs`, the engine's decode stage, as in
+        decode_steps."""
+        stop = min(self.i + n_steps, self.max_new - 1)
         stage = stage_or_uncaptured(graphs, self.codes.device)
         lane = self._bind(stage)
-        while self.i < stop and self.live():
-            self._draw()
-            stage.run(lane, self._iteration)
-            self.i += 1
+        step = lambda: self._iteration(lane.ctl.ran)
+        while self.i < stop and self.alive:
+            self._draw(min(BLOCK, stop - self.i))
+            ran, self.alive = stage.run(lane, step, self._live, stop - self.i)
+            self.i += ran
 
     def grow(self, extra: int) -> None:
         """`extra` more generated-token slots: the cache, the key mask and,
@@ -881,8 +903,9 @@ def generate_speech_beam(
     graphs: Optional[GraphStage] = None,
 ):
     """Beam search (gen.num_beams = nb > 1): HF beam_search, or beam_sample
-    with gen.do_sample, with JAX's admissible early stop (checked once a
-    step on the host), over a cache of p + max_new_tokens slots (_BeamLoop);
+    with gen.do_sample, with JAX's admissible early stop (checked on the
+    device before every step), over a cache of p + max_new_tokens slots
+    (_BeamLoop);
     `input_tokens` [B, S0] a forced prefix, as in generate_speech.
 
     Returns (codes [B, max_new], lengths [B]) of the best hypothesis, and
@@ -926,8 +949,8 @@ def generate_speech_beam_segmented(
     latent buffers, growing by `segment` slots between runs of steps: the
     index_select reorder and the attention of a step then move the slots
     written so far, not the whole max_new_tokens budget. The same loop and
-    the same outputs, token for token; between segments the host makes the
-    loop's own early-stop check and skips the rest. `stats` receives "steps"
+    the same outputs, token for token; a segment's last block reads back the
+    loop's own early-stop condition, and the host then skips the rest. `stats` receives "steps"
     and "segments". `graphs`: the engine's decode stage; each segment's
     cache length is a key of its own."""
     max_new = gen.max_new_tokens
@@ -938,7 +961,7 @@ def generate_speech_beam_segmented(
     loop.run(min(segment, max_new) - 1, graphs)
     ran = 1
     for k in range(1, n_segments):
-        if not loop.live():
+        if not loop.alive:
             break
         slots = min(segment * (k + 1), max_new)
         loop.grow(slots - segment * k)

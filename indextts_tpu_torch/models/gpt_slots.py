@@ -28,8 +28,10 @@ admission and the per-row writes of codes / seen / latents are indexed
 writes, the plain form on a GPU (the JAX package uses roll-pad-where and
 dense masked selects because XLA on a TPU serializes scatters). The step
 counter and the cursor are device scalars and every write of a step is in
-place, so the engine captures the step once per session shape as a CUDA
-graph (graphs.py); the loop keeps one host check a step (any row active).
+place, so the engine captures the loop's block of graphs.BLOCK steps once per
+session shape as one CUDA graph (graphs.py), each step a conditional node
+whose predicate (a row still active, the call's budget) the card computes
+before it, as JAX's while_loop does; the host reads the device once a block.
 
 Greedy slot decode equals `generate_speech` token for token per row, for
 rows admitted mid-decode, across the cache wrap and after slot reuse
@@ -46,7 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from indextts_tpu_torch.config import GPTConfig
-from indextts_tpu_torch.graphs import GraphStage, stage_or_uncaptured, weights_key
+from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import UnifiedVoice, write_at
 from indextts_tpu_torch.models.gpt_decode import GenerationConfig, _decode_step, prefill_decode_state
 from indextts_tpu_torch.ops.sampling import Knob, greedy_token, process_logits, row_knob, sample_token, uniforms
@@ -72,7 +74,7 @@ class SlotState:
     cur: torch.Tensor      # [B] long, the last code emitted
     mask: torch.Tensor     # [B, S] bool, each row's valid cache slots
     lat: Optional[torch.Tensor] = None  # [B, max_new, D] captured latents
-    u: Optional[torch.Tensor] = None    # [B] when sampling, the step's uniforms, drawn before it runs
+    u: Optional[torch.Tensor] = None    # [BLOCK, B] when sampling, a block's uniforms, drawn before it runs
 
 
 def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_len: int, dtype: torch.dtype,
@@ -102,7 +104,7 @@ def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_l
         cur=torch.full((b,), cfg.stop_mel_token, dtype=torch.long, device=dev),
         mask=torch.zeros(b, cache_len, dtype=torch.bool, device=dev),
         lat=torch.zeros(b, gen.max_new_tokens, cfg.model_dim, dtype=dtype, device=dev) if capture_latents else None,
-        u=torch.zeros(b, device=dev) if gen.do_sample else None,
+        u=torch.zeros(BLOCK, b, device=dev) if gen.do_sample else None,
     )
 
 
@@ -165,11 +167,11 @@ def slot_admit(state: SlotState, prod: Dict[str, Any], slot: int, cfg: GPTConfig
 
 
 def _slot_iteration(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state: SlotState, knobs,
-                    pos_off: int) -> None:
+                    pos_off: int, row: torch.Tensor) -> None:
     """One slot step; every write is in place, and the cursor and the tick
     are device scalars, so the step reads no host value. `knobs`: the four
     dynamic knobs as [n_slots] attributes; a sampled row takes its uniform
-    from state.u."""
+    from row `row` ([1] long, the step's place in its block) of state.u."""
     s_len = state.mask.shape[1]
     max_new = state.codes.shape[1]
     stop = cfg.stop_mel_token
@@ -186,7 +188,7 @@ def _slot_iteration(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, 
         typical_sampling=gen.typical_sampling, typical_mass=knobs.typical_mass, temperature=knobs.temperature,
         top_k=gen.top_k if gen.do_sample else 0, top_p=knobs.top_p, do_sample=gen.do_sample,
     )
-    nxt = sample_token(lf, state.u) if gen.do_sample else greedy_token(lf)
+    nxt = sample_token(lf, block_row(state.u, row)) if gen.do_sample else greedy_token(lf)
     nxt = torch.where(act, nxt, torch.full_like(nxt, stop))
     # indexed writes at each row's own index; an inactive row writes back what it holds
     # (a boolean row selection would cost a host round trip per step)
@@ -215,31 +217,36 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
                repetition_penalty: Knob = 10.0, typical_mass: Knob = 0.9, pos_off: int = 2,
                graphs: Optional[GraphStage] = None) -> SlotState:
     """Run up to `n_steps` decode steps at the shared cursor, ending early
-    when no row is active (one host check a step). The sampling knobs are
-    floats or [n_slots] tensors, one value per row (the session sets a row's
-    at admission, so requests with different knobs share the batch). Row r
-    decodes at mel position i_b[r] + pos_off; inactive rows emit the stop
-    code. The state, allocated once per session by slot_state_init, is the
-    static buffers of its key in `graphs`, the engine's slot stage (without
-    one, a stage that never captures; the knobs are copied into [n_slots]
-    buffers each call), and each step runs through it: on a CUDA engine a
-    replay of the key's captured graph, its uniforms drawn into state.u
-    before it."""
+    when no row is active. The sampling knobs are floats or [n_slots]
+    tensors, one value per row (the session sets a row's at admission, so
+    requests with different knobs share the batch). Row r decodes at mel
+    position i_b[r] + pos_off; inactive rows emit the stop code. The state,
+    allocated once per session by slot_state_init, is the static buffers of
+    its key in `graphs`, the engine's slot stage (without one, a stage that
+    never captures; the knobs are copied into [n_slots] buffers each call),
+    and the steps run through it in blocks (graphs.GraphStage.run): on a
+    CUDA engine a replay of the key's captured block, its uniforms drawn
+    into state.u before it, one draw for each step the budget allows. One
+    host read a block."""
     b, dev = state.codes.shape[0], state.codes.device
     knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
         _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
     stage = stage_or_uncaptured(graphs, dev)
     key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, len(state.cache) == 4,
-           state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model))
+           state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model), BLOCK)
     lane = stage.bind(key, state, [(state, ("tick", "cursor", "i_b", "codes", "cache", "active", "done", "seen",
                                             "cur", "mask", "lat", "u")), (knobs, _KNOBS)])
-    step = lambda: _slot_iteration(model, cfg, gen, state, knobs, pos_off)
-    for _ in range(n_steps):
-        if not bool(state.active.any()):
-            break
+    step = lambda: _slot_iteration(model, cfg, gen, state, knobs, pos_off, lane.ctl.ran)
+    live = lambda: state.active.any()
+    done = 0
+    while done < n_steps:
         if state.u is not None:
-            state.u.copy_(uniforms(tuple(state.u.shape), generator, dev))
-        stage.run(lane, step)
+            for j in range(min(BLOCK, n_steps - done)):
+                state.u[j].copy_(uniforms((b,), generator, dev))
+        ran, alive = stage.run(lane, step, live, n_steps - done)
+        done += ran
+        if not alive:
+            break
     return state
 
 

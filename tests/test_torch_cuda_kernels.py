@@ -636,3 +636,38 @@ def _profiled_kernels(mod, call):
         if events:
             return events
     return []
+
+
+@pytest.mark.cuda
+def test_block_graph_runs_only_the_steps_its_predicate_allows():
+    """A decode block of graphs.BLOCK conditional steps (csrc/graph_block.cu)
+    on a toy counter loop whose condition is t < 10: budgets 3, 16 and 16
+    run 3 steps (warm, then captured), 7 (stopped mid-block on the card) and
+    0 (replays), the same steps and state as the blocks run eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the block graph has no CPU mode)")
+    import contextlib
+
+    from indextts_tpu_torch.graphs import BLOCK, Graphs
+
+    class Toy:
+        def __init__(self):
+            self.t = torch.zeros(1, dtype=torch.long, device="cuda")
+            self.x = torch.zeros(4, device="cuda")
+            self.u = torch.arange(4 * BLOCK, dtype=torch.float32, device="cuda").reshape(BLOCK, 4)
+
+    out = {}
+    for mode in ("eager", "graph"):
+        graphs, st = Graphs("cuda"), Toy()
+        lane = graphs.decode.bind(("toy",), st, [(st, ("t", "x", "u"))])
+
+        def step():
+            st.x.add_(st.u.index_select(0, lane.ctl.ran)[0])
+            st.t.add_(1)
+
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            runs = [graphs.decode.run(lane, step, lambda: st.t < 10, n) for n in (3, 16, 16)]
+        out[mode] = (runs, st.t.item(), st.x.cpu(), lane)
+    assert out["eager"][0] == out["graph"][0] == [(3, True), (7, False), (0, False)]
+    assert out["graph"][1] == out["eager"][1] == 10 and torch.equal(out["graph"][2], out["eager"][2])
+    assert out["graph"][3].graph is not None and out["graph"][3].replays == 2

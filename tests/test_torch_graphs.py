@@ -30,7 +30,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 import indextts_tpu.models.gpt_decode as jdec
 import indextts_tpu.models.gpt_slots as jslots
@@ -76,20 +76,32 @@ class NoHostReads(TorchDispatchMode):
 
 
 class CheckedStage(GraphStage):
-    """A CPU graph stage that runs each step under NoHostReads and checks
-    that the lane's buffers keep their addresses across it."""
+    """A CPU graph stage that runs each block (its head and every step)
+    under NoHostReads and checks that the lane's buffers keep their
+    addresses across it; only the IF of each step reads the device, outside
+    the checked mode, as the card's predicate kernel does."""
 
     def __init__(self, *args):
         super().__init__(*args)
         self.steps = 0
+        self.blocks = 0
         self.calls = []
 
-    def run(self, lane, fn):
+    def _holds(self, ctl):
+        with _disable_current_modes():
+            return super()._holds(ctl)
+
+    def _block(self, lane, head, body):
         ptrs = [t.data_ptr() for t in lane.tensors]
+
+        def counted():
+            body()
+            self.steps += 1
+
         with NoHostReads():
-            fn()
+            super()._block(lane, head, counted)
         assert [t.data_ptr() for t in lane.tensors] == ptrs, "a step moved a static buffer"
-        self.steps += 1
+        self.blocks += 1
 
     def call(self, key, fn, inputs):
         self.calls.append(key)
@@ -100,7 +112,8 @@ class CheckedStage(GraphStage):
 class CheckedGraphs(Graphs):
     def __init__(self):
         super().__init__("cpu")
-        self.decode, self.slot, self.vocoder = (CheckedStage(n, self, 16) for n in ("dec", "slot", "voc"))
+        self.decode, self.slot, self.vocoder, self.latent, self.cond = (
+            CheckedStage(n, self, 16) for n in ("dec", "slot", "voc", "lat", "cond"))
 
 
 @pytest.fixture(scope="module")
