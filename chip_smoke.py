@@ -141,22 +141,41 @@ Phases, in order; any failure exits non-zero:
                device-synchronized ms, DVAE codes equal, losses within
                FIDELITY_RTOL;
      mesh    — the multi-device path (indextts_tpu_torch/parallel/mesh.py)
-               at the published widths: two ranks spawned on the card over
-               gloo (NCCL, a card each, where there are two), each building
-               the whole model from seed 0 and keeping its shard, against
-               one process on the same card: float32 with TF32 off at tp = 2
-               (16 forced steps' logits within MESH_F32_GATE, a greedy
-               32-code request token for token), bf16 at tp = 2 (the forced
-               steps within MESH_BF16_GATE, a greedy 100-code request), bf16
-               at dp = 2 (infer_batch of 4 requests, K1 109 launches per
-               vocoder call on each rank), int8 weights at tp = 2 (K5 on
-               every shard shape against its plain version, 97 launches a
-               step on each rank, its own device ms beside one process's);
-     graphs  — the engine's captured programs (indextts_tpu_torch/
-               graphs.py) at the published widths, bf16: first a toy loop in
+               at the published widths, on mesh_layout's ranks: two sharing
+               the card over gloo on one card, two over NCCL on two or
+               three, four over NCCL at dp = 2 x tp = 2 on four or more
+               (after nccl_probe: a captured 49-collective toy step inside
+               the decode block's IF bodies on two cards, NCCL's, torch's
+               CUDA and the driver's versions and the step's node types),
+               each rank building the whole model from seed 0 and keeping
+               its shard, against one process on the first card: float32
+               with TF32 off at tp = 2 (16 forced steps' logits within
+               MESH_F32_GATE, a greedy 32-code request token for token),
+               bf16 at tp = 2 (the forced steps within MESH_BF16_GATE, a
+               greedy 100-code request), bf16 at dp = 2 (infer_batch of 4
+               requests, K1 109 launches per vocoder call on each rank),
+               int8 weights at tp = 2 (K5 on every shard shape against its
+               plain version, 97 launches a step on each rank, its own
+               device ms beside one process's); then each rank's requests
+               eager and through its captured stages (graphs.py's rule for
+               the backend): codes token-exact (greedy, sampled and 3 beams,
+               with the stop bias raised, infer_batch of 4, a SlotSession of
+               4 slots serving 6 requests, infer_stream and int8 weights),
+               conditioning and latent passes within 1 bf16 unit, the
+               vocoder bit-equal, host reads one a block, the stages'
+               decision logs equal across each model group, and host and
+               device ms of the B = 4 decode step, eager beside captured,
+               beside one process's block, and of the slot session's ticks;
+               (`--phases meshgraphs` runs the probe and this second part
+               alone);
+     graphs  — (in a process of its own) the engine's captured programs
+               (indextts_tpu_torch/graphs.py) at the published widths,
+               bf16: first a toy loop in
                blocks of conditional steps (csrc/graph_block.cu; torch's and
                the driver's CUDA versions printed), replayed against eager
-               with a stop mid-block; warmup twice (its captures, then
+               with a stop mid-block, also with a step that records and
+               waits on an external event (which the IF bodies drop);
+               warmup twice (its captures, then
                replays), then each request under the engine's private eager
                switch, replayed, and replayed again, its code rows
                token-exact, K1-K5's launches and the blocks' host reads
@@ -184,7 +203,7 @@ Phases, in order; any failure exits non-zero:
 It needs the repository around it and a CUDA device, and imports no JAX.
 Details go to chiprun_out/chip_smoke_report.json.
 `--phases a,b` (of kernel, k2, k3, k4, k5, engine, beam, stream, serve, int8,
-small, ckpt, legacy, fidelity, mesh, graphs) runs
+small, ckpt, legacy, fidelity, mesh, meshgraphs, graphs) runs
 only those phases after the build, for work on one of them, with the per
 vocoder call sums of kernel, k3 and k4: it prints no kernels line and no
 final line, and exits 3. In the kernels line `ms` is a kernel's own device
@@ -2484,8 +2503,28 @@ def fidelity_phase(card: str) -> dict:
 # float32 with TF32 off and bf16 (JAX's logit gate, bench.py:280)
 MESH_F32_GATE = 1e-3
 MESH_BF16_GATE = 1.0
-MESH_WORLD = 2
 K5_KERNEL = "int8_matmul_kernel"
+# the mesh ranks' deadline: a hang fails the phase instead of stalling the run
+MESH_DEADLINE_S = 240
+
+
+def mesh_layout(cards: int):
+    """(ranks, backend) of the mesh phase on `cards` cards, at tp = 2: four
+    ranks over NCCL at dp = 2 x tp = 2 on four cards or more, two over NCCL
+    on two or three, two sharing the one card over gloo."""
+    if cards >= 4:
+        return 4, "nccl"
+    return 2, "nccl" if cards >= 2 else "gloo"
+
+
+def stop_bias_slot(engine):
+    """(the mel head's bias, the stop code's index in it) on this rank, or
+    None where a vocabulary-split head keeps the stop code on the other
+    rank of the model group."""
+    lin, stop = engine.gpt.mel_head, engine.cfg.gpt.stop_mel_token
+    comm = getattr(lin, "tp_comm", None)
+    i = stop - (0 if comm is None else comm.index * lin.bias.shape[0])
+    return (lin.bias, i) if 0 <= i < lin.bias.shape[0] else None
 
 
 def mesh_engine(cfg_path: str, dtype_bf16: bool, device: str, tp=None, mesh: bool = True):
@@ -2522,7 +2561,7 @@ def greedy_request(engine, n_codes: int) -> dict:
 
     tdec._mel_logits, engine._gpt_generate = recording_logits, recording_generate
     # the recorder reads every step's logits on the host, which a captured step
-    # cannot: one process runs its steps eagerly here (a mesh captures nothing)
+    # cannot: the steps run eagerly here, on one process and on the mesh
     eager = engine._graphs.eager()
     try:
         torch.cuda.synchronize()
@@ -2598,8 +2637,9 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
     tp = 2: the 16 forced steps, a greedy 100-code request, then int8 weights
     (quantize_unified_voice on the shards): K5 on every shard shape against
     its plain version, 16 forced steps with K5's launches counted and its own
-    device ms; then bf16 at dp = 2 (tp = 1): infer_batch of 4 requests with
-    K1's launches counted. Writes rank<r>.pkl, or the traceback."""
+    device ms; then bf16 at dp = 2 (tp = world / 2): infer_batch of 4
+    requests with K1's launches counted. Writes rank<r>.pkl, or the
+    traceback."""
     import pickle
     import traceback
 
@@ -2612,6 +2652,7 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
     from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
+    rank_output(out_dir, "rank", rank)
     if device == "cpu":  # a rehearsal on the CPU (tiny cfg_path): no device to wait for or to trace
         import torch.profiler as tprof
 
@@ -2631,9 +2672,11 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
         out["describe"] = e.mesh.describe()
         out["comm_ms"] = comm_ms(e.mesh)
         marks["f32_engine"] = time.perf_counter() - t0
+        log(f"[mesh rank {rank}] f32_engine done at {marks['f32_engine']:.1f} s")
         out["f32_greedy"] = greedy_request(e, 32)
         out["f32_logits"], out["f32_profile"] = mesh_forced(e, profiled=False)
         marks["f32"] = time.perf_counter() - t0
+        log(f"[mesh rank {rank}] f32 done at {marks['f32']:.1f} s")
         del e
         torch.cuda.empty_cache()
 
@@ -2641,16 +2684,18 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
         out["bf16_greedy"] = greedy_request(e, 100)
         out["bf16_logits"], out["bf16_profile"] = mesh_forced(e)
         marks["bf16"] = time.perf_counter() - t0
+        log(f"[mesh rank {rank}] bf16 done at {marks['bf16']:.1f} s")
         quantize_unified_voice(e.gpt)
         out["k5_shards"] = k5_shards(e)
         k5.launches = 0  # the int8 path's forced steps start here: 2 runs of a prefill and 16 steps
         out["int8_logits"], out["int8_profile"] = mesh_forced(e, own=(K5_KERNEL,))
         out["k5_launches"], out["k5_runs"], out["k5_steps"] = k5.launches, 2, 2 * 16
         marks["int8"] = time.perf_counter() - t0
+        log(f"[mesh rank {rank}] int8 done at {marks['int8']:.1f} s")
         del e
         torch.cuda.empty_cache()
 
-        e = mesh_engine(cfg_path, True, device, tp=1)
+        e = mesh_engine(cfg_path, True, device, tp=world // 2)
         out["dp_describe"] = e.mesh.describe()
         items = [(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY TO YOU.", "THIS IS A TEST.", "HOW ARE YOU.")]
         k1.launches = 0  # the data-parallel batch starts here
@@ -2662,6 +2707,7 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
                            "k1_launches": k1.launches, "vocoder_calls": e.last_stats["vocoder_calls"],
                            "gpt_steps": e.last_stats["gpt_steps"], "decode_batches": e.last_stats["decode_batches"]}
         marks["dp"] = time.perf_counter() - t0
+        log(f"[mesh rank {rank}] dp done at {marks['dp']:.1f} s")
         del e
         out["ok"] = True
     except BaseException:
@@ -2670,32 +2716,178 @@ def mesh_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
+        release_graphs()
+        dist.destroy_process_group()
+
+
+def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str, cfg_path: str = FLAGSHIP,
+                    device: str = DEVICE, stop_raise: float = 0.0) -> None:
+    """One rank of the mesh phase's captured programs (spawned), bf16 at
+    tp = 2 (dp = world / 2): which stages capture here; each request eager
+    (Graphs.eager()), replayed and replayed again, its codes token-exact and
+    K1-K5's launches and the host reads equal (graph_vs_eager): greedy and
+    sampled num_beams=1 and the default num_beams=3, the same with the stop
+    code's bias raised by `stop_raise` (rows stop mid-block), infer_batch of
+    4 requests, a SlotSession of 4 slots serving 6 requests (the host ms of
+    each tick and of its decode chunk), infer_stream, and a greedy request
+    on int8 weights (K5 on the shards,
+    inside the blocks over NCCL), at 60 codes over NCCL and at 20 over gloo,
+    where only the vocoder and conditioning stages capture. The
+    conditioning (and over NCCL the latent) pass within 1 bf16 unit of
+    eager; a 100-code vocoder call replayed against eager, with K1's
+    launches; host and device ms of the B = 4 decode step, eager (over NCCL
+    beside replayed in blocks and one step a call), with the collectives'
+    own device ms; the stages' decision log. Log lines go to
+    graph<r>.log; writes graph<r>.pkl, or the traceback."""
+    import contextlib
+    import pickle
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.quant import quantize_unified_voice
+
+    rank_output(out_dir, "graph", rank)
+    if device == "cpu":  # a rehearsal on the CPU (tiny cfg_path): no device to wait for or to trace
+        import torch.profiler as tprof
+
+        torch.cuda.synchronize = lambda *a, **k: None
+        cpu_profile = tprof.profile
+        tprof.profile = lambda activities: cpu_profile(activities=[tprof.ProfilerActivity.CPU])
+    else:
+        device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    out = {"ok": False}
+    tag = f"rank {rank}"
+    try:
+        t0 = time.perf_counter()
+        e = mesh_engine(cfg_path, True, device, tp=2)
+        nccl = backend == "nccl"
+        out.update(describe=e.mesh.describe(), coords=e.mesh.coords,
+                   rule={s.name: s.captures for s in e._graphs.stages()})
+        out["n_codes"] = n_codes = 60 if nccl else 20
+        short = dict(audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=n_codes)
+        requests = [("greedy_nb1", lambda: e.infer(do_sample=False, num_beams=1, **short)),
+                    ("sampled_nb1", lambda: e.infer(num_beams=1, **short)),
+                    ("default_nb3", lambda: e.infer(**short))]
+        rec = CodeRecorder(e)
+        try:
+            rows = [graph_vs_eager(e, rec, name, fn, tag) for name, fn in requests]
+            slot = stop_bias_slot(e)
+            base = None if slot is None else slot[0][slot[1]].item()
+            try:
+                if slot is not None:
+                    with torch.no_grad():
+                        slot[0][slot[1]] = base + stop_raise
+                rows += [graph_vs_eager(e, rec, name + "+stop", fn, tag) for name, fn in requests]
+            finally:
+                if slot is not None:
+                    with torch.no_grad():
+                        slot[0][slot[1]] = base
+            items = [(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY TO YOU.", "THIS IS A TEST.", "HOW ARE YOU.")]
+            rows.append(graph_vs_eager(e, rec, "infer_batch_4", lambda: [w.shape[0] for _, w in e.infer_batch(
+                items, do_sample=False, num_beams=1, max_mel_tokens=n_codes)], tag))
+            ticks = {}  # per run (eager, graph, graph again): host ms of each tick and of its decode chunk
+
+            def slots():
+                sess = e.slot_session(n_slots=4, chunk_steps=25, max_mel_tokens=n_codes)
+                rids = [sess.submit(PROMPT, t) for t in ("HELLO WORLD.", "GOOD DAY.", "THIS IS A TEST.", "HI.",
+                                                          "HELLO AGAIN.", "THE END.")]
+                done, ms = {}, []
+                while sess.busy:
+                    t = time.perf_counter()
+                    done.update(sess.tick())
+                    ms.append(1e3 * (time.perf_counter() - t))
+                ticks[("eager", "graph", "graph_again")[len(ticks)]] = {
+                    "tick_ms": ms, "chunk_ms": [1e3 * c for c in sess.chunk_s]}
+                return [done[r][1].shape[0] for r in rids]
+
+            rows.append(graph_vs_eager(e, rec, "slot_session_4x6", slots, tag))
+            out["slot_ticks"] = ticks
+            rows.append(graph_vs_eager(e, rec, "infer_stream", lambda: [c.size for c in e.infer_stream(
+                audio_prompt=PROMPT, text="HELLO WORLD.", max_mel_tokens=n_codes)], tag))
+            mel = e.extract_features(PROMPT)
+            conds1 = e._conds_for(mel)
+            passes = {"cond": conditioning_vs_eager(e, tag, "mesh")}
+            if nccl:
+                r = np.random.default_rng(5)
+                codes = r.integers(0, e.cfg.gpt.stop_mel_token, (1, 100))
+                text = r.integers(2, e.cfg.gpt.number_text_tokens - 1, (1, 12))
+                passes["latent"] = stage_vs_eager(e, "mesh latent pass, b=1, 100 codes", lambda: e._gpt_latent(
+                    conds1, text, codes, np.full(1, 100)), tag)
+            out["passes"] = passes
+
+            g = torch.Generator(device=e.device).manual_seed(5)
+            latent = torch.randn(1, 100, e.cfg.gpt.model_dim, device=e.device, dtype=e.dtype, generator=g)
+            voc = {}
+            for mode in ("eager", "graph", "graph_again"):
+                k1.launches = 0
+                with e._graphs.eager() if mode == "eager" else contextlib.nullcontext():
+                    wav = e._vocode(latent, 100, mel)
+                voc[mode] = (np.clip(np.asarray(wav) * 32767.0, -32767, 32767).astype(np.int16), k1.launches)
+            out["vocoder"] = {"max_int16_diff": max(int(np.abs(voc[m][0].astype(np.int32)
+                                                               - voc["eager"][0].astype(np.int32)).max())
+                                                    for m in ("graph", "graph_again")),
+                              "k1_launches": {m: v[1] for m, v in voc.items()}}
+
+            either = lambda flag: bool(e.mesh.world.all_reduce(torch.tensor([int(flag)]), op=dist.ReduceOp.MAX))
+            out["step"] = step_profile(e, b4_decode(e, conds1, 32 if nccl else 8, False), tag,
+                                       "mesh decode step, B=4, bf16", {},
+                                       modes=("eager", "graph", "graph_per_step") if nccl else ("eager",),
+                                       own=("nccl", "Memcpy"), agree=either)
+            quantize_unified_voice(e.gpt)
+            rows.append(graph_vs_eager(e, rec, "int8_greedy_nb1",
+                                       lambda: e.infer(do_sample=False, num_beams=1, **short), tag))
+            out["requests"] = rows
+        finally:
+            rec.close()
+        out["log"] = list(e._graphs.log)
+        out["stats"] = e._graphs.stats()
+        out["seconds"] = time.perf_counter() - t0
+        del e, rec
+        out["ok"] = True
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"graph{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        release_graphs()
         dist.destroy_process_group()
 
 
 def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dict:
     """The multi-device path (parallel/mesh.py) at the published widths,
-    random init from seed 0: two ranks spawned on the one card over gloo
-    (NCCL with a card per rank where there are two), each building the whole
-    model and keeping its shard (mesh_rank), against one process on the same
-    card: (a) float32, TF32 off, tp = 2: the 16 forced steps' logits within
-    MESH_F32_GATE, and a greedy 32-code request token for token (a first
-    divergence only at a step whose top-2 margin is under the gate); (b)
-    bf16, tp = 2: the forced steps' drift within MESH_BF16_GATE, a greedy
-    100-code request, infer_batch of 4 requests at dp = 2 with K1 at 109
-    launches per vocoder call on each rank; (c) int8 weights at tp = 2: K5
-    on each shard shape within the k5 phase's bound, 97 launches a step on
-    each rank, and each rank's own K5 device ms per step beside one
-    process's. Host ms per decode step beside one process's, with the
-    backend."""
-    import pickle
+    random init from seed 0, on mesh_layout's ranks (four over NCCL at
+    dp = 2 x tp = 2 on four cards, two over NCCL on two, two sharing the one
+    card over gloo), each building the whole model and keeping its shard,
+    against one process on the first card. First the NCCL probe where there
+    are two cards (nccl_probe). Then mesh_rank: (a) float32, TF32 off, tp =
+    2: the 16 forced steps' logits within MESH_F32_GATE, and a greedy
+    32-code request token for token (a first divergence only at a step
+    whose top-2 margin is under the gate); (b) bf16, tp = 2: the forced
+    steps' drift within MESH_BF16_GATE, a greedy 100-code request,
+    infer_batch of 4 requests at dp = 2 with K1 at 109 launches per vocoder
+    call on each rank; (c) int8 weights at tp = 2: K5 on each shard shape
+    within the k5 phase's bound, 97 launches a step on each rank, and each
+    rank's own K5 device ms per step beside one process's. Then
+    mesh_graph_rank: the captured programs against Graphs.eager() on the
+    mesh (the stages the backend's rule captures; the stop code's bias
+    raised by the raise that makes one process's sampled request stop
+    mid-block), the stages' decision logs equal across each model group,
+    host reads a decode run, and host and device ms of the B = 4 decode
+    step on the mesh, eager beside captured, beside one process's block.
+    Host ms per decode step beside one process's, with the backend."""
     import shutil
-    import socket
 
     import numpy as np
     import torch
 
-    from indextts_tpu_torch.ops.cuda import qmatmul as k5
     from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
     import gc
@@ -2712,37 +2904,29 @@ def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dic
     e = mesh_engine(cfg_path, True, device, mesh=False)
     one["bf16_greedy"] = greedy_request(e, 100)
     one["bf16_logits"], one["bf16_profile"] = mesh_forced(e)
+    one["block_ms"] = block_host_ms(b4_decode(e, e._conds_for(e.extract_features(PROMPT)), 32, False))
+    log(f"[mesh] one process, decode step, B=4, bf16: host {one['block_ms']:.2f} ms/step replayed in blocks "
+        f"[{card}]")
+    stop_raise, stop_base = raise_stop_bias(e, card)
+    with torch.no_grad():
+        e.gpt.mel_head.bias[e.cfg.gpt.stop_mel_token] = stop_base
     quantize_unified_voice(e.gpt)
     one["int8_logits"], one["int8_profile"] = mesh_forced(e, own=(K5_KERNEL,))
     del e
+    gc.collect()
     torch.cuda.empty_cache()
     one_s = time.perf_counter() - t_phase
 
-    backend = "nccl" if torch.cuda.device_count() >= MESH_WORLD else "gloo"
+    cards = torch.cuda.device_count() if device != "cpu" else 1
+    world, backend = mesh_layout(cards)
+    probe = nccl_probe(card) if cards >= 2 else None
     out_dir = os.path.join(REPO, "build", "mesh_phase")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     t = time.perf_counter()
-    ctx = torch.multiprocessing.start_processes(mesh_rank, args=(MESH_WORLD, port, backend, out_dir, cfg_path, device),
-                                                nprocs=MESH_WORLD, join=False, start_method="spawn")
-    deadline = time.time() + 240
-    try:
-        while not ctx.join(timeout=max(1.0, deadline - time.time())):
-            if time.time() > deadline:
-                raise AssertionError("the mesh ranks did not finish in 240 s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
+    ranks = spawn_ranks(mesh_rank, (world, free_port(), backend, out_dir, cfg_path, device), world, out_dir, "rank",
+                        MESH_DEADLINE_S)
     ranks_s = time.perf_counter() - t
-    ranks = []
-    for r in range(MESH_WORLD):
-        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-            ranks.append(pickle.load(f))
-    shutil.rmtree(out_dir, ignore_errors=True)
     bad = [f"rank {r}: {x.get('error')}" for r, x in enumerate(ranks) if not x["ok"]]
     if bad:
         raise AssertionError("\n".join(bad))
@@ -2810,11 +2994,15 @@ def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dic
             failures.append(row)
     if failures:
         raise AssertionError(f"the mesh disagrees with one process or miscounts launches: {failures}")
+
+    graph_rows, graph_s = mesh_graphs(card, world, backend, out_dir, cfg_path, device, stop_raise, one["block_ms"])
     total_s = time.perf_counter() - t_phase
-    log(f"[mesh] phase {total_s:.1f} s (one process {one_s:.1f} s, the ranks {ranks_s:.1f} s) [{card}]")
-    return {"backend": backend, "world": MESH_WORLD, "ranks": rows, "one_process": {
+    log(f"[mesh] phase {total_s:.1f} s (one process {one_s:.1f} s, the ranks {ranks_s:.1f} s, their captured "
+        f"programs {graph_s:.1f} s) [{card}]")
+    return {"backend": backend, "world": world, "ranks": rows, "one_process": {
         k: one[f"{k}_profile"] for k in ("f32", "bf16", "int8")}, "one_process_bf16_greedy_ms_per_step":
         one["bf16_greedy"]["decode_ms_per_step"], "seconds": total_s,
+        "one_process_block_ms": one["block_ms"], "stop_raise": stop_raise, "probe": probe, "graph_ranks": graph_rows,
         "k5_launches_per_step_per_rank": rows[0]["k5_launches_per_step"],
         "k5_own_ms_per_step": max((r["k5_own_ms_per_step"] for r in rows if r["k5_own_ms_per_step"] is not None),
                                   default=None),
@@ -2822,6 +3010,135 @@ def mesh_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dic
         "k5_max_abs_err": max(k["max_abs_err"] for r in rows for k in r["k5_shards"]),
         "k5_shard_shapes": [(k["case"], k["N"], k["K"]) for k in rows[0]["k5_shards"]],
         "k1_launches": rows[0]["dp_batch"]["k1_launches"], "k1_vocoder_calls": rows[0]["dp_batch"]["vocoder_calls"]}
+
+
+def mesh_graphs(card: str, world: int, backend: str, out_dir: str, cfg_path: str, device: str, stop_raise: float,
+                one_block: float):
+    """The mesh phase's captured programs: mesh_graph_rank on `world` ranks
+    over `backend` (writing into `out_dir`), against Graphs.eager() on the
+    mesh; the stages the rule captures, the decision logs equal across each
+    model group, host reads a decode run, rows stopped mid-block, the
+    vocoder and K1 and K5's counts, the host and device ms of the B = 4
+    decode step (beside one process's block, `one_block` host ms) and of a
+    slot session's ticks. Returns (a row per rank, the ranks' seconds)."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from indextts_tpu_torch.graphs import BLOCK, stage_captures
+
+    t = time.perf_counter()
+    granks = spawn_ranks(mesh_graph_rank, (world, free_port(), backend, out_dir, cfg_path, device, stop_raise), world,
+                         out_dir, "graph", MESH_DEADLINE_S)
+    graph_s = time.perf_counter() - t
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    for r in range(world):  # each rank's own lines (graph_vs_eager, stage_vs_eager, step_profile)
+        lines = open(os.path.join(out_dir, f"graph{r}.log")).read()
+        with open(os.path.join(REPO, "chiprun_out", f"mesh_rank{r}.log"), "w") as f:
+            f.write(lines)
+        if r == 0:
+            for line in lines.splitlines():
+                if line.startswith("["):
+                    log(f"[mesh] {line} [{card}]")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    bad = [f"rank {r}: {x.get('error')}" for r, x in enumerate(granks) if not x["ok"]]
+    if bad:
+        raise AssertionError("\n".join(bad))
+    nccl = backend == "nccl"
+    want_rule = {name: stage_captures(name, device, backend) for name in ("dec", "slot", "voc", "lat", "cond")}
+    k1_want = activations_per_call(load_config(cfg_path).bigvgan)
+    graph_rows, failures = [], []
+    for r, x in enumerate(granks):
+        group = [y for y in granks if y["coords"][0] == x["coords"][0]]  # the rank's model group
+        logs_equal = all(y["log"] == x["log"] for y in group)
+        reads = {q["request"]: (q["host_reads"], q["gpt_steps"]) for q in x["requests"]}
+        # one decode run a request: ceil(steps / BLOCK) host reads through blocks of conditional steps
+        reads_ok = not nccl or all(n == math.ceil(st / BLOCK) for name, (n, st) in reads.items()
+                                   if "nb1" in name and st)
+        stopped = [q["request"] for q in x["requests"] if "+stop" in q["request"]
+                   and any((n - 1) % BLOCK and n < x["n_codes"] for n in q["row_lengths"])]
+        voc = x["vocoder"]
+        k5_rows = [q for q in x["requests"] if q["request"].startswith("int8")]
+        k5_ok = all(q["launches"].get("k5", 0) >= (4 * load_config(cfg_path).gpt.layers + 1) * q["gpt_steps"]
+                    for q in k5_rows)
+        step = x["step"]
+        row = dict(rank=r, describe=x["describe"], rule=x["rule"], logs_equal_in_model_group=logs_equal,
+                   log_len=len(x["log"]), decisions=dict(sorted(_count_events(x["log"]).items())),
+                   reads=reads, stopped_mid_block=stopped, vocoder=voc, passes=x["passes"],
+                   requests=x["requests"], step=step, seconds=x["seconds"], stats=x["stats"],
+                   slot_ticks=x["slot_ticks"])
+        graph_rows.append(row)
+        fmt = lambda v: "not measured" if v is None else f"{v:.3f}"
+        log(f"[mesh] rank {r} graphs: {x['describe']}; stages that capture "
+            f"{[k for k, v in x['rule'].items() if v]} (rule {[k for k, v in want_rule.items() if v]}); decision log of "
+            f"{len(x['log'])} entries {row['decisions']}, equal across the model group: {logs_equal}; "
+            f"{x['seconds']:.1f} s [{card}]")
+        log(f"[mesh] rank {r} graphs: codes eager = graph = graph again in {[q['request'] for q in x['requests']]}; "
+            f"host reads (reads, steps) {reads}; rows stopped mid-block in {stopped}; vocoder within "
+            f"{voc['max_int16_diff']} int16 units of eager, K1 {voc['k1_launches']} (want {k1_want} a call); "
+            f"conditioning / latent bf16 units "
+            f"{ {k: (v['bf16_units'] if 'bf16_units' in v else {b: u['bf16_units'] for b, u in v.items()}) for k, v in x['passes'].items()} }"
+            f" [{card}]")
+        for mode, v in step.items():
+            log(f"[mesh] rank {r} decode step, B=4, bf16, {mode} over {backend}: host {v['host_ms_per_step']:.2f} ms, "
+                f"device {fmt(v['device_ms_per_step'])} ms in {fmt(v['kernels_per_step'])} kernels, idle "
+                f"{fmt(v['device_idle_share'])}; collectives' own device ms {v['own_ms_per_step']} (one process's "
+                f"block {one_block:.2f} ms host) [{card}]")
+        log(f"[mesh] rank {r} slot session, 4 slots, 6 requests, chunks of up to 25 steps over {backend}: host ms a "
+            f"tick / a decode chunk (medians) " + "; ".join(
+                f"{mode} {np.median(v['tick_ms']):.2f} / {np.median(v['chunk_ms']):.2f} over {len(v['tick_ms'])} ticks"
+                for mode, v in x["slot_ticks"].items()) + f" [{card}]")
+        ok = (x["rule"] == want_rule and logs_equal and reads_ok and voc["max_int16_diff"] == 0
+              and all(n == k1_want for n in voc["k1_launches"].values()) and k5_ok and stopped
+              and len(k5_rows) == 1)
+        if not ok:
+            failures.append({k: v for k, v in row.items()
+                             if k not in ("requests", "stats", "passes", "step", "slot_ticks")})
+    if failures:
+        raise AssertionError(f"the mesh's captured programs fail their gates: {failures}")
+    return graph_rows, graph_s
+
+
+def mesh_graphs_phase(card: str, cfg_path: str = FLAGSHIP, device: str = DEVICE) -> dict:
+    """The mesh phase's captured programs alone (`--phases meshgraphs`), on
+    mesh_layout's ranks after the NCCL probe where there are two cards:
+    mesh_graphs, without the one-process references of the mesh phase's
+    other gates. The stop code's raise and one process's block host ms come
+    from one process on the first card."""
+    import gc
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    e = mesh_engine(cfg_path, True, device, mesh=False)
+    one_block = block_host_ms(b4_decode(e, e._conds_for(e.extract_features(PROMPT)), 32, False))
+    stop_raise, _base = raise_stop_bias(e, card)
+    del e
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[meshgraphs] one process, decode step, B=4, bf16: host {one_block:.2f} ms/step replayed in blocks "
+        f"[{card}]")
+    cards = torch.cuda.device_count() if device != "cpu" else 1
+    world, backend = mesh_layout(cards)
+    probe = nccl_probe(card) if cards >= 2 else None
+    out_dir = os.path.join(REPO, "build", "mesh_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    rows, graph_s = mesh_graphs(card, world, backend, out_dir, cfg_path, device, stop_raise, one_block)
+    total_s = time.perf_counter() - t_phase
+    log(f"[meshgraphs] phase {total_s:.1f} s (the ranks {graph_s:.1f} s) [{card}]")
+    return {"backend": backend, "world": world, "probe": probe, "graph_ranks": rows, "one_process_block_ms": one_block,
+            "stop_raise": stop_raise, "seconds": total_s}
+
+
+def _count_events(entries) -> dict:
+    """How many decisions of each (stage, event) a Graphs.log holds."""
+    out = {}
+    for stage, event, *_ in entries:
+        out[f"{stage}.{event}"] = out.get(f"{stage}.{event}", 0) + 1
+    return out
 
 
 # the kernel wrappers' launch counters, K1-K5 (the graphs phase compares them eager against replayed)
@@ -3106,7 +3423,8 @@ def raise_stop_bias(engine, card: str):
     return lo, base
 
 
-def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
+def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eager", "graph", "graph_per_step"),
+                 own=(), agree=None) -> dict:
     """Host and device ms per step of a decode route, eager beside replayed:
     prepare() sets up a fresh state (prefill, admission) and returns go(),
     which runs the steps and returns how many ran. Per mode: one run to warm
@@ -3123,7 +3441,11 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
     K1 kernels over a whole eager request, in earlier runs). The replayed
     route runs twice: in blocks (go(n): up to graphs.BLOCK steps a replay,
     one host read a block) and one step a call (go(1) n times: a replay and
-    a read each step, the host's pattern before blocks)."""
+    a read each step, the host's pattern before blocks). `modes` picks some
+    of the three; for each name in `own`, the device ms per step of the
+    kernels whose name holds it. On a mesh, `agree(flag)` is the flag
+    or-ed over the ranks: a run is taken again on every rank or on none
+    (each run's collectives pair up across the ranks)."""
     import contextlib
     import inspect
 
@@ -3135,7 +3457,8 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
         return lambda n=default: sum(go(1) for _ in range(n))
 
     out = {}
-    for mode in ("eager", "graph", "graph_per_step"):
+    either = agree or (lambda flag: flag)
+    for mode in modes:
         fresh = (lambda: per_step(prepare())) if mode == "graph_per_step" else prepare
         with engine._graphs.eager() if mode == "eager" else contextlib.nullcontext():
             fresh()()
@@ -3148,7 +3471,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
             go = fresh()
             torch.cuda.synchronize()
             n2, prof = run_profiled(go, tries=1)
-            if not any(getattr(e, "self_device_time_total", 0) > 0 for e in prof.key_averages()):
+            if either(not any(getattr(e, "self_device_time_total", 0) > 0 for e in prof.key_averages())):
                 go = fresh()  # the profiler recorded nothing: profile a fresh run again
                 torch.cuda.synchronize()
                 n2, prof = run_profiled(go, tries=1)
@@ -3156,10 +3479,10 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
             for _ in range(COUNT_TRIES):
                 go = fresh()
                 torch.cuda.synchronize()
-                n3, short = run_profiled(lambda: go(COUNT_STEPS))
+                n3, short = run_profiled(lambda: go(COUNT_STEPS), tries=1 if agree else 3)
                 counted = kernel_counts(short)
                 expected = {k: want.get(k, 0) * n3 for k in K_NAMES}
-                if counted == expected or any(counted[k] > expected[k] for k in K_NAMES):
+                if not either(not (counted == expected or any(counted[k] > expected[k] for k in K_NAMES))):
                     break
                 dropped.append(counted)  # fewer records than launches: the profiler dropped some
         events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
@@ -3176,16 +3499,67 @@ def step_profile(engine, prepare, card: str, label: str, want: dict) -> dict:
         out[mode] = {"steps": n, "host_ms_per_step": host, "device_ms_per_step": device,
                      "kernels_per_step": sum(e.count for e in events) / n2 if events else None,
                      "device_span_ms_per_step": span, "k_kernels": counted, "count_steps": n3,
-                     "device_idle_share": None if device is None else 1.0 - device / host}
-    e, g, g1 = out["eager"], out["graph"], out["graph_per_step"]
+                     "device_idle_share": None if device is None else 1.0 - device / host,
+                     "own_ms_per_step": {name: (sum(e.self_device_time_total for e in events if name in e.key)
+                                                / 1e3 / n2 if events else None) for name in own}}
     dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
         f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
         f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K5 kernels "
-        f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps")
-    log(f"[graphs] {label}: host {e['host_ms_per_step']:.2f} ms/step eager, {g['host_ms_per_step']:.2f} replayed in "
-        f"blocks, {g1['host_ms_per_step']:.2f} replayed one step a call; device eager {dev(e)}; replayed in blocks "
-        f"{dev(g)}; one step a call {dev(g1)} [{card}]")
+        f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps"
+        + "".join(f"; {name} kernels {ms:.4f} ms" for name, ms in v["own_ms_per_step"].items() if ms is not None))
+    names = {"eager": "eager", "graph": "replayed in blocks", "graph_per_step": "replayed one step a call"}
+    log(f"[graphs] {label}: host " + ", ".join(f"{out[m]['host_ms_per_step']:.2f} ms/step {names[m]}" for m in modes)
+        + "; device " + "; ".join(f"{names[m]} {dev(out[m])}" for m in modes) + f" [{card}]")
     return out
+
+
+def block_host_ms(prepare) -> float:
+    """Host ms a step of prepare()'s decode run (step_profile's prepare)
+    replayed in blocks, synchronized, after one run that warms and captures
+    its key. No profiler: after a profiled run of replayed blocks,
+    torch.profiler records fewer kernels than ran in every later profile of
+    the process (phase_in_child)."""
+    import torch
+
+    prepare()()
+    go = prepare()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = go()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t) / n
+
+
+def b4_decode(engine, conds, steps: int, quant_kv: bool):
+    """step_profile's prepare for the B = 4 sampled decode step: text rows
+    of 12, 9, 16 and 5 tokens from a fixed seed, prefilled for `steps`
+    steps, run through the engine's decode stage."""
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.models import gpt_decode as tdec
+
+    cfg, dev = engine.cfg.gpt, engine.device
+    r = np.random.default_rng(7)
+    lens4 = np.asarray([12, 9, 16, 5])
+    text4 = np.full((4, 16), cfg.stop_text_token, np.int64)
+    for i, n in enumerate(lens4):
+        text4[i, :n] = r.integers(0, cfg.number_text_tokens - 1, n)
+    text4_t, lens4_t = torch.from_numpy(text4).to(dev), torch.from_numpy(lens4).to(dev)
+
+    def prepare():
+        gen = tdec.GenerationConfig(do_sample=True, top_k=30, max_new_tokens=steps + 1)
+        with torch.no_grad():
+            st, ctx = tdec.prefill_decode_state(engine.gpt, cfg, gen, conds.expand(4, -1, -1), text4_t, lens4_t,
+                                                torch.Generator(device=dev).manual_seed(0), quant_kv=quant_kv)
+
+        def go(n=steps):
+            i0 = st.i
+            with torch.no_grad():
+                tdec.decode_steps(engine.gpt, cfg, st, ctx, n, graphs=engine._graphs.decode)
+            return st.i - i0
+        return go
+    return prepare
 
 
 def cuda_driver_version() -> int:
@@ -3205,10 +3579,13 @@ def if_node_check(card: str) -> dict:
     stage in blocks of BLOCK, replayed and under Graphs.eager(); budgets of
     3, 16 and 16 with the stop at 10 must run 3, 7 (a stop mid-block, read
     back as the condition false) and 0 steps in both, to the same state.
-    Then a step of cuBLAS (a bf16 [4, 1280] x [1280, 8194] product), a sort,
-    a top-k and a 64 MiB temporary: replayed equal to eager, and the pool
-    growth of its block against one step's temporaries. Prints torch's
-    CUDA and the driver's."""
+    The same with a step that records an external event and waits on it,
+    as PyTorch's ProcessGroupNCCL does around each collective it captures:
+    its captured step must hold event nodes, which the block's bodies drop
+    (csrc/graph_block.cu). Then a step of cuBLAS (a bf16 [4, 1280] x
+    [1280, 8194] product), a sort, a top-k and a 64 MiB temporary: replayed
+    equal to eager, and the pool growth of its block against one step's
+    temporaries. Prints torch's CUDA and the driver's."""
     import contextlib
 
     import torch
@@ -3227,16 +3604,21 @@ def if_node_check(card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     w = torch.randn(1280, 8194, device=dev, dtype=torch.bfloat16, generator=g)
 
-    def loop(graphs, heavy: bool):
+    def loop(graphs, kind: str):
         st = Toy(t=torch.zeros(1, dtype=torch.long, device=dev), x=torch.zeros(4, device=dev),
                  stop=torch.full((1,), 10, dtype=torch.long, device=dev),
                  h=torch.randn(4, 1280, device=dev, dtype=torch.bfloat16, generator=g),
                  top=torch.zeros(4, 30, device=dev), u=torch.zeros(BLOCK, 4, device=dev))
-        lane = graphs.decode.bind(("toy", heavy), st, [(st, ("t", "x", "stop", "h", "top", "u"))])
+        lane = graphs.decode.bind(("toy", kind), st, [(st, ("t", "x", "stop", "h", "top", "u"))])
+        ev = torch.cuda.Event(external=True)
 
         def step():
             st.x.add_(st.u.index_select(0, lane.ctl.ran)[0])
-            if heavy:
+            if kind == "events":
+                ev.record()
+                ev.wait()
+                st.x.mul_(0.75)
+            if kind == "heavy":
                 tmp = torch.empty(16 << 20, device=dev)
                 tmp.fill_(1.0)
                 logits = (st.h @ w).float() + tmp[:1]
@@ -3253,13 +3635,13 @@ def if_node_check(card: str) -> dict:
         return runs, st, lane
 
     out = {}
-    for heavy in (False, True):
+    for kind in ("light", "events", "heavy"):
         res = {}
         for mode in ("eager", "graph"):
             graphs = Graphs("cuda")
             g.manual_seed(3)
             with graphs.eager() if mode == "eager" else contextlib.nullcontext():
-                runs, st, lane = loop(graphs, heavy)
+                runs, st, lane = loop(graphs, kind)
             res[mode] = (runs, st, lane)
         (re, se, _), (rg, sg, lg) = res["eager"], res["graph"]
         if [r for r, _ in re] != [3, 7, 0] or [a for _, a in re] != [True, False, False] or re != rg:
@@ -3268,14 +3650,395 @@ def if_node_check(card: str) -> dict:
             raise AssertionError(f"the toy block was not captured and replayed twice ({lg.replays} replays)")
         for name in ("t", "x", "h", "top"):
             if not torch.equal(getattr(se, name), getattr(sg, name)):
-                raise AssertionError(f"toy block ({'heavy' if heavy else 'light'}): {name} replayed differs from eager")
-        out["heavy" if heavy else "light"] = {"runs": rg, "capture_s": lg.capture_s, "pool_bytes": lg.pool_bytes}
+                raise AssertionError(f"toy block ({kind}): {name} replayed differs from eager")
+        out[kind] = {"runs": rg, "capture_s": lg.capture_s, "pool_bytes": lg.pool_bytes,
+                     "step_nodes": graph_node_types(lg.graph.step.raw_cuda_graph())}
+    events = out["events"]["step_nodes"]
+    if not events.get("event_record") or not events.get("event_wait"):
+        raise AssertionError(f"the events step was captured without event nodes: {events}")
     info.update(out)
     log(f"[ifnode] toy blocks replayed as eager: budgets 3, 16, 16 ran {[r for r, _ in out['light']['runs']]} steps "
-        f"(a stop mid-block); a cuBLAS + sort + top-k step with a 64 MiB temporary: equal to eager, block "
+        f"(a stop mid-block); a step of {events} nodes run in bodies without its event nodes: equal to eager; "
+        f"a cuBLAS + sort + top-k step with a 64 MiB temporary: equal to eager, block "
         f"captured in {out['heavy']['capture_s']:.3f} s, pool +{out['heavy']['pool_bytes'] / 2**20:.1f} MiB for "
         f"{BLOCK} copies of one step [{card}]")
     return info
+
+
+# the driver API's CUgraphNodeType values, by name
+CU_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child_graph", 5: "empty", 6: "event_wait",
+                 7: "event_record", 8: "ext_semaphore_signal", 9: "ext_semaphore_wait", 10: "mem_alloc",
+                 11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+# the node types CUDA allows in a conditional node's body
+IF_BODY_TYPES = {"kernel", "memcpy", "memset", "empty", "child_graph", "conditional"}
+# a probe step's collectives: per layer, an all-reduce of a bf16 [4, 1280] (staged in float32, as
+# Comm.all_reduce does) and one of a float32 [4, 1280], then the head's gather: 49, as a tp = 2 decode step
+PROBE_LAYERS = 24
+
+
+def graph_node_types(graph: int) -> dict:
+    """How many nodes of each type a CUDA graph (a cudaGraph_t's address,
+    torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()) holds, the
+    nodes of its child graphs counted in, through the driver API."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    counts = {}
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"CUDA driver error {err} while walking a graph")
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(ctypes.c_void_p(g), None, ctypes.byref(n)))
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(ctypes.c_void_p(g), nodes, ctypes.byref(n)))
+        for node in nodes:
+            kind = ctypes.c_int(0)
+            check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+            name = CU_NODE_TYPES.get(kind.value, str(kind.value))
+            counts[name] = counts.get(name, 0) + 1
+            if name == "child_graph":
+                child = ctypes.c_void_p()
+                check(cu.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node), ctypes.byref(child)))
+                walk(child.value)
+
+    walk(graph)
+    return counts
+
+
+def probe_block(dev) -> dict:
+    """One rank of the NCCL probe: a toy loop whose step makes a tp = 2
+    decode step's 49 collectives over the world group (Comm's all-reduce
+    and gather) and stops once its counter reaches 10, run in blocks of
+    BLOCK with budgets 3, 16 and 16: eagerly (the IF read on the host), in
+    a block graph whose IF bodies are copies of the captured step
+    (csrc/graph_block.cu), and one captured step a replay with a host read
+    a step. The captured step's node types; whether the block builds and
+    replays, and to the same state and steps as eager (bit-equal); host
+    ms a step of each route over 64 steps."""
+    import torch
+    import torch.distributed as dist
+
+    from indextts_tpu_torch.graphs import BLOCK, BlockControl
+    from indextts_tpu_torch.ops.cuda.graph_block import BlockGraph
+    from indextts_tpu_torch.parallel.mesh import Comm
+
+    comm = Comm(dist.group.WORLD, list(range(dist.get_world_size())))
+    info = {"nccl": ".".join(map(str, torch.cuda.nccl.version())), "torch": torch.__version__,
+            "torch_cuda": torch.version.cuda, "driver": cuda_driver_version(),
+            "nccl_env": {k: v for k, v in os.environ.items() if k.startswith("NCCL_")}}
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = torch.randn(1280, 1280, device=dev, dtype=torch.bfloat16, generator=g) * 0.03
+
+    class Toy:
+        def __init__(self, stop):
+            gen = torch.Generator(device=dev).manual_seed(7 + comm.index)  # each rank its own start
+            self.h = torch.randn(4, 1280, device=dev, dtype=torch.bfloat16, generator=gen)
+            self.f = torch.randn(4, 1280, device=dev, generator=gen)
+            self.out = torch.zeros(4, 1280 * comm.size, device=dev, dtype=torch.bfloat16)
+            self.t = torch.zeros(1, dtype=torch.long, device=dev)
+            self.stop = torch.full((1,), stop, dtype=torch.long, device=dev)
+            self.ctl = BlockControl(dev)
+
+    def fns(s):
+        def head():
+            s.ctl.status.zero_()
+            s.ctl.live.copy_((s.t < s.stop).reshape(1))
+
+        def body():
+            for _ in range(PROBE_LAYERS):
+                y = torch.tanh(s.h @ w)
+                comm.all_reduce(y)
+                s.h.copy_(y * 0.5)
+                comm.all_reduce(s.f)
+                s.f.mul_(0.5)
+            s.out.copy_(comm.gather(s.h, dim=1))
+            s.t.add_(1)
+            s.ctl.ran.add_(1)
+            s.ctl.live.copy_((s.t < s.stop).reshape(1))
+        return head, body
+
+    def read(s):
+        ran, live = s.ctl.status.tolist()
+        return ran, bool(live)
+
+    def eager_block(s, budget):
+        head, body = fns(s)
+        s.ctl.budget.fill_(budget)
+        head()
+        for _ in range(BLOCK):
+            if not bool(s.ctl.holds()):
+                break
+            body()
+        return read(s)
+
+    def capture(s):
+        """Warm one block of 3 eagerly on a side stream, then capture the
+        head and the step (keep_graph: the block reads the graphs)."""
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            first = eager_block(s, 3)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = []
+        for fn in fns(s):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+                fn()
+            graphs.append(graph)
+        return first, graphs
+
+    def per_step_block(s, graphs, budget):
+        head, step = graphs
+        s.ctl.budget.fill_(budget)
+        head.replay()
+        for _ in range(BLOCK):
+            if not bool(s.ctl.holds()):  # the host read of each step
+                break
+            step.replay()
+        return read(s)
+
+    def state(s):
+        return [t.clone() for t in (s.h, s.f, s.out, s.t)]
+
+    budgets = (16, 16)
+    ref = Toy(10)
+    runs = {"eager": [eager_block(ref, 3)] + [eager_block(ref, b) for b in budgets]}
+    want = state(ref)
+
+    s = Toy(10)
+    first, (head, step) = capture(s)
+    info["step_graph_nodes"] = graph_node_types(step.raw_cuda_graph())
+    info["head_graph_nodes"] = graph_node_types(head.raw_cuda_graph())
+    info["outside_if_body"] = sorted(set(info["step_graph_nodes"]) - IF_BODY_TYPES)
+    runs["per_step"] = [first] + [per_step_block(s, (head, step), b) for b in budgets]
+    info["per_step_equal"] = runs["per_step"] == runs["eager"] and all(
+        torch.equal(a, b) for a, b in zip(state(s), want))
+
+    s = Toy(10)
+    first, (head, step) = capture(s)
+    try:
+        block = BlockGraph(head, step, BLOCK, s.ctl.status, s.ctl.budget)
+
+        def block_run(budget):
+            s.ctl.budget.fill_(budget)
+            block.replay()
+            return read(s)
+
+        runs["block"] = [first] + [block_run(b) for b in budgets]
+        info["block_equal"] = runs["block"] == runs["eager"] and all(
+            torch.equal(a, b) for a, b in zip(state(s), want))
+        info["block_error"] = None
+    except RuntimeError as err:
+        block, info["block_equal"], info["block_error"] = None, False, str(err)
+    info["runs"] = runs
+
+    # host ms a step over 4 blocks of 16 (a stop far away), each route on a fresh state
+    timing = {}
+    for route in ("eager", "per_step", "block"):
+        if route == "block" and block is None:
+            continue
+        s = Toy(10 ** 6)
+        if route == "eager":
+            go = lambda b: eager_block(s, b)
+        else:
+            first, graphs = capture(s)
+            if route == "per_step":
+                go = lambda b: per_step_block(s, graphs, b)
+            else:
+                block = BlockGraph(*graphs, BLOCK, s.ctl.status, s.ctl.budget)
+
+                def go(b):
+                    s.ctl.budget.fill_(b)
+                    block.replay()
+                    return read(s)
+        go(16)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        t = time.perf_counter()
+        steps = sum(go(16)[0] for _ in range(4))
+        torch.cuda.synchronize(dev)
+        timing[route] = 1e3 * (time.perf_counter() - t) / steps
+    info["host_ms_per_step"] = timing
+    return info
+
+
+def probe_rank(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One spawned rank of nccl_probe, on cuda:{rank}; writes probe<r>.pkl,
+    or the traceback."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
+    out = {"ok": False}
+    try:
+        out.update(probe_block(dev))
+        out["ok"] = True
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"probe{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+
+
+def phase_child(rank: int, name: str, card: str, out_dir: str) -> None:
+    """phase_in_child's process: runs the phase, its lines to
+    out_dir/phase0.log; writes phase0.pkl (the result, or the traceback)."""
+    import pickle
+    import traceback
+
+    sys.path.insert(0, REPO)
+    sys.stdout = sys.stderr = open(os.path.join(out_dir, "phase0.log"), "w", buffering=1)
+    out = {"ok": False}
+    try:
+        out["result"] = {"graphs": graphs_phase}[name](card)
+        out["ok"] = True
+    except BaseException:
+        out["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out_dir, "phase0.pkl"), "wb") as f:
+            pickle.dump(out, f)
+
+
+def phase_in_child(name: str, card: str, deadline_s: float = 900) -> dict:
+    """Phase `name` in a spawned process of its own; its result, its lines
+    printed here. The graphs phase profiles replayed blocks of conditional
+    steps, and torch.profiler then records fewer kernels than ran in every
+    later profile of the process (the kernel phases read 0.4-0.7 records a
+    launch after it, one card); a profiled window of replayed blocks late
+    in a long process missed records the same way (387 or 0 of 388 K5
+    kernels). Its own process keeps both sides whole."""
+    import gc
+    import shutil
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(REPO, "build", f"{name}_phase")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        (res,) = spawn_ranks(phase_child, (name, card, out_dir), 1, out_dir, "phase", deadline_s)
+    finally:
+        path = os.path.join(out_dir, "phase0.log")
+        if os.path.exists(path):
+            for line in open(path).read().splitlines():
+                if line.startswith("["):
+                    log(line)
+    return res["result"]
+
+
+def release_graphs() -> None:
+    """Free the dropped engines' captured graphs before the process group
+    goes: a graph stage and its Graphs hold each other, so only the
+    collector frees them, and destroy_process_group waits on NCCL's
+    communicators while a graph of their captured collectives lives (seen
+    on four cards: every rank done in 64 s, then waiting there until its
+    deadline)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def rank_output(out_dir: str, prefix: str, rank: int) -> None:
+    """A spawned rank's stdout and stderr to out_dir/<prefix><r>.log, line by
+    line, with every thread's stack written there 20 s before the mesh
+    ranks' deadline (a hang then shows where it waits)."""
+    import faulthandler
+
+    f = open(os.path.join(out_dir, f"{prefix}{rank}.log"), "w", buffering=1)
+    sys.stdout = sys.stderr = f
+    faulthandler.dump_traceback_later(MESH_DEADLINE_S - 20, file=f)
+
+
+def spawn_ranks(fn, args, world: int, out_dir: str, prefix: str, deadline_s: float) -> list:
+    """fn(rank, *args) on `world` spawned processes; each must finish
+    within deadline_s (a hang is killed and fails, with the end of each
+    rank's out_dir/<prefix><r>.log where it keeps one). Returns what each
+    rank wrote to out_dir/<prefix><r>.pkl."""
+    import pickle
+
+    import torch
+
+    ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.time() + deadline_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.time())):
+            if time.time() > deadline:
+                raise AssertionError(f"the ranks did not finish in {deadline_s:.0f} s")
+    except Exception as err:
+        tails = []
+        for r in range(world):
+            path = os.path.join(out_dir, f"{prefix}{r}.log")
+            if os.path.exists(path):
+                tails.append(f"--- rank {r}, the end of {prefix}{r}.log:\n" + open(path).read()[-6000:])
+        raise AssertionError(f"{err}\n" + "\n".join(tails)) from err
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{prefix}{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_probe(card: str) -> dict:
+    """Whether NCCL's captured collectives can live inside the decode
+    block's IF bodies on this machine: two ranks over NCCL, a card each
+    (probe_block). Prints NCCL's, torch's CUDA and the driver's versions
+    and the captured step's node types. Fails only if the captured step
+    (the block's or one a replay) disagrees with eager."""
+    import shutil
+
+    out_dir = os.path.join(REPO, "build", "nccl_probe")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ranks = spawn_ranks(probe_rank, (2, free_port(), out_dir), 2, out_dir, "probe", 240)
+    bad = [f"rank {r}: {x.get('error')}" for r, x in enumerate(ranks) if not x["ok"]]
+    if bad:
+        raise AssertionError("\n".join(bad))
+    for r, x in enumerate(ranks):
+        log(f"[probe] rank {r}: NCCL {x['nccl']}, torch {x['torch']}, torch.version.cuda {x['torch_cuda']}, CUDA "
+            f"driver {x['driver']}, NCCL_* {x['nccl_env']} [{card}]")
+        log(f"[probe] rank {r}: captured step's nodes {x['step_graph_nodes']} (head {x['head_graph_nodes']}); "
+            f"types an IF body refuses: {x['outside_if_body'] or 'none'} [{card}]")
+        log(f"[probe] rank {r}: block of {len(x['runs']['eager'])} runs eager {x['runs']['eager']}; one step a "
+            f"replay {x['runs']['per_step']} equal {x['per_step_equal']}; IF-body block "
+            f"{x['runs'].get('block')} equal {x['block_equal']} (error {x['block_error']}) [{card}]")
+        log(f"[probe] rank {r}: host ms a step of {2 * PROBE_LAYERS + 1} collectives: "
+            f"{ {k: round(v, 4) for k, v in x['host_ms_per_step'].items()} } [{card}]")
+    if not all(x["per_step_equal"] for x in ranks):
+        raise AssertionError("a captured NCCL step replayed one a call differs from eager")
+    if any(x["block_error"] is None and not x["block_equal"] for x in ranks):
+        raise AssertionError("the IF-body block of a captured NCCL step built but differs from eager")
+    return {"ranks": ranks, "if_body": all(x["block_equal"] for x in ranks)}
 
 
 def graphs_phase(card: str) -> dict:
@@ -3443,21 +4206,7 @@ def graphs_phase(card: str) -> dict:
         text4_t, lens4_t = torch.from_numpy(text4).to(dev), torch.from_numpy(lens4).to(dev)
         graphs = engine._graphs
         steps = 32
-
-        def prepare_b4(quant_kv: bool):
-            def prepare():
-                gen = tdec.GenerationConfig(do_sample=True, top_k=30, max_new_tokens=steps + 1)
-                with torch.no_grad():
-                    st, ctx = tdec.prefill_decode_state(engine.gpt, cfg, gen, conds1.expand(4, -1, -1), text4_t, lens4_t,
-                                                        torch.Generator(device=dev).manual_seed(0), quant_kv=quant_kv)
-
-                def go(n=steps):
-                    i0 = st.i
-                    with torch.no_grad():
-                        tdec.decode_steps(engine.gpt, cfg, st, ctx, n, graphs=graphs.decode)
-                    return st.i - i0
-                return go
-            return prepare
+        prepare_b4 = lambda quant_kv: b4_decode(engine, conds1, steps, quant_kv)
 
         def prepare_beams():
             gen = tdec.GenerationConfig(do_sample=True, num_beams=3, top_k=30, max_new_tokens=200)
@@ -3663,7 +4412,7 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
 
 
 PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt", "legacy",
-          "fidelity", "mesh", "graphs")
+          "fidelity", "mesh", "meshgraphs", "graphs")
 
 
 def main(argv) -> int:
@@ -3713,7 +4462,7 @@ def main(argv) -> int:
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
-                 "fidelity": fidelity_phase, "mesh": mesh_phase, "graphs": graphs_phase}
+                 "fidelity": fidelity_phase, "mesh": mesh_phase, "meshgraphs": mesh_graphs_phase, "graphs": lambda c: phase_in_child("graphs", c)}
     if only is not None:
         summaries = {"kernel": k1_per_vocoder_call, "k3": k3_per_vocoder_call, "k4": k4_per_vocoder_call}
         for name in only:
@@ -3737,7 +4486,7 @@ def main(argv) -> int:
     legacy = legacy_phase(card)
     fidelity = fidelity_phase(card)
     mesh = mesh_phase(card)
-    graphs = graphs_phase(card)
+    graphs = phase_in_child("graphs", card)
 
     layers = load_config(FLAGSHIP).gpt.layers
 

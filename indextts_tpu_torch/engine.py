@@ -205,10 +205,12 @@ class IndexTTS:
         self.last_stats: Dict[str, Any] = {}
         # segments the segmented decode loops ran since a request last zeroed it
         self._decode_segments = 0
-        # the captured decode steps and vocoder calls (graphs.py); the CPU
-        # captures nothing, and a mesh neither: gloo's collectives are host
-        # round trips that a graph cannot hold
-        self._graphs = Graphs(self.device, capture=self.mesh is None)
+        # the captured programs (graphs.py): which stages capture follows from
+        # the device and the mesh's backend (graphs.stage_captures); on a mesh
+        # the ranks of a model group agree their lanes over its gloo group
+        mesh = self.mesh
+        self._graphs = Graphs(self.device, backend=None if mesh is None else mesh.backend,
+                              agree=None if mesh is None else mesh.model_host)
 
     @staticmethod
     def _load_weights(module, name: str, path: str, key: Optional[str], convert, allow_random_init: bool,

@@ -57,14 +57,45 @@ lanes, and its free lanes only while all its lanes hold at most
 `keep_bytes` (buffers and the memory each capture added to the pool);
 beyond either it drops the least recently used free lanes.
 
+Which stage captures is one rule (`stage_captures`), from the stage's
+collectives and the mesh's backend (parallel/mesh.py), as the JAX engine
+runs the same compiled programs on one chip and on a mesh:
+
+  stage         collectives in a call / step    one card   gloo mesh   NCCL mesh
+  voc, cond     none (replicated models)        yes        yes         yes
+  lat           the model group's all-reduces   yes        no          yes
+  dec, slot     the same, every step            yes        no          yes
+
+gloo's collectives are host round trips that a graph cannot hold; NCCL's
+are kernels on the capturing stream, and a captured step's collectives run
+inside the block's IF bodies (csrc/graph_block.cu drops the event nodes
+PyTorch captures around them). The CPU captures nothing. The data groups'
+gathers, the generator's broadcast and the requests' check stay outside
+every graph (engine.py).
+
+On a mesh every rank of a model group must take the same path through a
+stage, in the same order: bind, warm, capture, replay, drop (NCCL pairs a
+captured collective with its partner's only when both ranks capture or
+replay the same step). Two inputs of those decisions are the rank's own: a
+lane's liveness (a weak reference, so Python's garbage collector decides
+when a state is gone) and the pool bytes a capture reserved. Both are
+agreed over the model group's host (gloo) group when a lane is bound or
+captured: a lane is free only where it is free on every rank, and a
+capture's pool bytes are the largest any rank measured. That is one small
+host round trip a bind or a capture, never one a step; the block's
+predicate needs none, since the model group's all-reduces make the tensors
+it reads equal. Each stage logs its decisions into `Graphs.log` (key
+indices in order of first sight, not the keys, which hold the rank's own
+weight addresses), so the ranks' logs can be compared. A captured graph of
+NCCL collectives keeps their communicator busy: drop an engine, and collect
+it (a stage and its Graphs hold each other), before destroy_process_group.
+
 Nothing falls back: a capture, a block's assembly or a replay that fails
 raises. `Graphs.eager()` is the private switch that runs the same blocks, on
 the same static buffers, without capture, the IF decided on the host
 (chip_smoke.py compares the two, and it is the way to debug on the card).
-The loops always run their blocks through a stage: on the CPU, and on a
-multi-device engine (parallel/mesh.py, `capture=False`: gloo's collectives
-are host round trips that a graph cannot hold), the stage runs the same
-head and steps without capture.
+The loops always run their blocks through a stage: where the stage does not
+capture, it runs the same head and steps as they are.
 """
 
 from __future__ import annotations
@@ -72,14 +103,32 @@ from __future__ import annotations
 import contextlib
 import time
 import weakref
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # the steps of a decode loop's block: one captured graph holds BLOCK
 # conditional steps, and the host reads the device once per block
 BLOCK = 16
+# the stages whose calls or steps hold the tensor-parallel GPT's collectives
+COLLECTIVE_STAGES = ("dec", "slot", "lat")
+# the decisions Graphs.log keeps, the latest last
+LOG_KEEP = 4096
+# the most lanes of one stage an agreement over the model group covers (a
+# stage keeps at most 32, and one more while a bind evicts)
+AGREE_LANES = 64
+
+
+def stage_captures(name: str, device, backend: Optional[str] = None) -> bool:
+    """Whether the stage `name` captures on `device` for a mesh over
+    `backend` (None: one process): never on the CPU; on a gloo mesh only
+    the stages without collectives; on one card or an NCCL mesh every
+    stage."""
+    if torch.device(device).type != "cuda":
+        return False
+    return backend != "gloo" or name not in COLLECTIVE_STAGES
 
 
 def _counters() -> Dict[Any, int]:
@@ -188,22 +237,46 @@ class Lane:
 class GraphStage:
     """The captured programs of one stage ("dec", "slot", "voc", "lat" or
     "cond"): lanes of static buffers by key, one CUDA graph each, one memory
-    pool."""
+    pool. `captures` is the stage's rule (stage_captures)."""
 
     def __init__(self, name: str, graphs: "Graphs", limit: int):
         self.name, self.graphs, self.limit = name, graphs, limit
         self.keep_bytes = graphs.keep_bytes
+        self.captures = graphs.capture and stage_captures(name, graphs.device, graphs.backend)
         self.lanes: "OrderedDict[Tuple[Any, int], Lane]" = OrderedDict()
         self._pool = None
+        self._ids: Dict[Any, int] = {}  # a key's index in the log, in order of first sight
+        self._next_id = 0
         self.reads = 0  # the blocks' host reads, one per block
 
     @property
     def capturing(self) -> bool:
-        """Whether run / call capture and replay (a capturing CUDA engine
-        outside Graphs.eager()); otherwise they run the function as it is."""
-        return self.graphs.capture and self.graphs.device.type == "cuda" and self.graphs.enabled
+        """Whether run / call capture and replay (a capturing stage outside
+        Graphs.eager()); otherwise they run the function as it is."""
+        return self.captures and self.graphs.enabled
+
+    def _note(self, event: str, key, n: int, detail: Any = None) -> None:
+        """Log one decision: (stage, event, the key's index, lane, detail)."""
+        if key not in self._ids:
+            self._ids[key] = self._next_id
+            self._next_id += 1
+        self.graphs.log.append((self.name, event, self._ids[key], n, detail))
 
     # -- static buffers ---------------------------------------------------
+
+    def _free(self) -> set:
+        """The lanes no live state holds, on every rank of the model group
+        (a state's weak reference dies when the rank's garbage collector
+        frees it; a lane still held on one rank is held on all)."""
+        keys = list(self.lanes)
+        if len(keys) > AGREE_LANES:
+            raise RuntimeError(f"{self.name}: {len(keys)} lanes, more than the {AGREE_LANES} an agreement holds")
+        flags = [int(self.lanes[k].free_for(None)) for k in keys]
+        got = self.graphs.agreed([len(keys), -len(keys)] + flags + [1] * (AGREE_LANES - len(keys)),
+                                 dist.ReduceOp.MIN)
+        if got[0] != -got[1]:
+            raise RuntimeError(f"{self.name}: the ranks of the model group keep {got[0]} to {-got[1]} lanes")
+        return {k for k, f in zip(keys, got[2:]) if f}
 
     def bind(self, key, owner, holders: Sequence[Tuple[Any, Sequence[str]]]) -> Lane:
         """Give `owner` (a decode state, held weakly) a lane of `key` and
@@ -213,27 +286,32 @@ class GraphStage:
         lane with a graph before one without: the state then replays at
         once); the owner's own lane only copies what changed objects
         (per-call inputs such as a session's knob columns). The owner's lanes
-        of other keys are freed (a grown cache moves to a new key)."""
+        of other keys are freed (a grown cache moves to a new key). Which
+        lanes are free is agreed over the model group (_free)."""
         live = _flatten(holders)
-        own = free = None
-        for (k, _n), cand in self.lanes.items():
-            held = None if cand.owner is None else cand.owner()
+        free = self._free()
+        own = cand = None
+        for (k, n), lane in self.lanes.items():
+            held = None if lane.owner is None else lane.owner()
             if held is owner and k != key:
-                cand.owner = None
+                lane.owner = None
+                free.add((k, n))
             elif k == key and held is owner:
-                own = cand
-            elif k == key and held is None and (free is None or (free.graph is None and cand.graph is not None)):
-                free = cand
-        lane = own or free
-        if lane is None:
-            kept = _storages(t for cand in self.lanes.values() for t in cand.tensors)
+                own = (k, n)
+            elif k == key and (k, n) in free and (cand is None or (self.lanes[cand].graph is None
+                                                                   and lane.graph is not None)):
+                cand = (k, n)
+        at = own or cand
+        if at is None:
+            kept = _storages(t for lane in self.lanes.values() for t in lane.tensors)
             tensors = [t.clone() if t.untyped_storage().data_ptr() in kept else t for t in live]
             _unflatten(holders, tensors)
             lane = Lane(key, tensors)
             lane.ctl = BlockControl(tensors[0].device)
-            n = next(n for n in range(len(self.lanes) + 1) if (key, n) not in self.lanes)
-            self.lanes[(key, n)] = lane
+            at = (key, next(n for n in range(len(self.lanes) + 1) if (key, n) not in self.lanes))
+            self.lanes[at] = lane
         else:
+            lane = self.lanes[at]
             if len(lane.tensors) != len(live):
                 raise RuntimeError(f"{self.name} graph key {key}: {len(live)} tensors bound to a lane of "
                                    f"{len(lane.tensors)}")
@@ -245,21 +323,27 @@ class GraphStage:
                                        f"bound to a {s.dtype} {tuple(s.shape)} buffer on {s.device}")
                 s.copy_(t)
             _unflatten(holders, lane.tensors)
+        self._note("bind", key, at[1], "own" if at == own else "free" if at == cand else "new")
         lane.owner = weakref.ref(owner)
-        self.lanes.move_to_end(next(k for k, v in self.lanes.items() if v is lane))
-        self._evict()
+        free.discard(at)
+        self.lanes.move_to_end(at)
+        self._evict(free)
         return lane
 
-    def _evict(self) -> None:
-        """Drop the least recently used free lanes while the stage keeps more
-        than `limit` lanes or its lanes hold more than `keep_bytes`."""
+    def _evict(self, free: set) -> None:
+        """Drop the least recently used of the `free` lanes while the stage
+        keeps more than `limit` lanes or its lanes hold more than
+        `keep_bytes`."""
         sizes = {k: lane.nbytes() for k, lane in self.lanes.items()}
         total = sum(sizes.values())
-        for k in [k for k, lane in self.lanes.items() if lane.free_for(None)]:
+        for k in [k for k in self.lanes if k in free]:
             if len(self.lanes) <= self.limit and total <= self.keep_bytes:
                 break
             total -= sizes[k]
             del self.lanes[k]
+            self._note("drop", k[0], k[1])
+            if not any(key == k[0] for key, _n in self.lanes):
+                del self._ids[k[0]]
 
     def resident_bytes(self) -> int:
         """What the stage's lanes keep on their device: buffers and pool growth."""
@@ -291,7 +375,7 @@ class GraphStage:
         """Capture each of fns into a CUDA graph of its own (they launch
         nothing); returns the graphs and what the last fn returned. The
         launch counts they added move to lane.deltas; the capture seconds
-        and the pool's growth go to the lane."""
+        and the pool's growth (_pool_grew) go to the lane."""
         dev = self.graphs.device
         with self._counts_to(lane):
             # torch.cuda.graph empties the allocator's cache as it starts: empty it
@@ -307,8 +391,13 @@ class GraphStage:
                     out = fn()
                 graphs.append(graph)
             lane.capture_s = time.perf_counter() - t0
-            lane.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self._pool_grew(lane, torch.cuda.memory_reserved(dev) - reserved)
         return graphs, out
+
+    def _pool_grew(self, lane: Lane, grown: int) -> None:
+        """A capture's pool growth as the lane keeps it: the most that any
+        rank of the model group measured (the ranks then evict alike)."""
+        lane.pool_bytes = self.graphs.agreed([grown], dist.ReduceOp.MAX)[0]
 
     def _assemble(self, lane: Lane, graphs) -> Any:
         """The block graph of a lane from its captured head and step."""
@@ -345,6 +434,24 @@ class GraphStage:
         read on the host."""
         return bool(ctl.holds())
 
+    @staticmethod
+    def _head_body(ctl: BlockControl, step: Callable[[], None],
+                   live: Callable[[], torch.Tensor]) -> Tuple[Callable[[], None], Callable[[], None]]:
+        """A block's head (zero the block's step counter, evaluate the
+        condition) and body (one step, the counter's increment and the
+        condition again), as run() captures and runs them."""
+
+        def head():
+            ctl.status.zero_()
+            ctl.live.copy_(live().reshape(1))
+
+        def body():
+            step()
+            ctl.ran.add_(1)
+            ctl.live.copy_(live().reshape(1))
+
+        return head, body
+
     def _block(self, lane: Lane, head: Callable[[], None], body: Callable[[], None]) -> None:
         """A block without capture: head(), then body() while the predicate
         holds (once it fails it stays failed: the state no longer moves)."""
@@ -372,30 +479,27 @@ class GraphStage:
         blocks replay it."""
         ctl = lane.ctl
         ctl.budget.fill_(min(int(budget), BLOCK))
-
-        def head():
-            ctl.status.zero_()
-            ctl.live.copy_(live().reshape(1))
-
-        def body():
-            step()
-            ctl.ran.add_(1)
-            ctl.live.copy_(live().reshape(1))
-
+        at = next(k for k, v in self.lanes.items() if v is lane)
+        head, body = self._head_body(ctl, step, live)
         if not self.capturing:
             self._block(lane, head, body)
-            return self._read(ctl)
+            ran, alive = self._read(ctl)
+            self._note("run", *at, ran)
+            return ran, alive
         if lane.graph is not None:
             self._replay(lane)
             ran, alive = self._read(ctl)
             self._count(lane, ran)
+            self._note("replay", *at, ran)
             return ran, alive
         self._warm(lambda: self._block(lane, head, body))
         ran, alive = self._read(ctl)
+        self._note("warm", *at, ran)
         if ran > 0:  # capture only a step that has run warm
             graphs, _ = self._capture(lane, (head, body), keep_graph=True)
             lane.graph = self._assemble(lane, graphs)
-            self._evict()
+            self._note("capture", *at)
+            self._evict(self._free())
         return ran, alive
 
     # -- a whole call ---------------------------------------------------------
@@ -412,14 +516,17 @@ class GraphStage:
             lane = Lane(key, [t.clone() for t in inputs])
             self.lanes[(key, 0)] = lane
             out = self._warm(lambda: fn(*lane.tensors))
+            self._note("warm", key, 0)
             (lane.graph,), lane.outputs = self._capture(lane, (lambda: fn(*lane.tensors),))
-            self._evict()
+            self._note("capture", key, 0)
+            self._evict(self._free())
             return out
         self.lanes.move_to_end((key, 0))
         for s, t in zip(lane.tensors, inputs):
             s.copy_(t)
         self._replay(lane)
         self._count(lane, 1)
+        self._note("replay", key, 0)
         return lane.outputs.clone()
 
     def stats(self) -> List[Dict[str, Any]]:
@@ -436,9 +543,13 @@ class Graphs:
     """An engine's captured programs, by stage: `decode` (the greedy /
     sampled and the beam loops' blocks), `slot` (slot_steps' blocks),
     `vocoder` (a whole bigvgan_apply call), `latent` (a teacher-forced
-    latent pass) and `cond` (get_conditioning). `capture=False` (a
-    multi-device engine) runs every stage's blocks and calls without
-    capture, as the CPU does.
+    latent pass) and `cond` (get_conditioning). Which of them capture is
+    stage_captures's rule, from the device and `backend`, the mesh's
+    ("gloo" or "nccl"; None on one process); `capture=False` (a loop run
+    without an engine's stage) turns capture off for every stage. `agree`
+    is the model group's host (gloo) Comm on a mesh, over which the stages
+    agree their lanes (GraphStage._free) and pool bytes; None on one
+    process. `log` keeps the stages' last LOG_KEEP decisions.
 
     What a stage keeps: at most `limit` lanes (16 decode keys, 4 slot
     sessions, 32 vocoder keys, 32 latent keys, 16 conditioning keys), and
@@ -448,20 +559,29 @@ class Graphs:
     head dim] each, so a few lanes of large batches reach the budget before
     the count does."""
 
-    def __init__(self, device, capture: bool = True, keep_bytes: Optional[int] = None):
+    def __init__(self, device, backend: Optional[str] = None, agree=None, capture: bool = True,
+                 keep_bytes: Optional[int] = None):
         self.device = torch.device(device)
-        self.capture = capture
+        self.backend, self.agree, self.capture = backend, agree, capture
         self.enabled = True
         self.side_stream = None  # where a key's first run warms, made at the first capture
+        self.log: "deque[Tuple[str, str, int, int, Any]]" = deque(maxlen=LOG_KEEP)
         if keep_bytes is None:
             keep_bytes = (torch.cuda.get_device_properties(self.device).total_memory // 8
                           if self.device.type == "cuda" else 1 << 30)
-        self.keep_bytes = keep_bytes
+        self.keep_bytes = self.agreed([keep_bytes], dist.ReduceOp.MIN)[0]
         self.decode = GraphStage("dec", self, 16)
         self.slot = GraphStage("slot", self, 4)
         self.vocoder = GraphStage("voc", self, 32)
         self.latent = GraphStage("lat", self, 32)
         self.cond = GraphStage("cond", self, 16)
+
+    def agreed(self, values: List[int], op) -> List[int]:
+        """`values` reduced by `op` over the model group's ranks (as they are
+        on one process): one host round trip."""
+        if self.agree is None or self.agree.size == 1:
+            return values
+        return self.agree.all_reduce(torch.tensor(values, dtype=torch.int64), op=op).tolist()
 
     @contextlib.contextmanager
     def eager(self):

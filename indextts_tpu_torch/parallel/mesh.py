@@ -211,7 +211,9 @@ class Mesh:
     """The (data, model) ranks of the initialized world: `model` is this
     rank's model group (tensor parallelism), `data` its data group, `world`
     a gloo group of every rank for host-side agreement (generator states,
-    request checks, the server's calls)."""
+    request checks, the server's calls), and `model_host` the model group's
+    ranks over gloo, for host-side agreement inside it (the captured
+    stages' lanes, graphs.py; `model` itself on a gloo mesh)."""
 
     tp: int
     dp: int
@@ -221,6 +223,7 @@ class Mesh:
     model: Comm
     data: Comm
     world: Comm
+    model_host: Comm
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -280,8 +283,15 @@ def make_mesh(n_devices: Optional[int] = None, tp: Optional[int] = None, device:
         if rank in ranks:
             data = Comm(group, ranks)
     cpu = dist.group.WORLD if backend == "gloo" else dist.new_group(list(range(n)), backend="gloo")
+    model_host = model
+    if backend != "gloo":
+        for d in range(dp):
+            ranks = list(range(d * tp, (d + 1) * tp))
+            group = dist.new_group(ranks, backend="gloo")
+            if rank in ranks:
+                model_host = Comm(group, ranks)
     return Mesh(tp=tp, dp=dp, rank=rank, backend=backend, device=dev, model=model, data=data,
-                world=Comm(cpu, list(range(n))))
+                world=Comm(cpu, list(range(n))), model_host=model_host)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ followers as None (rank 0 writes the files) and callbacks as a no-op
 callback. A stream is driven chunk by chunk: before each chunk rank 0 sends
 "next", and "close" when its consumer stops early, so a follower never
 decodes a chunk rank 0 does not. stop() ends the followers' loops. On one
-process there is no proxy.
+process there is no proxy. Replaying the same calls in the same order, a
+follower's captured stages (graphs.py) bind, warm, capture and replay the
+same keys as rank 0's, `warmup` included; their lanes are agreed over the
+model group.
 """
 
 from __future__ import annotations

@@ -671,3 +671,99 @@ def test_block_graph_runs_only_the_steps_its_predicate_allows():
     assert out["eager"][0] == out["graph"][0] == [(3, True), (7, False), (0, False)]
     assert out["graph"][1] == out["eager"][1] == 10 and torch.equal(out["graph"][2], out["eager"][2])
     assert out["graph"][3].graph is not None and out["graph"][3].replays == 2
+
+
+def _event_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The event record and event wait nodes of a captured graph
+    (torch.cuda.CUDAGraph(keep_graph=True)), through the driver API."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(0)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    return sum(k in (6, 7) for k in kinds)  # CU_GRAPH_NODE_TYPE_WAIT_EVENT, CU_GRAPH_NODE_TYPE_EVENT_RECORD
+
+
+@pytest.mark.cuda
+def test_block_graph_drops_a_steps_event_nodes():
+    """A step that records an external event and waits on it, as PyTorch's
+    ProcessGroupNCCL does around each collective it captures: the captured
+    step holds event nodes, which a conditional body refuses, so the
+    block's bodies are copies of it without them (csrc/graph_block.cu).
+    Budgets 3, 16 and 16 run 3, 7 and 0 steps to the same state as the
+    blocks run eagerly, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the block graph has no CPU mode)")
+    import contextlib
+
+    from indextts_tpu_torch.graphs import BLOCK, Graphs
+
+    class Toy:
+        def __init__(self):
+            self.t = torch.zeros(1, dtype=torch.long, device="cuda")
+            self.x = torch.zeros(4, device="cuda")
+            self.u = torch.rand(BLOCK, 4, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+
+    out = {}
+    for mode in ("eager", "graph"):
+        graphs, st, ev = Graphs("cuda"), Toy(), torch.cuda.Event(external=True)
+        lane = graphs.decode.bind(("toy",), st, [(st, ("t", "x", "u"))])
+
+        def step():
+            st.x.add_(st.u.index_select(0, lane.ctl.ran)[0])
+            ev.record()
+            ev.wait()
+            st.x.mul_(0.75)
+            st.t.add_(1)
+
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            runs = [graphs.decode.run(lane, step, lambda: st.t < 10, n) for n in (3, 16, 16)]
+        out[mode] = (runs, st.t.item(), st.x.cpu(), lane)
+    assert out["eager"][0] == out["graph"][0] == [(3, True), (7, False), (0, False)]
+    assert out["graph"][1] == out["eager"][1] == 10 and torch.equal(out["graph"][2], out["eager"][2])
+    block = out["graph"][3].graph
+    assert out["graph"][3].replays == 2 and _event_nodes(block.step) >= 2
+
+
+@pytest.mark.cuda
+def test_capture_rule_on_the_card():
+    """graphs.stage_captures on real stages on the card: one card and an
+    NCCL mesh capture every stage; ranks that share a card over gloo
+    capture the vocoder and conditioning stages only, so a vocoder call is
+    captured and replayed there while a decode loop runs its blocks
+    without capture; Graphs.eager() turns every stage off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (capture has no CPU mode)")
+    from indextts_tpu_torch.graphs import Graphs
+
+    every = {"dec", "slot", "voc", "lat", "cond"}
+    for backend, want in ((None, every), ("nccl", every), ("gloo", {"voc", "cond"})):
+        g = Graphs("cuda", backend=backend)
+        assert {s.name for s in g.stages() if s.capturing} == want
+        with g.eager():
+            assert not any(s.capturing for s in g.stages())
+
+    g = Graphs("cuda", backend="gloo")
+    x = torch.randn(4, 8, device="cuda")
+    fn = lambda t: (t * 2).sum(1)
+    first, again = (g.vocoder.call(("toy",), fn, (x,)) for _ in range(2))
+    voc = g.vocoder.lanes[(("toy",), 0)]
+    assert voc.graph is not None and voc.replays == 1 and torch.equal(first, again)
+
+    class Toy:
+        def __init__(self):
+            self.t = torch.zeros(1, dtype=torch.long, device="cuda")
+
+    st = Toy()
+    lane = g.decode.bind(("toy",), st, [(st, ("t",))])
+    runs = [g.decode.run(lane, lambda: st.t.add_(1), lambda: st.t < 10, 16) for _ in range(2)]
+    assert runs == [(10, False), (0, False)] and lane.graph is None
+    events = {(stage, event) for stage, event, *_ in g.log}
+    assert {("voc", "warm"), ("voc", "capture"), ("voc", "replay"), ("dec", "bind"), ("dec", "run")} <= events

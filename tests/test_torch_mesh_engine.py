@@ -47,11 +47,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn(kind: str, world: int, spec, out_dir: str):
-    """Run `kind`'s group on `world` ranks; every rank must exit 0 within
-    SPAWN_TIMEOUT (a hang is killed and fails). Returns each rank's results."""
+def _spawn(kind: str, world: int, spec, out_dir: str, run=w.run):
+    """Run `kind`'s group on `world` ranks (`run`: the ranks' entry, as
+    torch_mesh_workers.run); every rank must exit 0 within SPAWN_TIMEOUT (a
+    hang is killed and fails). Returns each rank's results."""
     os.makedirs(out_dir, exist_ok=True)
-    ctx = torch.multiprocessing.start_processes(w.run, args=(world, _free_port(), kind, spec, out_dir), nprocs=world,
+    ctx = torch.multiprocessing.start_processes(run, args=(world, _free_port(), kind, spec, out_dir), nprocs=world,
                                                 join=False, start_method="spawn")
     deadline = time.time() + SPAWN_TIMEOUT
     try:

@@ -11,6 +11,7 @@ the results against the one-process engine and the JAX engine.
 
 from __future__ import annotations
 
+import gc
 import io
 import itertools
 import os
@@ -137,15 +138,17 @@ def train_model(spec):
 # ---------------------------------------------------------------------------
 
 
-def run(rank: int, world: int, port: int, kind: str, spec, out_dir: str) -> None:
-    """One rank of a spawned group: init gloo, run `kind`'s checks, write
-    rank<r>.pkl ({"ok": ..., results} or the traceback), and raise again on
-    failure so the parent sees a non-zero exit."""
+def run(rank: int, world: int, port: int, kind: str, spec, out_dir: str, groups=None) -> None:
+    """One rank of a spawned group: init gloo, run `kind`'s checks (a
+    function of `groups`, by default this module's), write rank<r>.pkl
+    ({"ok": ..., results} or the traceback), and raise again on failure so
+    the parent sees a non-zero exit."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=world)
     out = {"ok": False}
     try:
-        out.update({"tp": tp_group, "dp": dp_group, "server": server_group}[kind](rank, spec, out_dir))
+        groups = groups or {"tp": tp_group, "dp": dp_group, "server": server_group}
+        out.update(groups[kind](rank, spec, out_dir))
         out["ok"] = True
     except BaseException:
         out["error"] = traceback.format_exc()
@@ -153,6 +156,7 @@ def run(rank: int, world: int, port: int, kind: str, spec, out_dir: str) -> None
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
+        gc.collect()  # the engines (a stage and its Graphs hold each other) and their groups go first
         dist.destroy_process_group()
 
 
