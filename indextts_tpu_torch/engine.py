@@ -49,7 +49,10 @@ vocoder of infer_fast).
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import inspect
+import itertools
 import os
 import time
 import warnings
@@ -59,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from indextts_tpu_torch import tracing
 from indextts_tpu_torch.config import IndexTTSConfig, load_config
 from indextts_tpu_torch.convert import (convert_bigvgan, convert_unified_voice, load_params_npz, load_torch_state_dict,
                                         save_params_npz)
@@ -109,6 +113,35 @@ def _round_up(x: int, m: int) -> int:
 def _int16(wav: torch.Tensor) -> torch.Tensor:
     """float32 samples in [-1, 1] scaled, clipped and cast to int16."""
     return torch.clamp(wav * 32767.0, -32767.0, 32767.0).to(torch.int16)
+
+
+def _entry(name: str):
+    """An entry point's every call as a span `name` (tracing.py) whose `rid`
+    is the engine's next request number; the body sets its rows
+    (tracing.current()). A generator's span covers each resumption, so
+    that its caller's spans between chunks nest outside it."""
+
+    def wrap(fn):
+        if inspect.isgeneratorfunction(fn):
+            @functools.wraps(fn)
+            def stream(self, *args, **kwargs):
+                rid = next(self._rids)
+                chunks = fn(self, *args, **kwargs)
+                while True:
+                    with tracing.span(name, rid=rid):
+                        chunk = next(chunks, None)
+                    if chunk is None:
+                        return
+                    yield chunk
+            return stream
+
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            with tracing.span(name, rid=next(self._rids)):
+                return fn(self, *args, **kwargs)
+        return call
+
+    return wrap
 
 
 class IndexTTS:
@@ -205,6 +238,8 @@ class IndexTTS:
         self.last_stats: Dict[str, Any] = {}
         # segments the segmented decode loops ran since a request last zeroed it
         self._decode_segments = 0
+        # the entry points' request numbers, the `rid` of their spans (tracing.py)
+        self._rids = itertools.count()
         # the captured programs (graphs.py): which stages capture follows from
         # the device and the mesh's backend (graphs.stage_captures); on a mesh
         # the ranks of a model group agree their lanes over its gloo group
@@ -263,7 +298,11 @@ class IndexTTS:
     def start_profiling(self, logdir: str = "/tmp/indextts_trace"):
         """Trace the synthesis calls that follow with torch.profiler (host
         activity, and the device's kernels on a CUDA engine) until
-        stop_profiling, which writes a Chrome trace under `logdir`."""
+        stop_profiling, which writes a Chrome trace under `logdir`. The
+        trace carries the program's spans (tracing.py): the entry points
+        (engine.*, slot.*), the decode loops, their blocks and draws
+        (dec.*, slot.*), the graph stages' calls and captures (voc.*, lat.*,
+        cond.*)."""
         from torch.profiler import ProfilerActivity, profile
 
         if self._profiler is not None:
@@ -461,18 +500,19 @@ class IndexTTS:
         On a mesh with data groups, B > 1 rows pad to a multiple of dp by
         repeating the last row (as the JAX engine does), each data group
         decodes its slice, and the outputs are gathered and the padding cut
-        off (_dp_decode)."""
+        off (_dp_decode). A span dec.generate (tracing.py)."""
         b, l0 = text_tokens.shape
-        padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
-        padded[:, :l0] = text_tokens
-        text_lengths = np.asarray(text_lengths)
-        conds = conds.expand(b, -1, -1)
-        knobs = (temperature, top_p, repetition_penalty, length_penalty, typical_mass)
-        if self.mesh is not None and self.mesh.dp > 1 and b > 1:
-            codes, lengths, lat, steps = self._dp_decode(conds, padded, text_lengths, gen, knobs)
-        else:
-            codes, lengths, lat, steps = self._decode(conds, padded, text_lengths, gen, knobs, self._generator)
-        return codes.cpu().numpy(), lengths.cpu().numpy(), lat, steps
+        with tracing.span("dec.generate", rows=b, beams=gen.num_beams):
+            padded = np.full((b, self._text_bucket(l0)), self.cfg.gpt.stop_text_token, np.int64)
+            padded[:, :l0] = text_tokens
+            text_lengths = np.asarray(text_lengths)
+            conds = conds.expand(b, -1, -1)
+            knobs = (temperature, top_p, repetition_penalty, length_penalty, typical_mass)
+            if self.mesh is not None and self.mesh.dp > 1 and b > 1:
+                codes, lengths, lat, steps = self._dp_decode(conds, padded, text_lengths, gen, knobs)
+            else:
+                codes, lengths, lat, steps = self._decode(conds, padded, text_lengths, gen, knobs, self._generator)
+            return codes.cpu().numpy(), lengths.cpu().numpy(), lat, steps
 
     def _decode(self, conds, padded: np.ndarray, text_lengths: np.ndarray, gen: GenerationConfig, knobs,
                 generator):
@@ -536,30 +576,31 @@ class IndexTTS:
         width, for per-row callers). The pass runs through the latent stage
         under the JAX engine's key ("lat", b, text bucket, code bucket) with
         the dtype and the weights: on a CUDA engine a captured program, on
-        static inputs (conds materialized to [b, C, D])."""
+        static inputs (conds materialized to [b, C, D]). A span lat.pass."""
         b, lt0 = text_tokens.shape
-        if text_lengths is None:
-            text_lengths = np.full(b, lt0, np.int64)
-        text = np.full((b, self._text_bucket(lt0)), self.cfg.gpt.stop_text_token, np.int64)
-        text[:, :lt0] = text_tokens
-        lc0 = codes.shape[1]
-        codes_p = np.full((b, self._code_bucket(lc0)), self.stop_mel_token, np.int64)
-        codes_p[:, :lc0] = codes
-        dev = self.device
-        inputs = (torch.from_numpy(text).to(dev),
-                  torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
-                  torch.from_numpy(codes_p).to(dev),
-                  torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, dtype=torch.long,
-                                  device=dev),
-                  conds.expand(b, -1, -1).to(self.dtype).contiguous())
+        with tracing.span("lat.pass", rows=b):
+            if text_lengths is None:
+                text_lengths = np.full(b, lt0, np.int64)
+            text = np.full((b, self._text_bucket(lt0)), self.cfg.gpt.stop_text_token, np.int64)
+            text[:, :lt0] = text_tokens
+            lc0 = codes.shape[1]
+            codes_p = np.full((b, self._code_bucket(lc0)), self.stop_mel_token, np.int64)
+            codes_p[:, :lc0] = codes
+            dev = self.device
+            inputs = (torch.from_numpy(text).to(dev),
+                      torch.as_tensor(np.asarray(text_lengths), dtype=torch.long, device=dev),
+                      torch.from_numpy(codes_p).to(dev),
+                      torch.as_tensor(np.asarray(code_lens) * self.cfg.gpt.mel_length_compression, dtype=torch.long,
+                                      device=dev),
+                      conds.expand(b, -1, -1).to(self.dtype).contiguous())
 
-        def latent(text_t, text_lens, codes_t, wav_lens, conds_t):
-            return unified_voice_forward(self.gpt, self.cfg.gpt, None, text_inputs=text_t, text_lengths=text_lens,
-                                         mel_codes=codes_t, wav_lengths=wav_lens, cond_mel_lengths=None,
-                                         conds=conds_t, mask_pad_keys=True)
+            def latent(text_t, text_lens, codes_t, wav_lens, conds_t):
+                return unified_voice_forward(self.gpt, self.cfg.gpt, None, text_inputs=text_t, text_lengths=text_lens,
+                                             mel_codes=codes_t, wav_lengths=wav_lens, cond_mel_lengths=None,
+                                             conds=conds_t, mask_pad_keys=True)
 
-        key = ("lat", b, text.shape[1], codes_p.shape[1], self.dtype, weights_key(self.gpt))
-        return self._graphs.latent.call(key, latent, inputs)
+            key = ("lat", b, text.shape[1], codes_p.shape[1], self.dtype, weights_key(self.gpt))
+            return self._graphs.latent.call(key, latent, inputs)
 
     def _gpt_latent_many(self, rows) -> List[torch.Tensor]:
         """Batched teacher-forced latents (port of the JAX engine's
@@ -567,35 +608,37 @@ class IndexTTS:
         codes [1, Lc], code_lens [1]); returns per-row latents [1, Lc, D] in
         input order. Rows group by (text bucket, code bucket), at most 16 to a
         batch padded to a power of two with zero conds rows; the pass is
-        per-row independent, so batched equals per-row."""
-        groups: Dict[Tuple[int, int], List[int]] = {}
-        for i, (_cds, tt, cd, _cl) in enumerate(rows):
-            groups.setdefault((self._text_bucket(tt.shape[1]), self._code_bucket(cd.shape[1])), []).append(i)
-        out: List[Optional[torch.Tensor]] = [None] * len(rows)
-        bucket_max = 16
-        for (lt, lc), idxs in sorted(groups.items()):
-            for k in range(0, len(idxs), bucket_max):
-                part = idxs[k : k + bucket_max]
-                b0 = len(part)
-                b = 1 << (b0 - 1).bit_length()
-                text = np.full((b, lt), self.cfg.gpt.stop_text_token, np.int64)
-                tlens = np.ones((b,), np.int64)
-                codes_p = np.full((b, lc), self.stop_mel_token, np.int64)
-                clens = np.ones((b,), np.int64)
-                conds_rows = []
-                for j, i in enumerate(part):
-                    cds, tt, cd, cl = rows[i]
-                    text[j, : tt.shape[1]] = tt[0]
-                    tlens[j] = tt.shape[1]
-                    codes_p[j, : cd.shape[1]] = cd[0]
-                    clens[j] = int(np.asarray(cl).reshape(-1)[0])
-                    conds_rows.append(cds.to(self.dtype))
-                if b != b0:
-                    conds_rows.append(conds_rows[0].new_zeros((b - b0,) + tuple(conds_rows[0].shape[1:])))
-                lat = self._gpt_latent(torch.cat(conds_rows, dim=0), text, codes_p, clens, text_lengths=tlens)
-                for j, i in enumerate(part):
-                    out[i] = lat[j : j + 1, : rows[i][2].shape[1]]
-        return out
+        per-row independent, so batched equals per-row. A span lat.pass around
+        them all, besides each pass's own."""
+        with tracing.span("lat.pass", rows=len(rows)):
+            groups: Dict[Tuple[int, int], List[int]] = {}
+            for i, (_cds, tt, cd, _cl) in enumerate(rows):
+                groups.setdefault((self._text_bucket(tt.shape[1]), self._code_bucket(cd.shape[1])), []).append(i)
+            out: List[Optional[torch.Tensor]] = [None] * len(rows)
+            bucket_max = 16
+            for (lt, lc), idxs in sorted(groups.items()):
+                for k in range(0, len(idxs), bucket_max):
+                    part = idxs[k : k + bucket_max]
+                    b0 = len(part)
+                    b = 1 << (b0 - 1).bit_length()
+                    text = np.full((b, lt), self.cfg.gpt.stop_text_token, np.int64)
+                    tlens = np.ones((b,), np.int64)
+                    codes_p = np.full((b, lc), self.stop_mel_token, np.int64)
+                    clens = np.ones((b,), np.int64)
+                    conds_rows = []
+                    for j, i in enumerate(part):
+                        cds, tt, cd, cl = rows[i]
+                        text[j, : tt.shape[1]] = tt[0]
+                        tlens[j] = tt.shape[1]
+                        codes_p[j, : cd.shape[1]] = cd[0]
+                        clens[j] = int(np.asarray(cl).reshape(-1)[0])
+                        conds_rows.append(cds.to(self.dtype))
+                    if b != b0:
+                        conds_rows.append(conds_rows[0].new_zeros((b - b0,) + tuple(conds_rows[0].shape[1:])))
+                    lat = self._gpt_latent(torch.cat(conds_rows, dim=0), text, codes_p, clens, text_lengths=tlens)
+                    for j, i in enumerate(part):
+                        out[i] = lat[j : j + 1, : rows[i][2].shape[1]]
+            return out
 
     def _samples_per_code(self) -> int:
         h = self.cfg.bigvgan
@@ -637,12 +680,14 @@ class IndexTTS:
     @torch.no_grad()
     def _vocode(self, latent: torch.Tensor, n_valid: int, prompt_mel: np.ndarray) -> np.ndarray:
         """latent [1, m, D] -> wav [1, samples] float32; pads the latent to a
-        multiple of 16 frames and trims the wav to n_valid codes."""
+        multiple of 16 frames and trims the wav to n_valid codes. A span
+        voc.batch."""
         m0 = latent.shape[1]
         m = max(_round_up(m0, 16), 16)
-        latent = torch.nn.functional.pad(latent, (0, 0, 0, m - m0))
-        mel_ref, lens = self._mel_ref_for(prompt_mel, latent.shape[0])
-        wav = self._vocoder_call(latent.to(self.dtype), mel_ref, lens).cpu().numpy()
+        with tracing.span("voc.batch", rows=latent.shape[0], frames=m):
+            latent = torch.nn.functional.pad(latent, (0, 0, 0, m - m0))
+            mel_ref, lens = self._mel_ref_for(prompt_mel, latent.shape[0])
+            wav = self._vocoder_call(latent.to(self.dtype), mel_ref, lens).cpu().numpy()
         return wav[:, : n_valid * self._samples_per_code()]
 
     def _vocode_rows(self, latent: torch.Tensor, mel_ref: torch.Tensor, lens: torch.Tensor,
@@ -685,30 +730,33 @@ class IndexTTS:
         rows. Each row's ECAPA relative length masks its own zero-padded
         prompt frames. On a mesh with data groups, a batch of more than one
         chunk pads to a multiple of dp, each data group vocodes its slice of
-        the rows and the waves are gathered (the vocoder is replicated)."""
+        the rows and the waves are gathered (the vocoder is replicated). A
+        span voc.batch each call, with its padding, upload and read-back."""
         spc = self._samples_per_code()
         out: List[Optional[np.ndarray]] = [None] * len(chunks)
         for fb, part in self._vocode_batches(chunks):
             m = max(_round_up(max(chunks[i][0].shape[1] for i in part), 32), 32)
             b0 = len(part)
-            dp = self.mesh.dp if self.mesh is not None and b0 > 1 else 1
-            b = _round_up(1 << (b0 - 1).bit_length(), dp)
-            lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
-                        for i in part]
-            if b != b0:
-                lat_rows.append(lat_rows[0].new_zeros((b - b0, m, lat_rows[0].shape[2])))
-            n_mels = chunks[part[0]][2].shape[1]
-            mel_b = np.zeros((b, fb, n_mels), np.float32)
-            rel = np.ones((b,), np.float32)
-            for j, i in enumerate(part):
-                mel = chunks[i][2]
-                mel_b[j, : mel.shape[-1]] = mel[0].T
-                rel[j] = mel.shape[-1] / fb
-            wav16 = self._vocode_rows(torch.cat(lat_rows, dim=0), torch.from_numpy(mel_b).to(self.device, self.dtype),
-                                      torch.from_numpy(rel).to(self.device), split=dp > 1, int16_out=True)
-            wav_np = wav16[:b0].cpu().numpy()
-            for j, i in enumerate(part):
-                out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
+            with tracing.span("voc.batch", rows=b0, frames=m):
+                dp = self.mesh.dp if self.mesh is not None and b0 > 1 else 1
+                b = _round_up(1 << (b0 - 1).bit_length(), dp)
+                lat_rows = [torch.nn.functional.pad(chunks[i][0].to(self.dtype), (0, 0, 0, m - chunks[i][0].shape[1]))
+                            for i in part]
+                if b != b0:
+                    lat_rows.append(lat_rows[0].new_zeros((b - b0, m, lat_rows[0].shape[2])))
+                n_mels = chunks[part[0]][2].shape[1]
+                mel_b = np.zeros((b, fb, n_mels), np.float32)
+                rel = np.ones((b,), np.float32)
+                for j, i in enumerate(part):
+                    mel = chunks[i][2]
+                    mel_b[j, : mel.shape[-1]] = mel[0].T
+                    rel[j] = mel.shape[-1] / fb
+                wav16 = self._vocode_rows(torch.cat(lat_rows, dim=0),
+                                          torch.from_numpy(mel_b).to(self.device, self.dtype),
+                                          torch.from_numpy(rel).to(self.device), split=dp > 1, int16_out=True)
+                wav_np = wav16[:b0].cpu().numpy()
+                for j, i in enumerate(part):
+                    out[i] = wav_np[j : j + 1, : chunks[i][1] * spc]
         return out
 
     # ------------------------------------------------------------------
@@ -763,6 +811,7 @@ class IndexTTS:
                "typical_mass": float(typical_mass)}
         return gen, dyn, int(max_mel_tokens)
 
+    @_entry("engine.infer")
     def infer(
         self,
         prompt_mel=None,
@@ -793,6 +842,7 @@ class IndexTTS:
             print("sentences count:", len(sentences))
             print(*sentences, sep="\n")
         gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        tracing.current().set(rows=len(sentences))
         self._agree("infer", sentences, prompt_mel.shape, gen, dyn)
         sampling_rate = 24000
 
@@ -921,6 +971,7 @@ class IndexTTS:
         latent = torch.nn.functional.pad(latent, (0, 0, 0, lc - latent.shape[1]))
         return self._vocode(latent, valid_n, prompt_mel)[0], valid_n, state, ctx
 
+    @_entry("engine.infer_stream")
     def infer_stream(
         self,
         prompt_mel=None,
@@ -957,6 +1008,7 @@ class IndexTTS:
         sentences = self.tokenizer.split_sentences(self.tokenizer.tokenize(text), max_text_tokens_per_sentence)
         if not sentences:
             raise ValueError("Text is empty (nothing to synthesize after tokenization).")
+        tracing.current().set(rows=len(sentences))
         self._agree("infer_stream", sentences, prompt_mel.shape, gen, dyn, first_chunk_codes, chunk_codes,
                     overlap_codes)
         spc = self._samples_per_code()
@@ -1009,6 +1061,7 @@ class IndexTTS:
             stats["gpt_steps"] += state.i
         stats["total_s"] = time.perf_counter() - start_time
 
+    @_entry("engine.infer_fast")
     def infer_fast(
         self,
         prompt_mel=None,
@@ -1043,6 +1096,7 @@ class IndexTTS:
             print(">> text token count:", len(text_tokens_list))
             print("   splited sentences count:", len(sentences))
         gen, dyn, max_mel_tokens = self._parse_generation_kwargs(generation_kwargs)
+        tracing.current().set(rows=len(sentences))
         self._agree("infer_fast", sentences, prompt_mel.shape, gen, dyn, sentences_bucket_max_size)
         sampling_rate = 24000
 
@@ -1144,6 +1198,7 @@ class IndexTTS:
     # shapes the loop and must match across a batch.
     BATCH_DYNAMIC_PARAMS = ("temperature", "top_p", "repetition_penalty", "length_penalty", "typical_mass")
 
+    @_entry("engine.infer_batch")
     def infer_batch(
         self,
         items,
@@ -1201,6 +1256,7 @@ class IndexTTS:
                 raise ValueError(f"Request {r}: text is empty (nothing to synthesize).")
             flat_req.extend([r] * len(sents))
             flat_sents.extend(sents)
+        tracing.current().set(requests=len(items), rows=len(flat_sents))
         if verbose:
             print(f">> {len(flat_sents)} sentence rows across {len(items)} requests")
         self._agree("infer_batch", flat_sents, flat_req, [m.shape for m in req_mels], gen, base_dyn,

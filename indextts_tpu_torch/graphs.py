@@ -96,6 +96,12 @@ the same static buffers, without capture, the IF decided on the host
 (chip_smoke.py compares the two, and it is the way to debug on the card).
 The loops always run their blocks through a stage: where the stage does not
 capture, it runs the same head and steps as they are.
+
+While a profiler runs, a stage records spans (tracing.py) around what it
+does, never inside a captured function: `<stage>.block` around a loop's
+block (its run, warm run or replay and the one read; attributes `event` and
+`ran`), `<stage>.call` around a whole call (`event`), `<stage>.capture`
+around a capture.
 """
 
 from __future__ import annotations
@@ -108,6 +114,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from indextts_tpu_torch import tracing
 
 # the steps of a decode loop's block: one captured graph holds BLOCK
 # conditional steps, and the host reads the device once per block
@@ -375,24 +383,26 @@ class GraphStage:
         """Capture each of fns into a CUDA graph of its own (they launch
         nothing); returns the graphs and what the last fn returned. The
         launch counts they added move to lane.deltas; the capture seconds
-        and the pool's growth (_pool_grew) go to the lane."""
-        dev = self.graphs.device
-        with self._counts_to(lane):
-            # torch.cuda.graph empties the allocator's cache as it starts: empty it
-            # first, so that the growth of the reserved memory is the capture's
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            t0 = time.perf_counter()
-            graphs, out = [], None
-            for fn in fns:
-                graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool_handle(), capture_error_mode="thread_local"):
-                    out = fn()
-                graphs.append(graph)
-            lane.capture_s = time.perf_counter() - t0
-            self._pool_grew(lane, torch.cuda.memory_reserved(dev) - reserved)
-        return graphs, out
+        and the pool's growth (_pool_grew) go to the lane. A span
+        <stage>.capture around it all, outside the captured region."""
+        with tracing.span(f"{self.name}.capture"):
+            dev = self.graphs.device
+            with self._counts_to(lane):
+                # torch.cuda.graph empties the allocator's cache as it starts: empty it
+                # first, so that the growth of the reserved memory is the capture's
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
+                t0 = time.perf_counter()
+                graphs, out = [], None
+                for fn in fns:
+                    graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=self._pool_handle(), capture_error_mode="thread_local"):
+                        out = fn()
+                    graphs.append(graph)
+                lane.capture_s = time.perf_counter() - t0
+                self._pool_grew(lane, torch.cuda.memory_reserved(dev) - reserved)
+            return graphs, out
 
     def _pool_grew(self, lane: Lane, grown: int) -> None:
         """A capture's pool growth as the lane keeps it: the most that any
@@ -476,30 +486,32 @@ class GraphStage:
         tensor computed from the buffers. Returns (steps run, live() after
         them), the block's one host read. A lane's first block runs eagerly
         (warm); once a block has run a step, the block is captured, and later
-        blocks replay it."""
+        blocks replay it. A span <stage>.block (tracing.py) with the event
+        (run, warm or replay) and the steps run."""
         ctl = lane.ctl
-        ctl.budget.fill_(min(int(budget), BLOCK))
-        at = next(k for k, v in self.lanes.items() if v is lane)
-        head, body = self._head_body(ctl, step, live)
-        if not self.capturing:
-            self._block(lane, head, body)
+        with tracing.span(f"{self.name}.block") as span:
+            ctl.budget.fill_(min(int(budget), BLOCK))
+            at = next(k for k, v in self.lanes.items() if v is lane)
+            head, body = self._head_body(ctl, step, live)
+            if not self.capturing:
+                event = "run"
+                self._block(lane, head, body)
+            elif lane.graph is not None:
+                event = "replay"
+                self._replay(lane)
+            else:
+                event = "warm"
+                self._warm(lambda: self._block(lane, head, body))
             ran, alive = self._read(ctl)
-            self._note("run", *at, ran)
-            return ran, alive
-        if lane.graph is not None:
-            self._replay(lane)
-            ran, alive = self._read(ctl)
-            self._count(lane, ran)
-            self._note("replay", *at, ran)
-            return ran, alive
-        self._warm(lambda: self._block(lane, head, body))
-        ran, alive = self._read(ctl)
-        self._note("warm", *at, ran)
-        if ran > 0:  # capture only a step that has run warm
-            graphs, _ = self._capture(lane, (head, body), keep_graph=True)
-            lane.graph = self._assemble(lane, graphs)
-            self._note("capture", *at)
-            self._evict(self._free())
+            if event == "replay":
+                self._count(lane, ran)
+            self._note(event, *at, ran)
+            if event == "warm" and ran > 0:  # capture only a step that has run warm
+                graphs, _ = self._capture(lane, (head, body), keep_graph=True)
+                lane.graph = self._assemble(lane, graphs)
+                self._note("capture", *at)
+                self._evict(self._free())
+            span.set(event=event, ran=ran)
         return ran, alive
 
     # -- a whole call ---------------------------------------------------------
@@ -508,26 +520,31 @@ class GraphStage:
         """fn(*inputs) as a captured program of `key`: the inputs are copied
         into the key's static inputs and the graph replayed; returns a copy
         of its output. The first call of a key runs fn eagerly (warm) on the
-        static inputs, returns that, and captures fn."""
-        if not self.capturing:
-            return fn(*inputs)
-        lane = self.lanes.get((key, 0))
-        if lane is None:
-            lane = Lane(key, [t.clone() for t in inputs])
-            self.lanes[(key, 0)] = lane
-            out = self._warm(lambda: fn(*lane.tensors))
-            self._note("warm", key, 0)
-            (lane.graph,), lane.outputs = self._capture(lane, (lambda: fn(*lane.tensors),))
-            self._note("capture", key, 0)
-            self._evict(self._free())
-            return out
-        self.lanes.move_to_end((key, 0))
-        for s, t in zip(lane.tensors, inputs):
-            s.copy_(t)
-        self._replay(lane)
-        self._count(lane, 1)
-        self._note("replay", key, 0)
-        return lane.outputs.clone()
+        static inputs, returns that, and captures fn. A span <stage>.call
+        (tracing.py) with the event (run, warm or replay)."""
+        with tracing.span(f"{self.name}.call") as span:
+            if not self.capturing:
+                span.set(event="run")
+                return fn(*inputs)
+            lane = self.lanes.get((key, 0))
+            if lane is None:
+                span.set(event="warm")
+                lane = Lane(key, [t.clone() for t in inputs])
+                self.lanes[(key, 0)] = lane
+                out = self._warm(lambda: fn(*lane.tensors))
+                self._note("warm", key, 0)
+                (lane.graph,), lane.outputs = self._capture(lane, (lambda: fn(*lane.tensors),))
+                self._note("capture", key, 0)
+                self._evict(self._free())
+                return out
+            span.set(event="replay")
+            self.lanes.move_to_end((key, 0))
+            for s, t in zip(lane.tensors, inputs):
+                s.copy_(t)
+            self._replay(lane)
+            self._count(lane, 1)
+            self._note("replay", key, 0)
+            return lane.outputs.clone()
 
     def stats(self) -> List[Dict[str, Any]]:
         """One row per lane: its key, whether a state holds it, capture

@@ -67,6 +67,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from indextts_tpu_torch import tracing
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
@@ -146,10 +147,12 @@ class DecodeContext:
     u: Optional[torch.Tensor] = None
 
     def draw(self, steps: int) -> None:
-        """The uniforms of the next `steps` steps, one draw a step, in order."""
+        """The uniforms of the next `steps` steps, one draw a step, in order
+        (a span dec.draws)."""
         if self.u is not None:
-            for j in range(steps):
-                self.u[j].copy_(uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
+            with tracing.span("dec.draws", steps=steps):
+                for j in range(steps):
+                    self.u[j].copy_(uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
 
     def sample(self, logits: torch.Tensor, seen: torch.Tensor, u: Optional[torch.Tensor]) -> torch.Tensor:
         """The next token of each row; `u` [B], a row of self.u, when sampling."""
@@ -328,35 +331,38 @@ def prefill_decode_state(
     prefill's last final-norm hidden. cache_len
     (default p + max_new_tokens) allocates a shorter cache, to be extended
     with grow_cache before decode_steps writes past it. `input_tokens`
-    [B, S0] is a forced prefix of mel codes (_with_prefix)."""
+    [B, S0] is a forced prefix of mel codes (_with_prefix). A span
+    dec.prefill (tracing.py)."""
     b = text_tokens.shape[0]
-    dev = text_tokens.device
-    emb, prefill_mask, s0 = _with_prefix(model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths),
-                                         input_tokens)
-    p = emb.shape[1]
-    max_new = gen.max_new_tokens
-    s_max = p + max_new if cache_len is None else int(cache_len)
-    logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
-                                   return_hidden=capture_latents)
-    seen = _initial_seen(cfg, b, dev, input_tokens)
-    ctx = DecodeContext(
-        p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
-        generator=generator, temperature=row_knob(temperature, b, dev), top_p=row_knob(top_p, b, dev),
-        repetition_penalty=row_knob(repetition_penalty, b, dev), typical_mass=row_knob(typical_mass, b, dev), s0=s0,
-        u=torch.empty(BLOCK, b, device=dev) if gen.do_sample else None,
-    )
-    ctx.draw(1)
-    tok1 = ctx.sample(logits0, seen, None if ctx.u is None else ctx.u[0])
-    codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
-    codes[:, 0] = tok1
-    seen[torch.arange(b, device=dev), tok1] = True
-    lat = None
-    if capture_latents:
-        lat = emb.new_zeros((b, max_new, emb.shape[-1]))
-        lat[:, 0] = h0[0]
-    state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1,
-                        t=torch.zeros(1, dtype=torch.long, device=dev), lat=lat)
-    return state, ctx
+    with tracing.span("dec.prefill", rows=b) as span:
+        dev = text_tokens.device
+        emb, prefill_mask, s0 = _with_prefix(model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths),
+                                             input_tokens)
+        p = emb.shape[1]
+        span.set(prefill=p)
+        max_new = gen.max_new_tokens
+        s_max = p + max_new if cache_len is None else int(cache_len)
+        logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, s_max, quant_kv=quant_kv,
+                                       return_hidden=capture_latents)
+        seen = _initial_seen(cfg, b, dev, input_tokens)
+        ctx = DecodeContext(
+            p=p, prefill_valid=torch.nn.functional.pad(prefill_mask, (0, s_max - p)), gen=gen,
+            generator=generator, temperature=row_knob(temperature, b, dev), top_p=row_knob(top_p, b, dev),
+            repetition_penalty=row_knob(repetition_penalty, b, dev), typical_mass=row_knob(typical_mass, b, dev), s0=s0,
+            u=torch.empty(BLOCK, b, device=dev) if gen.do_sample else None,
+        )
+        ctx.draw(1)
+        tok1 = ctx.sample(logits0, seen, None if ctx.u is None else ctx.u[0])
+        codes = torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
+        codes[:, 0] = tok1
+        seen[torch.arange(b, device=dev), tok1] = True
+        lat = None
+        if capture_latents:
+            lat = emb.new_zeros((b, max_new, emb.shape[-1]))
+            lat[:, 0] = h0[0]
+        state = DecodeState(i=0, codes=codes, cache=cache, done=tok1 == cfg.stop_mel_token, seen=seen, cur=tok1,
+                            t=torch.zeros(1, dtype=torch.long, device=dev), lat=lat)
+        return state, ctx
 
 
 def _initial_seen(cfg: GPTConfig, rows: int, dev, input_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -441,16 +447,18 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
     blocks (graphs.GraphStage.run): on a CUDA engine a replay of the key's
     captured block, whose steps after the last row stopped are skipped on
     the card; the uniforms of a block's steps are drawn into ctx.u before
-    it, one draw for each step the budget allows. One host read a block."""
-    stop = min(state.i + n_steps, state.codes.shape[1] - 1)
-    stage = stage_or_uncaptured(graphs, state.codes.device)
-    lane = _bind_decode(stage, model, state, ctx, pos_off)
-    step = lambda: _decode_iteration(model, cfg, state, ctx, pos_off, lane.ctl.ran)
-    live = lambda: ~state.done.all()
-    while state.i < stop and state.live:
-        ctx.draw(min(BLOCK, stop - state.i))
-        ran, state.live = stage.run(lane, step, live, stop - state.i)
-        state.i += ran
+    it, one draw for each step the budget allows. One host read a block.
+    A span dec.loop (tracing.py) around the whole call."""
+    with tracing.span("dec.loop"):
+        stop = min(state.i + n_steps, state.codes.shape[1] - 1)
+        stage = stage_or_uncaptured(graphs, state.codes.device)
+        lane = _bind_decode(stage, model, state, ctx, pos_off)
+        step = lambda: _decode_iteration(model, cfg, state, ctx, pos_off, lane.ctl.ran)
+        live = lambda: ~state.done.all()
+        while state.i < stop and state.live:
+            ctx.draw(min(BLOCK, stop - state.i))
+            ran, state.live = stage.run(lane, step, live, stop - state.i)
+            state.i += ran
     return state
 
 
@@ -737,7 +745,8 @@ class _BeamLoop:
     knobs are float32 tensors, one value per beam row ([b] for
     length_penalty); t is the device step counter, u [BLOCK, b, nb*V] the
     successor draws of a block's steps when sampling, row j for its step j;
-    `alive` is the early-stop condition as the last block left it."""
+    `alive` is the early-stop condition as the last block left it. The
+    constructor (the prefill and the first choice) is a span dec.prefill."""
 
     # the tensors a captured step reads and writes (the static buffers of its key)
     _BUFFERS = ("cache", "codes", "beam_scores", "seen", "lat", "cur", "t", "prefill_valid", "temperature", "top_p",
@@ -746,57 +755,62 @@ class _BeamLoop:
     def __init__(self, model, cfg, gen, conds, text_tokens, text_lengths, generator, temperature, top_p,
                  repetition_penalty, length_penalty, typical_mass, quant_kv, capture_latents, pos_off, gen_slots,
                  input_tokens=None):
-        self.model, self.cfg, self.gen, self.generator = model, cfg, gen, generator
-        self.nb = nb = gen.num_beams
-        self.b = b = text_tokens.shape[0]
-        self.pos_off, self.capture = pos_off, capture_latents
-        self.max_new = max_new = gen.max_new_tokens
-        bb = b * nb
-        dev = text_tokens.device
-        self.length_penalty = row_knob(length_penalty, b, dev)
-        emb, prefill_mask, self.s0 = _with_prefix(
-            model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths), input_tokens)
-        self.p = p = emb.shape[1]
-        logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, p + gen_slots, quant_kv=quant_kv,
-                                       return_hidden=capture_latents)
-        self.cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
-        logits0 = logits0.repeat_interleave(nb, dim=0)
-        self.prefill_valid = torch.nn.functional.pad(prefill_mask, (0, gen_slots)).repeat_interleave(nb, dim=0)
-        self.seen = _initial_seen(cfg, bb, dev, None if input_tokens is None else input_tokens.repeat_interleave(nb, 0))
-        self.lat = None
-        if capture_latents:
-            self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
-            self.lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
-        # a knob with one value per request repeats for the request's beams
-        self.temperature, self.top_p, self.repetition_penalty, self.typical_mass = (
-            row_knob(v.repeat_interleave(nb) if isinstance(v, torch.Tensor) and v.dim() == 1 else v, bb, dev)
-            for v in (temperature, top_p, repetition_penalty, typical_mass))
-        beam_scores = torch.full((b, nb), NEG_INF, device=dev)
-        beam_scores[:, 0] = 0.0
-        self.beam_scores = beam_scores.reshape(-1)
-        self.codes = torch.full((bb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
-        self.best = BeamBest(score=torch.full((b,), NEG_INF, device=dev),
-                             codes=torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev),
-                             length=torch.zeros((b,), dtype=torch.long, device=dev),
-                             lat=None if self.lat is None else self.lat.new_zeros((b,) + self.lat.shape[1:]))
-        self.i = 0
-        self.alive = True
-        self.t = torch.zeros(1, dtype=torch.long, device=dev)
-        self.u = torch.empty(BLOCK, b, nb * cfg.number_mel_codes, device=dev) if gen.do_sample else None
-        # the beams of a row are copies until the first decode step writes, so
-        # the first selection needs no cache reorder
-        self._draw(1)
-        _, self.cur = self._select(self.t, logits0, None if self.u is None else self.u[0])
+        with tracing.span("dec.prefill", rows=text_tokens.shape[0]) as span:
+            self.model, self.cfg, self.gen, self.generator = model, cfg, gen, generator
+            self.nb = nb = gen.num_beams
+            self.b = b = text_tokens.shape[0]
+            self.pos_off, self.capture = pos_off, capture_latents
+            self.max_new = max_new = gen.max_new_tokens
+            bb = b * nb
+            dev = text_tokens.device
+            self.length_penalty = row_knob(length_penalty, b, dev)
+            emb, prefill_mask, self.s0 = _with_prefix(
+                model, *prepare_gpt_inputs(model, cfg, conds, text_tokens, text_lengths), input_tokens)
+            self.p = p = emb.shape[1]
+            span.set(prefill=p)
+            logits0, cache, *h0 = _prefill(model, cfg, emb, prefill_mask, p + gen_slots, quant_kv=quant_kv,
+                                           return_hidden=capture_latents)
+            self.cache = tuple(c.repeat_interleave(nb, dim=1) for c in cache)
+            logits0 = logits0.repeat_interleave(nb, dim=0)
+            self.prefill_valid = torch.nn.functional.pad(prefill_mask, (0, gen_slots)).repeat_interleave(nb, dim=0)
+            self.seen = _initial_seen(cfg, bb, dev,
+                                      None if input_tokens is None else input_tokens.repeat_interleave(nb, 0))
+            self.lat = None
+            if capture_latents:
+                self.lat = emb.new_zeros((bb, gen_slots, emb.shape[-1]))
+                self.lat[:, 0] = h0[0].repeat_interleave(nb, dim=0)
+            # a knob with one value per request repeats for the request's beams
+            self.temperature, self.top_p, self.repetition_penalty, self.typical_mass = (
+                row_knob(v.repeat_interleave(nb) if isinstance(v, torch.Tensor) and v.dim() == 1 else v, bb, dev)
+                for v in (temperature, top_p, repetition_penalty, typical_mass))
+            beam_scores = torch.full((b, nb), NEG_INF, device=dev)
+            beam_scores[:, 0] = 0.0
+            self.beam_scores = beam_scores.reshape(-1)
+            self.codes = torch.full((bb, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev)
+            self.best = BeamBest(score=torch.full((b,), NEG_INF, device=dev),
+                                 codes=torch.full((b, max_new), cfg.stop_mel_token, dtype=torch.long, device=dev),
+                                 length=torch.zeros((b,), dtype=torch.long, device=dev),
+                                 lat=None if self.lat is None else self.lat.new_zeros((b,) + self.lat.shape[1:]))
+            self.i = 0
+            self.alive = True
+            self.t = torch.zeros(1, dtype=torch.long, device=dev)
+            self.u = torch.empty(BLOCK, b, nb * cfg.number_mel_codes, device=dev) if gen.do_sample else None
+            # the beams of a row are copies until the first decode step writes, so
+            # the first selection needs no cache reorder
+            self._draw(1)
+            _, self.cur = self._select(self.t, logits0, None if self.u is None else self.u[0])
 
     def _joint(self, logits, seen, scores):
         return _beam_joint_scores(logits, seen, scores, self.gen, self.temperature, self.top_p,
                                   self.repetition_penalty, self.typical_mass)
 
     def _draw(self, steps: int) -> None:
-        """The successor draws of the next `steps` steps, one a step, in order."""
+        """The successor draws of the next `steps` steps, one a step, in order
+        (a span dec.draws)."""
         if self.u is not None:
-            for j in range(steps):
-                self.u[j].copy_(beam_uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
+            with tracing.span("dec.draws", steps=steps):
+                for j in range(steps):
+                    self.u[j].copy_(beam_uniforms(tuple(self.u.shape[1:]), self.generator, self.u.device))
 
     def _select(self, si, logits, u: Optional[torch.Tensor]):
         """One successor choice, sampled from the draw `u` [b, nb*V] (a row
@@ -854,15 +868,16 @@ class _BeamLoop:
     def run(self, n_steps: int, graphs: Optional[GraphStage] = None) -> None:
         """Up to n_steps steps (at most to max_new - 1) while _live(), in
         blocks through `graphs`, the engine's decode stage, as in
-        decode_steps."""
-        stop = min(self.i + n_steps, self.max_new - 1)
-        stage = stage_or_uncaptured(graphs, self.codes.device)
-        lane = self._bind(stage)
-        step = lambda: self._iteration(lane.ctl.ran)
-        while self.i < stop and self.alive:
-            self._draw(min(BLOCK, stop - self.i))
-            ran, self.alive = stage.run(lane, step, self._live, stop - self.i)
-            self.i += ran
+        decode_steps (a span dec.loop)."""
+        with tracing.span("dec.loop"):
+            stop = min(self.i + n_steps, self.max_new - 1)
+            stage = stage_or_uncaptured(graphs, self.codes.device)
+            lane = self._bind(stage)
+            step = lambda: self._iteration(lane.ctl.ran)
+            while self.i < stop and self.alive:
+                self._draw(min(BLOCK, stop - self.i))
+                ran, self.alive = stage.run(lane, step, self._live, stop - self.i)
+                self.i += ran
 
     def grow(self, extra: int) -> None:
         """`extra` more generated-token slots: the cache, the key mask and,

@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from indextts_tpu_torch import tracing
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import UnifiedVoice, write_at
@@ -227,26 +228,31 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
     and the steps run through it in blocks (graphs.GraphStage.run): on a
     CUDA engine a replay of the key's captured block, its uniforms drawn
     into state.u before it, one draw for each step the budget allows. One
-    host read a block."""
+    host read a block. Spans (tracing.py): slot.loop around the whole call
+    (a knob given as a host tensor is uploaded inside it), slot.draws around
+    a block's draws."""
     b, dev = state.codes.shape[0], state.codes.device
-    knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
-        _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
-    stage = stage_or_uncaptured(graphs, dev)
-    key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, len(state.cache) == 4,
-           state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model), BLOCK)
-    lane = stage.bind(key, state, [(state, ("tick", "cursor", "i_b", "codes", "cache", "active", "done", "seen",
-                                            "cur", "mask", "lat", "u")), (knobs, _KNOBS)])
-    step = lambda: _slot_iteration(model, cfg, gen, state, knobs, pos_off, lane.ctl.ran)
-    live = lambda: state.active.any()
-    done = 0
-    while done < n_steps:
-        if state.u is not None:
-            for j in range(min(BLOCK, n_steps - done)):
-                state.u[j].copy_(uniforms((b,), generator, dev))
-        ran, alive = stage.run(lane, step, live, n_steps - done)
-        done += ran
-        if not alive:
-            break
+    with tracing.span("slot.loop"):
+        knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
+            _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
+        stage = stage_or_uncaptured(graphs, dev)
+        key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, len(state.cache) == 4,
+               state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model), BLOCK)
+        lane = stage.bind(key, state, [(state, ("tick", "cursor", "i_b", "codes", "cache", "active", "done", "seen",
+                                                "cur", "mask", "lat", "u")), (knobs, _KNOBS)])
+        step = lambda: _slot_iteration(model, cfg, gen, state, knobs, pos_off, lane.ctl.ran)
+        live = lambda: state.active.any()
+        done = 0
+        while done < n_steps:
+            if state.u is not None:
+                steps = min(BLOCK, n_steps - done)
+                with tracing.span("slot.draws", steps=steps):
+                    for j in range(steps):
+                        state.u[j].copy_(uniforms((b,), generator, dev))
+            ran, alive = stage.run(lane, step, live, n_steps - done)
+            done += ran
+            if not alive:
+                break
     return state
 
 

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from indextts_tpu_torch import tracing
 from indextts_tpu_torch.engine import _round_up
 from indextts_tpu_torch.models.gpt_slots import slot_admit, slot_prefill, slot_state_init, slot_steps
 from indextts_tpu_torch.parallel.mesh import local_heads
@@ -132,63 +133,72 @@ class SlotSession:
         the decode); silence removal is skipped (the audio has already left);
         a streaming request of several sentences decodes its rows one after
         another, so that chunks arrive in playback order. on_chunk must not
-        raise: an exception leaves tick() mid-harvest."""
-        eng = self.engine
-        bad = set(per_request_kwargs) - set(SLOT_DYNAMIC_PARAMS)
-        if bad:
-            raise ValueError(
-                f"per-request overrides in slot mode are allowed only for {SLOT_DYNAMIC_PARAMS} "
-                f"(length_penalty only affects beams and slot mode is num_beams=1); got {sorted(bad)}")
-        if on_chunk is not None and self.state.lat is None:
-            raise ValueError("streaming slot requests need a fast_latents=True engine "
-                             "(chunk latents are captured during decode)")
-        mel = eng._resolve_prompt(prompt)
-        conds = eng._conds_for(mel)
-        sents = eng.tokenizer.split_sentences(eng.tokenizer.tokenize(text), self.max_split)
-        if not sents:
-            raise ValueError("text is empty (nothing to synthesize)")
-        dyn = {k: float(per_request_kwargs.get(k, self.base_dyn[k])) for k in SLOT_DYNAMIC_PARAMS}
-        eng._agree("submit", sents, mel.shape, dyn, on_chunk is not None)
-        rid = self._next_rid
-        self._next_rid += 1
-        token_rows = [np.asarray(eng.tokenizer.convert_tokens_to_ids(s), np.int64)[None, :] for s in sents]
-        self.requests[rid] = {
-            "mel": mel, "n_rows": len(sents), "rows": {}, "output_path": output_path,
-            "submitted": time.perf_counter(), "on_chunk": on_chunk, "chunks": [],
-            "row_tokens": token_rows, "next_row": 1, "conds": conds, "dyn": dyn,
-        }
-        # streaming rows decode one after another; the others all queue at once
-        for j in range(1 if on_chunk is not None else len(token_rows)):
-            self.pending.append(self._row_job(rid, j))
-        return rid
+        raise: an exception leaves tick() mid-harvest. A span slot.submit
+        (tracing.py)."""
+        with tracing.span("slot.submit") as span:
+            eng = self.engine
+            bad = set(per_request_kwargs) - set(SLOT_DYNAMIC_PARAMS)
+            if bad:
+                raise ValueError(
+                    f"per-request overrides in slot mode are allowed only for {SLOT_DYNAMIC_PARAMS} "
+                    f"(length_penalty only affects beams and slot mode is num_beams=1); got {sorted(bad)}")
+            if on_chunk is not None and self.state.lat is None:
+                raise ValueError("streaming slot requests need a fast_latents=True engine "
+                                 "(chunk latents are captured during decode)")
+            mel = eng._resolve_prompt(prompt)
+            conds = eng._conds_for(mel)
+            sents = eng.tokenizer.split_sentences(eng.tokenizer.tokenize(text), self.max_split)
+            if not sents:
+                raise ValueError("text is empty (nothing to synthesize)")
+            dyn = {k: float(per_request_kwargs.get(k, self.base_dyn[k])) for k in SLOT_DYNAMIC_PARAMS}
+            eng._agree("submit", sents, mel.shape, dyn, on_chunk is not None)
+            rid = self._next_rid
+            self._next_rid += 1
+            span.set(rid=rid, rows=len(sents))
+            token_rows = [np.asarray(eng.tokenizer.convert_tokens_to_ids(s), np.int64)[None, :] for s in sents]
+            self.requests[rid] = {
+                "mel": mel, "n_rows": len(sents), "rows": {}, "output_path": output_path,
+                "submitted": time.perf_counter(), "on_chunk": on_chunk, "chunks": [],
+                "row_tokens": token_rows, "next_row": 1, "conds": conds, "dyn": dyn,
+            }
+            # streaming rows decode one after another; the others all queue at once
+            for j in range(1 if on_chunk is not None else len(token_rows)):
+                self.pending.append(self._row_job(rid, j))
+            return rid
 
     def _row_job(self, rid: int, j: int) -> Dict[str, Any]:
         """The work item of one sentence row (submit() and the harvest's
-        queue-the-next-row path both build it here)."""
+        queue-the-next-row path both build it here), stamped with the time it
+        queued (perf_counter ns: its admission span's wait)."""
         req = self.requests[rid]
         return {"rid": rid, "row": j, "tokens": req["row_tokens"][j], "conds": req["conds"], "dyn": req["dyn"],
-                "stream": req["on_chunk"] is not None, "emitted": 0}
+                "stream": req["on_chunk"] is not None, "emitted": 0, "queued_ns": time.perf_counter_ns()}
 
     # ------------------------------------------------------------------
 
     def _admit_one(self, row: Dict[str, Any], slot: int) -> None:
-        eng = self.engine
-        cfg = eng.cfg.gpt
-        t = row["tokens"]
-        padded = np.full((1, eng._text_bucket(t.shape[1])), cfg.stop_text_token, np.int64)
-        padded[:, : t.shape[1]] = t
-        prod = slot_prefill(
-            eng.gpt, cfg, self.gen, row["conds"].to(eng.dtype), torch.from_numpy(padded).to(eng.device),
-            torch.tensor([t.shape[1]], dtype=torch.long, device=eng.device), self.generator,
-            temperature=row["dyn"]["temperature"], top_p=row["dyn"]["top_p"],
-            repetition_penalty=row["dyn"]["repetition_penalty"], typical_mass=row["dyn"]["typical_mass"],
-            capture_latents=eng.fast_latents, quant_kv=eng.quant_kv,
-        )
-        self.state = slot_admit(self.state, prod, slot, cfg)
-        for k, col in self.dyn_cols.items():
-            col[slot] = row["dyn"][k]
-        row["admit_seq"] = self._seq + 1  # the first chunk that includes this row
-        self.slots[slot] = row
+        """Prefill a queued row and write it into `slot`: a span slot.admit
+        whose waited_ns is the time from the row's queueing to its admission."""
+        with tracing.span("slot.admit", rid=row["rid"], row=row["row"]) as span:
+            if span:
+                span.set(waited_ns=span.t0 - row["queued_ns"])
+            eng = self.engine
+            cfg = eng.cfg.gpt
+            t = row["tokens"]
+            padded = np.full((1, eng._text_bucket(t.shape[1])), cfg.stop_text_token, np.int64)
+            padded[:, : t.shape[1]] = t
+            prod = slot_prefill(
+                eng.gpt, cfg, self.gen, row["conds"].to(eng.dtype), torch.from_numpy(padded).to(eng.device),
+                torch.tensor([t.shape[1]], dtype=torch.long, device=eng.device), self.generator,
+                temperature=row["dyn"]["temperature"], top_p=row["dyn"]["top_p"],
+                repetition_penalty=row["dyn"]["repetition_penalty"], typical_mass=row["dyn"]["typical_mass"],
+                capture_latents=eng.fast_latents, quant_kv=eng.quant_kv,
+            )
+            self.state = slot_admit(self.state, prod, slot, cfg)
+            for k, col in self.dyn_cols.items():
+                col[slot] = row["dyn"][k]
+            row["admit_seq"] = self._seq + 1  # the first chunk that includes this row
+            self.slots[slot] = row
 
     def _harvest(self, snap) -> List[Tuple[int, Any]]:
         """Take the finished rows off the state, resolve their latents (the
@@ -197,97 +207,101 @@ class SlotSession:
         results. `snap` is the (seq, done, i_b, codes) host copy taken after
         this tick's chunk, or None when no chunk ran. A done row is inert, so
         its codes and captured latents are final; the admit_seq guard skips
-        slots admitted after the snapshot."""
-        eng = self.engine
-        fin: List[int] = []
-        if snap is not None:
-            seq, done, _ib, codes_all = snap
-            fin = [i for i, r in enumerate(self.slots) if r is not None and done[i] and r["admit_seq"] <= seq]
-        if not fin and not any(len(req["rows"]) == req["n_rows"] for req in self.requests.values()):
-            # nothing finished and nothing completable (a cancelled request can
-            # become completable with no live rows)
-            return []
-        if snap is None:
-            codes_all = self.state.codes.cpu().numpy()
-        is_stop = codes_all == eng.stop_mel_token
-        lens_all = np.where(is_stop.any(axis=1), is_stop.argmax(axis=1) + 1, codes_all.shape[1])
-        pending_tf = []  # (slot, row, codes, code_lens) for the teacher-forced pass
-        stream_fin = []  # (slot, row, n): streaming rows finish by a last chunk
-        for slot in fin:
-            row = self.slots[slot]
-            n = max(int(lens_all[slot]), 1)
-            if (not self._warned_max and n >= self.gen.max_new_tokens
-                    and codes_all[slot, -1] != eng.stop_mel_token):
-                warnings.warn(f"WARN: generation stopped due to exceeding `max_mel_tokens` ({self.max_mel_tokens}).",
-                              category=RuntimeWarning)
-                self._warned_max = True
-            if row.get("stream"):
-                # no silence removal for a streamed row. The stop code itself is
-                # NOT vocoded: remove_long_silence trims AT the stop and
-                # infer_stream ends there, so the streamed sample count matches both
-                n_voc = n - 1 if codes_all[slot, n - 1] == eng.stop_mel_token else n
-                stream_fin.append((slot, row, n_voc))
-                self.slots[slot] = None
-                continue
-            code_row = codes_all[slot : slot + 1, :n]
-            codes, code_lens = eng.remove_long_silence(code_row, silent_token=52, max_consecutive=30)
-            if self.state.lat is not None and np.array_equal(codes, code_row[:, : codes.shape[1]]):
-                latent = self.state.lat[slot, : codes.shape[1]].clone()[None]
-                self.requests[row["rid"]]["rows"][row["row"]] = (latent, int(code_lens[0]))
-            else:
-                pending_tf.append((slot, row, codes, code_lens))
-            self.slots[slot] = None  # the slot is free; admission resets its flags
-        if pending_tf:
-            lats = eng._gpt_latent_many([(row["conds"], row["tokens"], cd, cl) for _s, row, cd, cl in pending_tf])
-            self.tf_latent_rows += len(pending_tf)
-            for (_s, row, cd, cl), lat in zip(pending_tf, lats):
-                self.requests[row["rid"]]["rows"][row["row"]] = (lat, int(np.asarray(cl).reshape(-1)[0]))
-        if stream_fin:
-            # the last window (the codes since the last emission), then queue the
-            # request's next sentence row
-            todo = [(slot, row, self._win_start(row["emitted"]), n) for slot, row, n in stream_fin
-                    if n > row["emitted"]]
-            if todo:
-                self._emit_stream_chunks(todo)
-            for _slot, row, _n in stream_fin:
-                req = self.requests[row["rid"]]
-                req["rows"][row["row"]] = True  # the audio is already in req["chunks"]
-                if not req.get("cancelled") and req["next_row"] < req["n_rows"]:
-                    j = req["next_row"]
-                    req["next_row"] += 1
-                    self.pending.append(self._row_job(row["rid"], j))
-        # assemble and vocode every request completed in this tick, in one
-        # batched vocoder pass across requests
-        completed = [rid for rid, req in self.requests.items() if len(req["rows"]) == req["n_rows"]]
-        results: List[Tuple[int, Any]] = []
-        if completed:
-            chunk_list, chunk_rid = [], []
-            for rid in completed:
-                req = self.requests[rid]
-                if req["on_chunk"] is not None:
+        slots admitted after the snapshot. A span slot.harvest with the rows
+        finished and the requests completed."""
+        with tracing.span("slot.harvest") as span:
+            eng = self.engine
+            fin: List[int] = []
+            if snap is not None:
+                seq, done, _ib, codes_all = snap
+                fin = [i for i, r in enumerate(self.slots) if r is not None and done[i] and r["admit_seq"] <= seq]
+            span.set(rows=len(fin), requests=0)
+            if not fin and not any(len(req["rows"]) == req["n_rows"] for req in self.requests.values()):
+                # nothing finished and nothing completable (a cancelled request can
+                # become completable with no live rows)
+                return []
+            if snap is None:
+                codes_all = self.state.codes.cpu().numpy()
+            is_stop = codes_all == eng.stop_mel_token
+            lens_all = np.where(is_stop.any(axis=1), is_stop.argmax(axis=1) + 1, codes_all.shape[1])
+            pending_tf = []  # (slot, row, codes, code_lens) for the teacher-forced pass
+            stream_fin = []  # (slot, row, n): streaming rows finish by a last chunk
+            for slot in fin:
+                row = self.slots[slot]
+                n = max(int(lens_all[slot]), 1)
+                if (not self._warned_max and n >= self.gen.max_new_tokens
+                        and codes_all[slot, -1] != eng.stop_mel_token):
+                    warnings.warn(f"WARN: generation stopped due to exceeding `max_mel_tokens` "
+                                  f"({self.max_mel_tokens}).", category=RuntimeWarning)
+                    self._warned_max = True
+                if row.get("stream"):
+                    # no silence removal for a streamed row. The stop code itself is
+                    # NOT vocoded: remove_long_silence trims AT the stop and
+                    # infer_stream ends there, so the streamed sample count matches both
+                    n_voc = n - 1 if codes_all[slot, n - 1] == eng.stop_mel_token else n
+                    stream_fin.append((slot, row, n_voc))
+                    self.slots[slot] = None
                     continue
-                rows = [req["rows"][j] for j in range(req["n_rows"])]
-                for k in range(0, len(rows), 2):  # chunks of two sentences, as infer_batch
-                    part = rows[k : k + 2]
-                    chunk_list.append((torch.cat([lat for lat, _ in part], dim=1), sum(nv for _, nv in part),
-                                       req["mel"]))
-                    chunk_rid.append(rid)
-            wavs = eng._vocode_many(chunk_list) if chunk_list else []
-            for rid in completed:
-                req = self.requests.pop(rid)
-                if req["on_chunk"] is not None:
-                    # streamed: the delivered chunks ARE the result (none when
-                    # every row stopped at once)
-                    parts = [c[None, :] for c in req["chunks"]]
+                code_row = codes_all[slot : slot + 1, :n]
+                codes, code_lens = eng.remove_long_silence(code_row, silent_token=52, max_consecutive=30)
+                if self.state.lat is not None and np.array_equal(codes, code_row[:, : codes.shape[1]]):
+                    latent = self.state.lat[slot, : codes.shape[1]].clone()[None]
+                    self.requests[row["rid"]]["rows"][row["row"]] = (latent, int(code_lens[0]))
                 else:
-                    # none is legal: a request cancelled before any row was admitted
-                    parts = [w for w, r in zip(wavs, chunk_rid) if r == rid]
-                wav = np.concatenate(parts, axis=1) if parts else np.zeros((1, 0), np.int16)
-                results.append((rid, eng._emit(wav, req["output_path"], 24000)))
-                if self.verbose:
-                    print(f">> slot request {rid} done in {time.perf_counter() - req['submitted']:.2f}s "
-                          f"({wav.shape[-1] / 24000:.2f}s audio)")
-        return results
+                    pending_tf.append((slot, row, codes, code_lens))
+                self.slots[slot] = None  # the slot is free; admission resets its flags
+            if pending_tf:
+                lats = eng._gpt_latent_many([(row["conds"], row["tokens"], cd, cl) for _s, row, cd, cl in pending_tf])
+                self.tf_latent_rows += len(pending_tf)
+                for (_s, row, cd, cl), lat in zip(pending_tf, lats):
+                    self.requests[row["rid"]]["rows"][row["row"]] = (lat, int(np.asarray(cl).reshape(-1)[0]))
+            if stream_fin:
+                # the last window (the codes since the last emission), then queue the
+                # request's next sentence row
+                todo = [(slot, row, self._win_start(row["emitted"]), n) for slot, row, n in stream_fin
+                        if n > row["emitted"]]
+                if todo:
+                    self._emit_stream_chunks(todo)
+                for _slot, row, _n in stream_fin:
+                    req = self.requests[row["rid"]]
+                    req["rows"][row["row"]] = True  # the audio is already in req["chunks"]
+                    if not req.get("cancelled") and req["next_row"] < req["n_rows"]:
+                        j = req["next_row"]
+                        req["next_row"] += 1
+                        self.pending.append(self._row_job(row["rid"], j))
+            # assemble and vocode every request completed in this tick, in one
+            # batched vocoder pass across requests
+            completed = [rid for rid, req in self.requests.items() if len(req["rows"]) == req["n_rows"]]
+            span.set(requests=len(completed))
+            results: List[Tuple[int, Any]] = []
+            if completed:
+                chunk_list, chunk_rid = [], []
+                for rid in completed:
+                    req = self.requests[rid]
+                    if req["on_chunk"] is not None:
+                        continue
+                    rows = [req["rows"][j] for j in range(req["n_rows"])]
+                    for k in range(0, len(rows), 2):  # chunks of two sentences, as infer_batch
+                        part = rows[k : k + 2]
+                        chunk_list.append((torch.cat([lat for lat, _ in part], dim=1), sum(nv for _, nv in part),
+                                           req["mel"]))
+                        chunk_rid.append(rid)
+                wavs = eng._vocode_many(chunk_list) if chunk_list else []
+                for rid in completed:
+                    req = self.requests.pop(rid)
+                    if req["on_chunk"] is not None:
+                        # streamed: the delivered chunks ARE the result (none when
+                        # every row stopped at once)
+                        parts = [c[None, :] for c in req["chunks"]]
+                    else:
+                        # none is legal: a request cancelled before any row was admitted
+                        parts = [w for w, r in zip(wavs, chunk_rid) if r == rid]
+                    wav = np.concatenate(parts, axis=1) if parts else np.zeros((1, 0), np.int16)
+                    results.append((rid, eng._emit(wav, req["output_path"], 24000)))
+                    if self.verbose:
+                        print(f">> slot request {rid} done in {time.perf_counter() - req['submitted']:.2f}s "
+                              f"({wav.shape[-1] / 24000:.2f}s audio)")
+            return results
 
     # ------------------------------------------------------------------
 
@@ -329,18 +343,20 @@ class SlotSession:
     def _emit_stream_chunks(self, todo) -> None:
         """Vocode the streaming windows (slot, row, start, n_now) in ONE
         batched vocoder call and hand each trimmed chunk to its request's
-        on_chunk (int16 [samples], trimmed as infer_stream trims)."""
+        on_chunk (int16 [samples], trimmed as infer_stream trims). A span
+        slot.emit."""
         eng = self.engine
         spc = eng._samples_per_code()
-        wins = [(self._window(slot, start, n_now - start), n_now - start, self.requests[row["rid"]]["mel"])
-                for slot, row, start, n_now in todo]
-        wavs = eng._vocode_many(wins)
-        for (slot, row, start, n_now), wav in zip(todo, wavs):
-            chunk = wav[0, (row["emitted"] - start) * spc:]
-            req = self.requests[row["rid"]]
-            req["chunks"].append(chunk)
-            req["on_chunk"](row["rid"], chunk)
-            row["emitted"] = n_now
+        with tracing.span("slot.emit", rows=len(todo)):
+            wins = [(self._window(slot, start, n_now - start), n_now - start, self.requests[row["rid"]]["mel"])
+                    for slot, row, start, n_now in todo]
+            wavs = eng._vocode_many(wins)
+            for (slot, row, start, n_now), wav in zip(todo, wavs):
+                chunk = wav[0, (row["emitted"] - start) * spc:]
+                req = self.requests[row["rid"]]
+                req["chunks"].append(chunk)
+                req["on_chunk"](row["rid"], chunk)
+                row["emitted"] = n_now
 
     def _stream_emit(self, snap) -> None:
         """Once per tick: vocode every ACTIVE streaming row's newly decoded
@@ -368,27 +384,32 @@ class SlotSession:
         """One scheduler cycle: admit pending rows into free slots, run one
         decode chunk, read the rows' done / i_b / codes, emit the streaming
         rows' chunks and harvest what finished. A row admitted in this tick is
-        in this tick's chunk."""
-        free = [i for i, r in enumerate(self.slots) if r is None]
-        while free and self.pending:
-            self._admit_one(self.pending.popleft(), free.pop(0))
-        snap = None
-        if any(r is not None for r in self.slots):
-            dev = self.engine.device
-            cols = {k: torch.from_numpy(v).to(dev) for k, v in self.dyn_cols.items()}
-            t0 = time.perf_counter()
-            self.state = slot_steps(
-                self.engine.gpt, self.engine.cfg.gpt, self.gen, self.state, self.chunk_steps, self.generator,
-                temperature=cols["temperature"], top_p=cols["top_p"],
-                repetition_penalty=cols["repetition_penalty"], typical_mass=cols["typical_mass"],
-                pos_off=self.pos_off, graphs=self.engine._graphs.slot,
-            )
-            self._seq += 1
-            st = self.state
-            snap = (self._seq, st.done.cpu().numpy(), st.i_b.cpu().numpy(), st.codes.cpu().numpy())
-            self.chunk_s.append(time.perf_counter() - t0)
-            self._stream_emit(snap)
-        return self._harvest(snap)
+        in this tick's chunk. Spans (tracing.py): slot.tick around it all,
+        slot.snapshot around the reads; the knob columns go to slot_steps as
+        host tensors, to be uploaded inside its slot.loop."""
+        with tracing.span("slot.tick") as span:
+            free = [i for i, r in enumerate(self.slots) if r is None]
+            while free and self.pending:
+                self._admit_one(self.pending.popleft(), free.pop(0))
+            if span:
+                span.set(rows=sum(r is not None for r in self.slots))
+            snap = None
+            if any(r is not None for r in self.slots):
+                cols = {k: torch.from_numpy(v) for k, v in self.dyn_cols.items()}
+                t0 = time.perf_counter()
+                self.state = slot_steps(
+                    self.engine.gpt, self.engine.cfg.gpt, self.gen, self.state, self.chunk_steps, self.generator,
+                    temperature=cols["temperature"], top_p=cols["top_p"],
+                    repetition_penalty=cols["repetition_penalty"], typical_mass=cols["typical_mass"],
+                    pos_off=self.pos_off, graphs=self.engine._graphs.slot,
+                )
+                self._seq += 1
+                st = self.state
+                with tracing.span("slot.snapshot"):
+                    snap = (self._seq, st.done.cpu().numpy(), st.i_b.cpu().numpy(), st.codes.cpu().numpy())
+                self.chunk_s.append(time.perf_counter() - t0)
+                self._stream_emit(snap)
+            return self._harvest(snap)
 
     @property
     def busy(self) -> bool:
