@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1, K2, K3, K4 and K5 kernels and the decode
+  2. build   — nvcc builds the K1-K6 kernels and the decode
                block's graph assembly (graph_block.cu) from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
@@ -46,10 +46,18 @@ Phases, in order; any failure exits non-zero:
                yardstick; then K not a multiple of 16 and a weight view that
                is not 16-byte aligned; per decode step (97 launches) at every
                M;
+     k6      — K6 (decode_attn) at the decode loops' shapes (8 rows and 3
+               beams on the bf16 cache mid-decode, 32 int8 slots): err against
+               the formula in float64 beside the plain path's, two runs
+               bit-equal, device times of both per layer and per step with
+               the 24 layers' caches cycled past the L2 cache, the bound;
+               and the rounding rule of PyTorch's int8 scale on the card;
   5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
-               launch count must be 109 per vocoder call; then one profiled
+               launch count must be 109 per vocoder call and K6's one a
+               layer in every decode step (as in the beam, serve, int8 and
+               graphs phases); then one profiled
                bigvgan_apply at 100 codes on the default route (host ms,
                device ms, kernels, device-idle share, K1's own ms);
   6. beam    — the same width with fast_latents and INDEXTTS_WIDE_BRANCH=1:
@@ -178,7 +186,7 @@ Phases, in order; any failure exits non-zero:
                warmup twice (its captures, then
                replays), then each request under the engine's private eager
                switch, replayed, and replayed again, its code rows
-               token-exact, K1-K5's launches and the blocks' host reads
+               token-exact, K1-K6's launches and the blocks' host reads
                equal in the three: greedy and sampled num_beams=1, greedy
                and default num_beams=3, a 320-code segmented request, with
                fast_latents a sampled and a default request, infer_stream
@@ -226,6 +234,8 @@ K1_REPLACES = "indextts_tpu/ops/pallas/antialias.py:84"
 K1_SOURCE = "indextts_tpu_torch/csrc/anti_alias_snake.cu"
 K5_REPLACES = "indextts_tpu/ops/pallas/qmatmul.py:42"
 K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
+K6_REPLACES = "none: XLA's attention in indextts_tpu/models/gpt_decode.py _decode_block / _decode_block_q"
+K6_SOURCE = "indextts_tpu_torch/csrc/decode_attn.cu"
 K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
 K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
 K3_REPLACES = "indextts_tpu/ops/pallas/antialias_tmajor.py:163"
@@ -768,6 +778,103 @@ def k5_phase(card: str) -> dict:
     return {"rows": rows}
 
 
+# K6 at the decode loops' shapes, (label, cache, B, H, S, valid columns): the
+# batch and beam loops mid-decode (32 latents, a text bucket of 96 and 3
+# more, 100 of 200 codes written) and 32 int8 slots of S = 320 with 60 % of
+# their columns valid, as the benchmark's cells run them; H = 20, Dh = 64
+K6_CASES = [("batch8", "bf16", 8, 20, 331, 231), ("beams3", "bf16", 3, 20, 331, 231),
+            ("slots32", "int8", 32, 20, 320, None)]
+
+
+def k6_phase(card: str) -> dict:
+    """K6 (decode_attn) at K6_CASES: err against the formula in float64
+    beside the plain path's, two runs bit-equal; device times of the kernel
+    and of the plain path per layer, with one cache per layer of a step
+    cycled (24 layers, past the L2 cache, as a step finds them), and K6's
+    bound: the valid columns' K / V (and scales), the bias, q, k, v, the
+    output and the written column, over 3.35 TB/s. Then the rule PyTorch's
+    int8 scale follows on the card (amax / 127.0 against amax * (1 / 127)
+    and a true division), which K6's write reproduces."""
+    import itertools
+
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    layers = load_config(FLAGSHIP).gpt.layers
+    rows, failures = [], []
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for label, kind, b, h, s_len, n_valid in K6_CASES:
+        dh, pos = 64, (n_valid if n_valid is not None else 200)
+        y = torch.randn(b, 3 * h * dh, device="cuda", generator=g).to(torch.bfloat16)
+        q, k, v = (t.reshape(b, h, dh) for t in y.split(h * dh, dim=-1))
+        cols = torch.arange(s_len, device="cuda")[None, :]
+        if n_valid is None:
+            valid = torch.rand(b, s_len, device="cuda", generator=g) < 0.6
+        else:
+            valid = (cols < n_valid).expand(b, s_len)
+        valid = valid & (cols != pos)
+        bias = torch.where(valid, torch.zeros((), device="cuda"), torch.finfo(torch.float32).min)[:, None, :]
+        posd = torch.tensor([pos], device="cuda")
+        caches = []
+        for _ in range(layers):
+            kv = [torch.randn(b, h, s_len, dh, device="cuda", generator=g).to(torch.bfloat16) for _ in range(2)]
+            if kind == "int8":
+                (k8, ks), (v8, vs) = k6.quant_cols(kv[0]), k6.quant_cols(kv[1])
+                caches.append((k8, ks, v8, vs))
+            else:
+                caches.append(tuple(kv))
+        ref = k6.decode_attn_f64(q, k, v, caches[0], bias)
+        first = k6.decode_attn(q, k, v, tuple(c.clone() for c in caches[0]), posd, bias)
+        again = k6.decode_attn(q, k, v, tuple(c.clone() for c in caches[0]), posd, bias)
+        plain = k6.decode_attn_plain(q, k, v, tuple(c.clone() for c in caches[0]), posd, bias)
+        torch.cuda.synchronize()
+        err = (first.double() - ref).abs().max().item()
+        err_plain = (plain.double() - ref).abs().max().item()
+        same = bool(torch.equal(first, again))
+        it = itertools.cycle(caches)
+        kern = lambda: k6.decode_attn(q, k, v, next(it), posd, bias)
+        plain_fn = lambda: k6.decode_attn_plain(q, k, v, next(it), posd, bias)
+        ms, plain_ms = cuda_time_ms(kern, 2 * layers), cuda_time_ms(plain_fn, 2 * layers)
+        prof = device_profile(kern, 2 * layers, ("decode_attn_kernel",))
+        prof_plain = device_profile(plain_fn, 2 * layers)
+        dev_ms = None if prof is None else prof["own_ms"]["decode_attn_kernel"]
+        dev_plain_ms = None if prof_plain is None else prof_plain["call_ms"]
+        plain_kernels = None if prof_plain is None else prof_plain["kernels"]
+        cols_read = int(valid.sum())  # (row, column) pairs the kernel reads, per head
+        per_col = 2 * dh * (1 if kind == "int8" else 2) + (4 if kind == "int8" else 0)  # K + V (+ their scale share)
+        nbytes = (cols_read * h * per_col + b * s_len * 4 + 4 * b * h * dh * 2
+                  + b * h * 2 * dh * (1 if kind == "int8" else 2))
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        row = dict(case=label, cache=kind, B=b, H=h, S=s_len, Dh=dh, valid_columns=cols_read, bytes=nbytes,
+                   max_abs_err_f64=err, plain_max_abs_err_f64=err_plain, err_over_plain=err / err_plain,
+                   bit_equal_runs=same, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms,
+                   plain_kernels=plain_kernels, bound_ms=bound_ms,
+                   roofline=None if not dev_ms else bound_ms / dev_ms,
+                   per_step_ms=None if dev_ms is None else layers * dev_ms,
+                   plain_per_step_ms=None if dev_plain_ms is None else layers * dev_plain_ms,
+                   ok=bool(err <= err_plain and same))
+        rows.append(row)
+        log(f"[k6] {label:8s} {kind} B={b:2d} H={h} S={s_len} ({cols_read} valid row-columns) err vs f64 {err:.3e}, "
+            f"plain {err_plain:.3e} (ratio {err / err_plain:.3f}), two runs bit-equal {same} | events: kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms | device: kernel {fmt(dev_ms)} ms, plain {fmt(dev_plain_ms)} ms in "
+            f"{fmt(plain_kernels)} kernels; bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB); per step of {layers} "
+            f"layers: kernel {fmt(row['per_step_ms'])} ms, plain {fmt(row['plain_per_step_ms'])} ms [{card}]")
+        if not row["ok"]:
+            failures.append(row)
+        del caches
+    amax = torch.rand(1 << 20, device="cuda", generator=g) * 10
+    torch_scale = amax / 127.0
+    rule = {"times_reciprocal": int((torch_scale != amax * (1.0 / 127.0)).sum()),
+            "true_division": int((torch_scale != torch.div(amax, torch.full_like(amax, 127.0))).sum())}
+    log(f"[k6] amax / 127.0 on the card differs from amax * (1 / 127) in {rule['times_reciprocal']} and from a "
+        f"true division in {rule['true_division']} of {amax.numel()} values [{card}]")
+    if failures:
+        raise AssertionError(f"K6 is farther from float64 than the plain path, or two runs differ: {failures}")
+    return {"rows": rows, "scale_rule": rule}
+
+
 def flagship_engine(quant_kv: bool = False, fast_latents: bool = False):
     from indextts_tpu_torch.engine import IndexTTS
 
@@ -782,6 +889,7 @@ def engine_phase(card: str) -> dict:
     import torch
 
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
 
     t0 = time.perf_counter()
     engine = flagship_engine()
@@ -818,14 +926,15 @@ def engine_phase(card: str) -> dict:
         ("two_sentences", dict(text="HELLO WORLD. THIS IS A TEST.", do_sample=True, num_beams=1,
                                max_mel_tokens=200, max_text_tokens_per_sentence=16)),
     ]
-    k1.launches = 0  # the main path's run starts here
-    results, vocoder_calls = [], 0
+    k1.launches = k6.launches = 0  # the main path's run starts here
+    results, vocoder_calls, decode_steps = [], 0, 0
     for name, kw in requests:
         start = len(vocoded)
         sr, wav = engine.infer(audio_prompt=PROMPT, **kw)
         st = dict(engine.last_stats)
         these = vocoded[start:]
         vocoder_calls += st["vocoder_calls"]
+        decode_steps += st["gpt_steps"]
         n_codes = sum(n for n, _ in these)
         for n, w in these:
             if not np.isfinite(w).all():
@@ -852,9 +961,14 @@ def engine_phase(card: str) -> dict:
     # two activations per dilation in each AMPBlock1, per resblock, per stage, plus activation_post
     per_call = len(h.upsample_rates) * sum(2 * len(d) for d in h.resblock_dilation_sizes) + 1
     want = per_call * vocoder_calls
-    log(f"[engine] K1 launches {launches} over {vocoder_calls} vocoder calls (want {per_call} x {vocoder_calls})")
+    layers = engine.cfg.gpt.layers
+    log(f"[engine] K1 launches {launches} over {vocoder_calls} vocoder calls (want {per_call} x {vocoder_calls}); "
+        f"K6 launches {k6.launches} over {decode_steps} decode steps (want {layers} x {decode_steps})")
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times, want {per_call} x {vocoder_calls} = {want}")
+    if k6.launches != layers * decode_steps or not decode_steps:
+        raise AssertionError(f"K6 launched {k6.launches} times over {decode_steps} decode steps, want {layers} a step")
+    k6_launches = k6.launches
 
     # vocoder stage with K1 and with the composed activations, in turns
     latent = torch.randn(1, 112, engine.cfg.gpt.model_dim, device="cuda", dtype=engine.dtype,
@@ -874,7 +988,7 @@ def engine_phase(card: str) -> dict:
     log(f"[engine] one profiled bigvgan_apply, {prof['codes']} codes, B=1, {engine.dtype}, default route: "
         f"{vocoder_profile_line(prof)} [{card}]")
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "k1_launches": launches, "vocoder_calls": vocoder_calls,
-            "vocoder_ab": ab, "vocoder_profile": prof}
+            "k6_launches": k6_launches, "decode_steps": decode_steps, "vocoder_ab": ab, "vocoder_profile": prof}
 
 
 def vocoder_profile(engine, codes: int = 100) -> dict:
@@ -990,6 +1104,7 @@ def int8_phase(card: str) -> dict:
     import torch
 
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
     from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
@@ -1041,7 +1156,7 @@ def int8_phase(card: str) -> dict:
         ("greedy", "infer", dict(text="HELLO WORLD.", do_sample=False, num_beams=1, max_mel_tokens=200)),
     ]
     spc = engine._samples_per_code()
-    k1.launches = k5.launches = 0  # the int8 path's run starts here
+    k1.launches = k5.launches = k6.launches = 0  # the int8 path's run starts here
     results, gen_calls, gen_steps, vocoder_calls = [], 0, 0, 0
     for name, method, kw in requests:
         start = len(vocoded)
@@ -1074,13 +1189,17 @@ def int8_phase(card: str) -> dict:
     h = engine.cfg.bigvgan
     per_voc = len(h.upsample_rates) * sum(2 * len(d) for d in h.resblock_dilation_sizes) + 1
     want_k1 = per_voc * vocoder_calls
+    want_k6 = engine.cfg.gpt.layers * gen_steps
     log(f"[int8] K5 launches {k5.launches} (want {gen_calls} + {per_step} x {gen_steps} = {want_k5}); "
-        f"K1 launches {k1.launches} (want {per_voc} x {vocoder_calls} = {want_k1})")
-    if k5.launches != want_k5 or k1.launches != want_k1:
-        raise AssertionError(f"launch counts: K5 {k5.launches} (want {want_k5}), K1 {k1.launches} (want {want_k1})")
+        f"K1 launches {k1.launches} (want {per_voc} x {vocoder_calls} = {want_k1}); "
+        f"K6 launches {k6.launches} (want {engine.cfg.gpt.layers} x {gen_steps} = {want_k6})")
+    if k5.launches != want_k5 or k1.launches != want_k1 or k6.launches != want_k6 or not gen_steps:
+        raise AssertionError(f"launch counts: K5 {k5.launches} (want {want_k5}), K1 {k1.launches} (want {want_k1}), "
+                             f"K6 {k6.launches} (want {want_k6})")
     return {"init_s": init_s, "cold_first_request_s": cold_s, "drift": drift, "step_profile": step_profile,
             "requests": results,
-            "k5_launches": k5.launches, "k1_launches": k1.launches, "generate_calls": gen_calls,
+            "k5_launches": k5.launches, "k1_launches": k1.launches, "k6_launches": k6.launches,
+            "generate_calls": gen_calls,
             "decode_steps": gen_steps, "vocoder_calls": vocoder_calls}
 
 
@@ -1162,6 +1281,7 @@ def beam_phase(card: str) -> dict:
 
     from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
     from indextts_tpu_torch.ops.cuda import antialias as k1
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
 
     os.environ["INDEXTTS_WIDE_BRANCH"] = "1"
     try:
@@ -1189,18 +1309,23 @@ def beam_phase(card: str) -> dict:
             ("default_infer_320", "infer", False, dict(text="HELLO WORLD.", max_mel_tokens=320)),
         ]
         spc = engine._samples_per_code()
-        results, k1_total, k2_total = [], 0, 0
+        layers = engine.cfg.gpt.layers
+        results, k1_total, k2_total, k6_total = [], 0, 0, 0
         for name, method, quant_kv, kw in requests:
             engine.quant_kv = quant_kv
-            k1.launches = k2.launches = 0  # this request of the main path starts here
+            k1.launches = k2.launches = k6.launches = 0  # this request of the main path starts here
             sr, wav = getattr(engine, method)(audio_prompt=PROMPT, **kw)
             launches = {"k1": k1.launches, "k2": k2.launches}
             st = dict(engine.last_stats)
             k1_total += launches["k1"]
             k2_total += launches["k2"]
+            k6_total += k6.launches
             calls = st["vocoder_calls"]
             if launches != {"k1": 55 * calls, "k2": 54 * calls}:
                 raise AssertionError(f"{name}: launches {launches} over {calls} vocoder calls, want 55 and 54 each")
+            if k6.launches != layers * st["gpt_steps"] or not st["gpt_steps"]:
+                raise AssertionError(f"{name}: K6 launched {k6.launches} times over {st['gpt_steps']} decode steps, "
+                                     f"want {layers} a step")
             if wav.shape[0] < spc or wav.shape[0] % spc or not np.isfinite(wav).all():
                 raise AssertionError(f"{name}: returned wav {wav.shape}")
             if method == "infer_fast" and st["decode_batches"] != [2]:
@@ -1215,14 +1340,15 @@ def beam_phase(card: str) -> dict:
                        latent_ms=1e3 * st["gpt_forward_s"], teacher_forced_rows=st["tf_latent_rows"],
                        teacher_forced_skipped=st["tf_latent_rows"] == 0, vocoder_ms=1e3 * st["bigvgan_s"],
                        vocoder_calls=calls, k1_launches=launches["k1"], k2_launches=launches["k2"],
-                       total_s=st["total_s"], rtf=st["rtf"])
+                       k6_launches=k6.launches, total_s=st["total_s"], rtf=st["rtf"])
             results.append(row)
             log(f"[beam] {name} ({method}, num_beams 3{', int8 KV' if quant_kv else ''}): {row['codes']} codes, "
                 f"{st['audio_s']:.2f} s audio | cond {row['cond_ms']:.1f} ms, decode {row['decode_ms_per_step']:.2f} "
                 f"ms/step over {st['gpt_steps']} steps in {st['gpt_segments'] or 'no'} segments, latent "
                 f"{row['latent_ms']:.1f} ms (teacher-forced rows "
                 f"{st['tf_latent_rows']}), vocoder {row['vocoder_ms']:.1f} ms in {calls} call(s), total "
-                f"{st['total_s']:.2f} s, RTF {st['rtf']:.4f}; K2 {launches['k2']}, K1 {launches['k1']} launches [{card}]")
+                f"{st['total_s']:.2f} s, RTF {st['rtf']:.4f}; K2 {launches['k2']}, K1 {launches['k1']}, K6 "
+                f"{k6.launches} ({layers} x {st['gpt_steps']}) launches [{card}]")
         engine.quant_kv = False
         step = forced_beam_steps(engine)
         log(f"[beam] forced beam step, B=1 x 3 beams, {step['cache_slots']} cache slots: host "
@@ -1232,7 +1358,7 @@ def beam_phase(card: str) -> dict:
     finally:
         del os.environ["INDEXTTS_WIDE_BRANCH"]
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "forced_step": step,
-            "k1_launches": k1_total, "k2_launches": k2_total}
+            "k1_launches": k1_total, "k2_launches": k2_total, "k6_launches": k6_total}
 
 
 def stream_phase(card: str) -> dict:
@@ -1373,6 +1499,7 @@ def serve_phase(card: str) -> dict:
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import antialias_folded as k4
     from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
 
     # one vocoder call of an engine: its warm run or a replay of its graph
     voc = {"calls": 0}
@@ -1383,7 +1510,14 @@ def serve_phase(card: str) -> dict:
         return vocoder_call(self, *a, **kw)
 
     def start():
-        k1.launches = k3.launches = k4.launches = voc["calls"] = 0
+        k1.launches = k3.launches = k4.launches = k6.launches = voc["calls"] = 0
+
+    def decoded(what: str, steps: int) -> int:
+        """K6's launches since start(): one a layer in each of `steps` decode steps."""
+        want = engine.cfg.gpt.layers * steps
+        if k6.launches != want or not steps:
+            raise AssertionError(f"{what}: K6 launched {k6.launches} times over {steps} decode steps, want {want}")
+        return k6.launches
 
     def launched(what: str, want=(54, 54, 1)) -> dict:
         got = {"k4": k4.launches, "k3": k3.launches, "k1": k1.launches, "vocoder_calls": voc["calls"]}
@@ -1420,6 +1554,7 @@ def serve_phase(card: str) -> dict:
                                  per_request_kwargs=[{"temperature": 0.8}, {"temperature": 1.0}, {}, {"temperature": 1.2}])
         batch_launches = launched("infer_batch")
         st = dict(engine.last_stats)
+        batch_launches["k6"] = decoded("infer_batch", st["gpt_steps"])
         if len(out) != len(items):
             raise AssertionError(f"infer_batch returned {len(out)} results for {len(items)} requests")
         for i, ((sr, wav), n) in enumerate(zip(out, sentences)):
@@ -1443,7 +1578,7 @@ def serve_phase(card: str) -> dict:
             f"batches {st['decode_batches']}, {st['gpt_steps']} steps at {batch['decode_ms_per_step']:.2f} ms/step, cond "
             f"{batch['cond_ms']:.1f} ms, vocoder {batch['vocoder_ms']:.1f} ms in {st['vocoder_calls']} call(s), total "
             f"{st['total_s']:.2f} s for {st['audio_s']:.2f} s audio, RTF {st['rtf']:.4f}; K4 {batch_launches['k4']}, K3 "
-            f"{batch_launches['k3']}, K1 {batch_launches['k1']} launches [{card}]")
+            f"{batch_launches['k3']}, K1 {batch_launches['k1']}, K6 {batch_launches['k6']} launches [{card}]")
 
         # (c) a slot session: a streaming request and three others fill the four
         # slots, three more wait for the slots to free (reuse), and one is
@@ -1478,6 +1613,7 @@ def serve_phase(card: str) -> dict:
         if rest or sess.busy or set(done) != set(rids):
             raise AssertionError(f"slot session: completed {sorted(done)} of {sorted(rids)}; left after the loop {sorted(rest)}")
         slot_launches = launched("slot session")
+        slot_launches["k6"] = decoded("slot session", int(sess.state.tick))
         for rid in rids:
             sr, wav = done[rid]
             if sr != 24000 or wav.dtype != np.int16 or wav.shape != (max_new * spc, 1):
@@ -1492,7 +1628,8 @@ def serve_phase(card: str) -> dict:
             f"(one streaming, one admitted mid-decode): {len(tick_ms)} ticks of {[round(v) for v in tick_ms]} ms "
             f"(decode chunks {[round(v) for v in slots['chunk_ms']]} ms), streamed chunks of {slots['stream_chunks']} "
             f"codes, first chunk {first_chunk_s:.3f} s after submit; K4 {slot_launches['k4']}, K3 {slot_launches['k3']}, "
-            f"K1 {slot_launches['k1']} launches over {slot_launches['vocoder_calls']} vocoder calls [{card}]")
+            f"K1 {slot_launches['k1']} launches over {slot_launches['vocoder_calls']} vocoder calls, K6 "
+            f"{slot_launches['k6']} over {int(sess.state.tick)} slot steps [{card}]")
         if sum(slots["stream_chunks"]) != max_new or sess.tf_latent_rows != 0:
             raise AssertionError(f"slot session: streamed {slots['stream_chunks']} codes, teacher-forced rows "
                                  f"{sess.tf_latent_rows}")
@@ -1525,7 +1662,8 @@ def serve_phase(card: str) -> dict:
             "forced_slot_chunk": step, "fused_aa_alone": fused_only, "fused_aa_vocoder_profile": voc_prof,
             "k4_launches": warm["k4"] + batch_launches["k4"] + slot_launches["k4"],
             "k3_launches": warm["k3"] + batch_launches["k3"] + slot_launches["k3"],
-            "k1_launches": warm["k1"] + batch_launches["k1"] + slot_launches["k1"]}
+            "k1_launches": warm["k1"] + batch_launches["k1"] + slot_launches["k1"],
+            "k6_launches": batch_launches["k6"] + slot_launches["k6"]}
 
 
 def tiny_config():
@@ -2725,7 +2863,7 @@ def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str
     """One rank of the mesh phase's captured programs (spawned), bf16 at
     tp = 2 (dp = world / 2): which stages capture here; each request eager
     (Graphs.eager()), replayed and replayed again, its codes token-exact and
-    K1-K5's launches and the host reads equal (graph_vs_eager): greedy and
+    K1-K6's launches and the host reads equal (graph_vs_eager): greedy and
     sampled num_beams=1 and the default num_beams=3, the same with the stop
     code's bias raised by `stop_raise` (rows stop mid-block), infer_batch of
     4 requests, a SlotSession of 4 slots serving 6 requests (the host ms of
@@ -2837,7 +2975,7 @@ def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str
 
             either = lambda flag: bool(e.mesh.world.all_reduce(torch.tensor([int(flag)]), op=dist.ReduceOp.MAX))
             out["step"] = step_profile(e, b4_decode(e, conds1, 32 if nccl else 8, False), tag,
-                                       "mesh decode step, B=4, bf16", {},
+                                       "mesh decode step, B=4, bf16", {"k6": e.cfg.gpt.layers},
                                        modes=("eager", "graph", "graph_per_step") if nccl else ("eager",),
                                        own=("nccl", "Memcpy"), agree=either)
             quantize_unified_voice(e.gpt)
@@ -3141,22 +3279,22 @@ def _count_events(entries) -> dict:
     return out
 
 
-# the kernel wrappers' launch counters, K1-K5 (the graphs phase compares them eager against replayed)
-K_NAMES = ("k1", "k2", "k3", "k4", "k5")
-# the __global__ functions of K1-K5 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
-# steps (or vocoder calls) in the short window where step_profile counts K1-K5's kernels
+# the kernel wrappers' launch counters, K1-K6 (the graphs phase compares them eager against replayed)
+K_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6")
+# the __global__ functions of K1-K6 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
+# steps (or vocoder calls) in the short window where step_profile counts K1-K6's kernels
 COUNT_STEPS = 4
-# a window whose count of K1-K5's kernels falls short of the launches (the profiler dropped
+# a window whose count of K1-K6's kernels falls short of the launches (the profiler dropped
 # records: a replayed int8 window once read 387 of 388 K5 kernels over 4 steps) is taken
 # again, up to this many windows; a count above the launches fails at once
 COUNT_TRIES = 3
 K_KERNELS = {"k1": ("anti_alias_snake_kernel",), "k2": ("aa_snake_dconv_f32_kernel", "aa_snake_dconv_wgmma_kernel"),
              "k3": ("tmajor_taps_kernel", "tmajor_ident_kernel", "tmajor_mma_kernel"), "k4": ("folded_aa_kernel",),
-             "k5": ("int8_matmul_kernel",)}
+             "k5": ("int8_matmul_kernel",), "k6": ("decode_attn_kernel",)}
 
 
 def kernel_counts(prof) -> dict:
-    """How many kernels of K1-K5 a profile recorded on the card, by name.
+    """How many kernels of K1-K6 a profile recorded on the card, by name.
     Kernels inside a replayed CUDA graph are recorded one by one, so this
     count does not depend on the wrappers' counters, which a replay does not
     run."""
@@ -3188,9 +3326,10 @@ def run_profiled(fn, tries: int = 3):
 
 
 def kernel_modules() -> dict:
-    from indextts_tpu_torch.ops.cuda import aa_conv_branch, antialias, antialias_folded, antialias_tmajor, qmatmul
+    from indextts_tpu_torch.ops.cuda import (aa_conv_branch, antialias, antialias_folded, antialias_tmajor,
+                                             decode_attn, qmatmul)
 
-    return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul)))
+    return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul, decode_attn)))
 
 
 class CodeRecorder:
@@ -3228,9 +3367,9 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
     through its graphs (capturing the keys it has not seen), then once more
     (replays only), the engine's generator reseeded alike before each (a
     slot session seeds its own). Every code row the three decode must be
-    token-exact, K1-K5's wrappers must count as many launches in each (a
+    token-exact, K1-K6's wrappers must count as many launches in each (a
     replay adds the counts its capture took), and a list fn returns (chunk
-    or wav sizes) must be the same. The profiler's own count of K1-K5's
+    or wav sizes) must be the same. The profiler's own count of K1-K6's
     kernels under replay is step_profile's and the vocoder routes'. Returns
     the wall seconds, the launches of one run and the decode ms per step of
     each."""
@@ -3433,7 +3572,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
     the span from the first kernel's start to the last one's end: what the
     span adds to the sum is the gaps between kernels, what the host time
     adds to the span is the host's own part of a step). Then one short run,
-    go(COUNT_STEPS), under the profiler again: its count of K1-K5's kernels,
+    go(COUNT_STEPS), under the profiler again: its count of K1-K6's kernels,
     by name, must be `want` a step (the wrappers' count) in each mode; under
     replay, the count that does not rest on the wrappers' counters. The
     window is short because the profiler drops a kernel record now and then
@@ -3489,7 +3628,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
         if dropped:
             log(f"[profile] {label}, {mode}: windows with records dropped, taken again: {dropped} [{card}]")
         if counted != expected:
-            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K5 over {n3} {mode} steps, "
+            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K6 over {n3} {mode} steps, "
                                  f"want {want} a step (earlier windows: {dropped})")
         device = sum(e.self_device_time_total for e in events) / 1e3 / n2 if events else None
         kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
@@ -3504,7 +3643,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
                                                 / 1e3 / n2 if events else None) for name in own}}
     dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
         f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
-        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K5 kernels "
+        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K6 kernels "
         f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps"
         + "".join(f"; {name} kernels {ms:.4f} ms" for name, ms in v["own_ms_per_step"].items() if ms is not None))
     names = {"eager": "eager", "graph": "replayed in blocks", "graph_per_step": "replayed one step a call"}
@@ -4046,7 +4185,7 @@ def graphs_phase(card: str) -> dict:
     published widths, bf16, random init from seed 0: the toy block check;
     each request eager (the private switch), then replayed twice, also with
     the stop code's bias raised (rows stop mid-block); codes token-exact,
-    K1-K5 launch counts and host reads equal; conditioning and latent passes
+    K1-K6 launch counts and host reads equal; conditioning and latent passes
     within 1 bf16 unit; vocoder wav within 1 int16 unit on the four routes;
     host and device ms per step eager beside replayed in blocks and one step
     a call; capture seconds and pool bytes per key; warmup seconds."""
@@ -4193,7 +4332,7 @@ def graphs_phase(card: str) -> dict:
             if per_call != want[route] or any(v % 2 for v in counts["eager"].values()):
                 raise AssertionError(f"vocoder {route}: {counts['eager']} launches over 2 calls, want {want[route]} a call")
             vocoder[route] = {"max_int16_diff": err, "launches": counts["graph"], "kernels_profiled": by_profiler}
-            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K5 kernels {by_profiler['graph']} "
+            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K6 kernels {by_profiler['graph']} "
                 f"for one 100-code call and one batch of 2 by the profiler, as the wrappers launched eager [{card}]")
 
         # host vs device per step, eager beside replayed
@@ -4250,10 +4389,12 @@ def graphs_phase(card: str) -> dict:
                 return n
             return go
 
-        timing = {"b4_bf16": step_profile(engine, prepare_b4(False), card, "decode step, B=4, bf16 cache", {}),
+        k6_step = {"k6": cfg.layers}  # K6: one launch a layer in every decode step
+        timing = {"b4_bf16": step_profile(engine, prepare_b4(False), card, "decode step, B=4, bf16 cache", k6_step),
                   "slot_chunk_4_rows": step_profile(engine, prepare_slots, card, "slot step, 4 sampled rows, 256 slots",
-                                                    {}),
-                  "beams_b1x3": step_profile(engine, prepare_beams, card, "beam step, B=1 x 3 beams, 251 slots", {}),
+                                                    k6_step),
+                  "beams_b1x3": step_profile(engine, prepare_beams, card, "beam step, B=1 x 3 beams, 251 slots",
+                                             k6_step),
                   "vocoder_100_codes": step_profile(engine, prepare_vocoder, card,
                                                     "vocoder call, 100 codes, default route (per call)", {"k1": 109})}
 
@@ -4285,7 +4426,18 @@ def graphs_phase(card: str) -> dict:
             with torch.no_grad():
                 engine.gpt.mel_head.bias[cfg.stop_mel_token] = stop_base8
         timing["b4_int8_kv_k5"] = step_profile(engine, prepare_b4(True), card, "decode step, B=4, int8 KV + K5",
-                                               {"k5": 97})
+                                               {"k5": 97, **k6_step})
+        # K6 once a layer in every decode step of every route, eager as replayed (graph_vs_eager holds them equal);
+        # a slot session's steps are not in last_stats, so its rows need K6 only to have run
+        def k6_wrong(r):
+            steps = r["gpt_steps"]
+            return r["launches"]["k6"] != cfg.layers * steps if steps is not None else not r["launches"]["k6"]
+
+        k6_off = [(r["request"], r["launches"]["k6"], r["gpt_steps"]) for r in rows if k6_wrong(r)]
+        if k6_off:
+            raise AssertionError(f"K6 launches (request, launches, decode steps) off {cfg.layers} a step: {k6_off}")
+        log(f"[graphs] K6 launches = {cfg.layers} x decode steps in every route, eager and replayed: "
+            f"{sum(r['launches']['k6'] for r in rows)} over {len(rows)} requests [{card}]")
     finally:
         rec.close()
         engine.quant_kv = False
@@ -4411,8 +4563,8 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
     return out
 
 
-PHASES = ("kernel", "k2", "k3", "k4", "k5", "engine", "beam", "stream", "serve", "int8", "small", "ckpt", "legacy",
-          "fidelity", "mesh", "meshgraphs", "graphs")
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "k6", "engine", "beam", "stream", "serve", "int8", "small", "ckpt",
+          "legacy", "fidelity", "mesh", "meshgraphs", "graphs")
 
 
 def main(argv) -> int:
@@ -4443,12 +4595,13 @@ def main(argv) -> int:
     from indextts_tpu_torch.ops.cuda import build
     from indextts_tpu_torch.config import load_config
     from indextts_tpu_torch.ops.cuda import graph_block
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
-    # one nvcc per source, started together (K1-K5, and the decode block's
+    # one nvcc per source, started together (K1-K6, and the decode block's
     # predicate kernel and graph assembly, which every CUDA engine's loops use)
     t = time.perf_counter()
-    kernels_built = (k1, k2, k3, k4, k5, graph_block)
+    kernels_built = (k1, k2, k3, k4, k5, k6, graph_block)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
@@ -4459,7 +4612,7 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {src}:", line.strip())
 
-    phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase,
+    phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase, "k6": k6_phase,
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
                  "fidelity": fidelity_phase, "mesh": mesh_phase, "meshgraphs": mesh_graphs_phase, "graphs": lambda c: phase_in_child("graphs", c)}
@@ -4476,6 +4629,7 @@ def main(argv) -> int:
     kern3 = k3_phase(card)
     kern4 = k4_phase(card)
     kern5 = k5_phase(card)
+    kern6 = k6_phase(card)
     eng = engine_phase(card)
     beam = beam_phase(card)
     stream = stream_phase(card)
@@ -4560,6 +4714,7 @@ def main(argv) -> int:
         "k4_per_vocoder_call_ms": k4_per_voc,
         "k5": kern5,
         "k5_per_decode_step_ms": {str(m): v for m, v in k5_per_step.items()},
+        "k6": kern6,
         "engine": eng,
         "beam": beam,
         "stream": stream,
@@ -4624,6 +4779,18 @@ def main(argv) -> int:
                      "ms": mesh["k5_own_ms_per_step"], "one_process_ms": mesh["k5_own_ms_per_step_one_process"],
                      "bound_ms": 1e3 * k5_tp2_terms[k5_tp2_by], "bound_by": k5_tp2_by,
                      "max_abs_err": mesh["k5_max_abs_err"], "shapes_N_K": mesh["k5_shard_shapes"]},
+    }, {
+        # per decode step (one launch a layer) of the batch loop's 8 rows; the beams' and the slots' rows beside it
+        "name": "decode_attn", "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
+        "launches": eng["k6_launches"], "launches_beam_phase": beam["k6_launches"],
+        "launches_serve_phase": serve["k6_launches"], "launches_int8_phase": int8["k6_launches"],
+        "launches_graphs_phase": graphs["launches"]["k6"],
+        "max_abs_err": max(r["max_abs_err_f64"] for r in kern6["rows"]),
+        "ms": kern6["rows"][0]["per_step_ms"], "plain_ms": kern6["rows"][0]["plain_per_step_ms"],
+        "bound_ms": layers * kern6["rows"][0]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "call_ms": kern6["rows"][0]["per_step_ms"],  # the wrapper launches nothing but the kernel
+        "cases": {r["case"]: {"ms": r["per_step_ms"], "plain_ms": r["plain_per_step_ms"],
+                              "bound_ms": layers * r["bound_ms"]} for r in kern6["rows"]},
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,7 @@ from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.conv import conv1d
+from indextts_tpu_torch.ops.cuda.decode_attn import decode_attn
 from indextts_tpu_torch.ops.norms import group_norm, layer_norm
 from indextts_tpu_torch.ops.quant import linear_no_bias
 from indextts_tpu_torch.parallel.mesh import copy_to_region, gather_from_region, reduce_from_region
@@ -121,18 +122,11 @@ class GPT2Block(nn.Module):
         """One new token x [B, D] against the caches [B, H, S, Dh]. `bias`
         [B, 1, S] masks slot `pos`: the token's own K/V enter the softmax as
         an extra logit, as in JAX _decode_block, and are then written into
-        slot `pos` of the caches in place. `pos` is an int or a one-element
-        long tensor on the device (a captured step reads no host value)."""
-        b = x.shape[0]
+        slot `pos` of the caches in place (K6, ops/cuda/decode_attn.py).
+        `pos` is an int or a one-element long tensor on the device (a
+        captured step reads no host value)."""
         q, k, v = self.qkv(x, heads)
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        s = (q[:, :, None] @ k_cache.transpose(-1, -2))[:, :, 0].float()
-        scores = torch.cat([s * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
-        attn = torch.softmax(scores, dim=-1).to(x.dtype)
-        a = (attn[:, :, None, :-1] @ v_cache)[:, :, 0] + attn[..., -1:] * v
-        write_at(k_cache, 2, pos, k)
-        write_at(v_cache, 2, pos, v)
-        return self.proj(x, a.reshape(b, -1))
+        return self.proj(x, decode_attn(q, k, v, (k_cache, v_cache), pos, bias))
 
 
 class GPT2(nn.Module):

@@ -61,7 +61,6 @@ cache, monolithic or with a cache that grows by segments).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
@@ -72,6 +71,7 @@ from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
                                            write_at)
+from indextts_tpu_torch.ops.cuda.decode_attn import decode_attn, quant_cols as _quant_cols
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
     Knob,
@@ -245,45 +245,15 @@ def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch
     return _mel_logits(model, hidden[:, -1]), cache
 
 
-def _quant_cols(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 of a cache t [..., H, S, Dh] with one scale per head
-    pair and position: the amax runs over heads 2g and 2g+1 together, the
-    column of JAX's head-paired cache (gpt_decode.py:326-336). Returns (q
-    [..., H, S, Dh] int8, s [..., H/2, S] float32), t ~ q * s."""
-    *lead, h, s_len, dh = t.shape
-    if h % 2:
-        raise ValueError(f"the int8 KV cache scales head pairs: {h} heads (a tensor-parallel shard built "
-                         "for quant_kv keeps an even count, parallel/mesh._check_divisible)")
-    tf = t.float().reshape(*lead, h // 2, 2, s_len, dh)
-    amax = tf.abs().amax(dim=(-3, -1))
-    s = torch.clamp(amax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(tf / s[..., None, :, None]), -127, 127).to(torch.int8)
-    return q.reshape(t.shape), s
-
-
 def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor, v8: torch.Tensor,
                     vs: torch.Tensor, pos: Union[int, torch.Tensor], bias: torch.Tensor, heads: int) -> torch.Tensor:
     """GPT2Block.step against the int8 cache of one layer: k8 / v8 [B, H, S,
     Dh], ks / vs [B, H/2, S]. `bias` [B, 1, S] masks slot `pos`: the new
     token's exact K / V enter the softmax as an extra logit, and are then
-    quantized into slot `pos` (an int or a [1] device index) in place.
-    Dequantization in JAX's order
-    (_decode_block_q): scores contract in x's dtype and then take ks in
-    float32; the attention weights take vs in float32 before the cast."""
-    b = x.shape[0]
+    quantized into slot `pos` (an int or a [1] device index) in place (K6,
+    ops/cuda/decode_attn.py, whose plain version dequantizes in JAX's order)."""
     q, k, v = block.qkv(x, heads)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    ksh, vsh = ks.repeat_interleave(2, dim=1), vs.repeat_interleave(2, dim=1)  # [B, H, S]
-    s = (q[:, :, None] @ k8.to(x.dtype).transpose(-1, -2))[:, :, 0].float()
-    scores = torch.cat([s * ksh * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
-    attn = torch.softmax(scores, dim=-1)
-    a2 = (attn[..., :-1] * vsh).to(x.dtype)
-    a = (a2[:, :, None] @ v8.to(x.dtype))[:, :, 0] + attn[..., -1:].to(x.dtype) * v
-    for cache8, cache_s, new in ((k8, ks, k), (v8, vs, v)):
-        q8, qs = _quant_cols(new[:, :, None])
-        write_at(cache8, 2, pos, q8[:, :, 0])
-        write_at(cache_s, 2, pos, qs[:, :, 0])
-    return block.proj(x, a.reshape(b, -1))
+    return block.proj(x, decode_attn(q, k, v, (k8, ks, v8, vs), pos, bias))
 
 
 def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_pos: Union[int, torch.Tensor], cache,

@@ -14,6 +14,7 @@ from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
 from indextts_tpu_torch.ops.cuda import antialias as k1
 from indextts_tpu_torch.ops.cuda import antialias_folded as k4
 from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
+from indextts_tpu_torch.ops.cuda import decode_attn as k6
 from indextts_tpu_torch.ops.cuda import qmatmul as k5
 
 # (K, N) of the GPT matmuls at the published IndexTTS-1.5 width: qkv, proj,
@@ -767,3 +768,260 @@ def test_capture_rule_on_the_card():
     assert runs == [(10, False), (0, False)] and lane.graph is None
     events = {(stage, event) for stage, event, *_ in g.log}
     assert {("voc", "warm"), ("voc", "capture"), ("voc", "replay"), ("dec", "bind"), ("dec", "run")} <= events
+
+
+# K6 (ops/cuda/decode_attn.py): the decode step's attention over one layer's
+# KV cache, at the main path's shapes: (cache, B, H, S) of the batch and beam
+# loops (bf16) and the slot loop (int8, 32 slots), at the model's 20 heads and
+# a tensor-parallel shard's 10; Dh = 64. S = 351 leaves a ragged last block
+# of the cluster's split.
+K6_SHAPES = ([("bf16", b, h, 320) for b in (1, 3, 8) for h in (20, 10)] + [("bf16", 3, 20, 351)]
+             + [("int8", 32, h, 320) for h in (20, 10)])
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, with float32 products in full float32; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _k6_inputs(kind, b, h, s_len, dtype=torch.bfloat16, dh=64, pos=200, seed=0):
+    """q, k, v as the qkv projection's thirds (views of one [B, 3 H Dh]
+    tensor), the cache, the bias and pos. Rows attend different spans: a
+    left pad of 7 b columns, the columns up to pos, and on the slot cache
+    (int8) also columns past pos, as a circular cache's rows do; column pos
+    is masked in every row."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(b, 3 * h * dh, device="cuda", generator=g).to(dtype)
+    q, k, v = (t.reshape(b, h, dh) for t in y.split(h * dh, dim=-1))
+    kv = [torch.randn(b, h, s_len, dh, device="cuda", generator=g).to(dtype) for _ in range(2)]
+    cols = torch.arange(s_len, device="cuda")[None, :]
+    valid = (cols >= 7 * torch.arange(b, device="cuda")[:, None] % pos) & (cols < pos)
+    if kind == "int8":
+        (k8, ks), (v8, vs) = k6.quant_cols(kv[0]), k6.quant_cols(kv[1])
+        cache = (k8, ks, v8, vs)
+        valid |= (cols > pos) & (torch.rand(b, s_len, device="cuda", generator=g) < 0.7)
+    else:
+        cache = tuple(kv)
+    valid &= cols != pos
+    bias = torch.where(valid, torch.zeros((), device="cuda"), torch.finfo(torch.float32).min)[:, None, :]
+    return q, k, v, cache, torch.tensor([pos], device="cuda"), bias
+
+
+def _k6_run(q, k, v, cache, pos, bias):
+    """K6 on a copy of the cache: (out, the cache after the write)."""
+    mine = tuple(c.clone() for c in cache)
+    out = k6.decode_attn(q, k, v, mine, pos, bias)
+    torch.cuda.synchronize()
+    return out, mine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,s_len", K6_SHAPES)
+def test_k6_is_no_farther_from_float64_than_the_plain_path(card, kind, b, h, s_len):
+    """Against the formula in float64, K6's largest error is at most the
+    plain path's on the card (which rounds the scores and the weighted sums
+    to bf16 between its products; K6 rounds once, at the output), and each
+    output is within one bf16 ulp of the float64 value, plus 1e-5 for
+    float32's sums: half an ulp for the one rounding, the rest for the sums
+    and exponentials in float32. One launch, and two runs give the same bits
+    (no atomics; the cluster merges in rank order)."""
+    q, k, v, cache, pos, bias = _k6_inputs(kind, b, h, s_len)
+    ref = k6.decode_attn_f64(q, k, v, cache, bias)
+    before = k6.launches
+    out, _ = _k6_run(q, k, v, cache, pos, bias)
+    again, _ = _k6_run(q, k, v, cache, pos, bias)
+    assert k6.launches == before + 2 and out.shape == (b, h * 64) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    plain = k6.decode_attn_plain(q, k, v, tuple(c.clone() for c in cache), pos, bias)
+    err = (out.double() - ref).abs()
+    err_plain = (plain.double() - ref).abs().max().item()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+    assert (err <= ulp + 1e-5).all(), (err.max().item(), (err / (ulp + 1e-5)).max().item())
+    assert err.max().item() <= err_plain, (err.max().item(), err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_kind", ["int", "tensor"])
+@pytest.mark.parametrize("kind,b,h,s_len", [("int8", 32, 20, 320), ("int8", 3, 10, 351), ("bf16", 8, 20, 320)])
+def test_k6_writes_column_pos_as_the_plain_path(card, kind, b, h, s_len, pos_kind):
+    """Column pos after the launch: the int8 bytes and scales of _quant_cols
+    on the card, exactly; bf16 K / V as they are. Every other column keeps
+    its bytes."""
+    q, k, v, cache, pos, bias = _k6_inputs(kind, b, h, s_len, seed=1)
+    _, mine = _k6_run(q, k, v, cache, 200 if pos_kind == "int" else pos, bias)
+    rest = [j for j in range(s_len) if j != 200]
+    if kind == "int8":
+        from indextts_tpu_torch.models.gpt_decode import _quant_cols
+
+        for new, c8, cs in ((k, mine[0], mine[1]), (v, mine[2], mine[3])):
+            q8, qs = _quant_cols(new[:, :, None])
+            assert torch.equal(c8[:, :, 200], q8[:, :, 0]) and torch.equal(cs[:, :, 200], qs[:, :, 0])
+    else:
+        assert torch.equal(mine[0][:, :, 200], k) and torch.equal(mine[1][:, :, 200], v)
+    for c, was in zip(mine, cache):
+        assert torch.equal(c[..., rest, :] if c.dim() == 4 else c[..., rest], was[..., rest, :] if was.dim() == 4
+                           else was[..., rest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,s_len", [("int8", 32, 20, 320), ("bf16", 3, 20, 351), ("bf16", 8, 10, 320)])
+def test_k6_never_reads_column_pos_or_masked_columns(card, kind, b, h, s_len):
+    """NaN, inf and the extreme int8 bytes in column pos and in every masked
+    column (and NaN in their scales) give the same bits as zeros there."""
+    q, k, v, cache, pos, bias = _k6_inputs(kind, b, h, s_len, seed=2)
+    masked = (bias[:, 0] <= torch.finfo(torch.float32).min)  # [B, S], column pos included
+    assert masked[:, 200].all()
+
+    def filled(how):
+        out = []
+        for c in cache:
+            c = c.clone()
+            sel = masked[:, None, :].expand(c.shape[:3]) if c.dim() == 4 else masked[:, None, :].expand(c.shape)
+            if c.dtype == torch.int8:
+                c[sel] = 0 if how == "zero" else -128
+            elif c.dim() == 4:
+                c[sel] = 0 if how == "zero" else float("nan")
+                if how != "zero":
+                    c[:, :, 200, ::2] = float("inf")
+            else:
+                c[sel] = 0 if how == "zero" else float("nan")
+            out.append(c)
+        return tuple(out)
+
+    zero, _ = _k6_run(q, k, v, filled("zero"), pos, bias)
+    junk, _ = _k6_run(q, k, v, filled("junk"), pos, bias)
+    assert torch.isfinite(junk.float()).all() and torch.equal(zero, junk)
+
+
+@pytest.mark.cuda
+def test_k6_raises_instead_of_falling_back(card):
+    """On a CUDA tensor the wrapper launches or raises; it never takes the plain path."""
+    q, k, v, cache, pos, bias = _k6_inputs("bf16", 2, 4, 64, pos=40)
+    before = k6.launches
+    with pytest.raises(TypeError):
+        k6.decode_attn(q.half(), k.half(), v.half(), cache, pos, bias)
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, tuple(c[..., :48].contiguous() for c in cache), pos, bias)  # another head size
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, (cache[0].transpose(2, 3).contiguous().transpose(2, 3), cache[1]), pos, bias)
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, cache, pos.int(), bias)
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, cache, 64, bias)
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, cache, pos, bias.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        k6.decode_attn(q.contiguous(), k, v, cache, pos, bias)  # q no longer a third of the qkv projection
+    q3, k3, v3, cache3, _, bias3 = _k6_inputs("int8", 2, 4, 64, pos=40)
+    with pytest.raises(ValueError):
+        k6.decode_attn(q3[:, :3], k3[:, :3], v3[:, :3], (cache3[0][:, :3].contiguous(), cache3[1],
+                                                         cache3[2][:, :3].contiguous(), cache3[3]), 40, bias3)
+    assert k6.launches == before
+
+
+# a child process: one launch at a valid device pos, then one at pos = S
+_K6_TRAP_CHILD = """
+import torch
+from indextts_tpu_torch.ops.cuda import decode_attn as k6
+b, h, s, dh = 2, 4, 64, 64
+q, k, v = torch.randn(b, 3, h, dh, device="cuda", dtype=torch.bfloat16).unbind(1)
+cache = tuple(torch.randn(b, h, s, dh, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+bias = torch.zeros(b, 1, s, device="cuda")
+for at in (s - 1, s):
+    k6.decode_attn(q, k, v, cache, torch.tensor([at], device="cuda"), bias)
+    torch.cuda.synchronize()
+    print("ran pos", at, flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_k6_traps_on_a_device_pos_outside_the_cache(card):
+    """A device pos outside [0, S) stops the kernel (a trap) instead of
+    skipping the write, as index_copy_ fails on such an index; in a child
+    process, since a trap loses the CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _K6_TRAP_CHILD], cwd=repo, capture_output=True, text=True, timeout=600)
+    assert "ran pos 63" in r.stdout, r.stderr[-2000:]
+    assert "ran pos 64" not in r.stdout and r.returncode != 0, (r.stdout, r.stderr[-2000:])
+
+
+def _k6_model(quant_heads=4):
+    """A tiny UnifiedVoice on the card in bf16 (Dh = 64, so the step runs K6
+    at the model's head size), random weights from a fixed seed, the stop
+    code's logit lowered so that every loop runs its whole budget."""
+    from indextts_tpu_torch.config import ConditionModuleConfig, GPTConfig
+    from indextts_tpu_torch.models.gpt import UnifiedVoice
+
+    cfg = GPTConfig(layers=2, model_dim=64 * quant_heads, heads=quant_heads, max_text_tokens=60, max_mel_tokens=48,
+                    number_text_tokens=50, number_mel_codes=66, start_mel_token=64, stop_mel_token=65,
+                    condition_num_latent=8,
+                    condition_module=ConditionModuleConfig(output_size=32, linear_units=64, attention_heads=4,
+                                                           num_blocks=1, input_layer="conv2d2", perceiver_mult=2))
+    model = UnifiedVoice(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.mel_head.bias[cfg.stop_mel_token] = -1e4
+    return cfg, model.to("cuda", torch.bfloat16).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["decode", "decode_int8", "beam", "slot"])
+def test_k6_replayed_blocks_equal_eager(card, loop):
+    """A decode loop's blocks captured and replayed (graphs.py) against the
+    same blocks run eagerly: token for token over more than one block, and
+    K6's `launches` counts layers x steps run in both (a replay adds the
+    captured step's launch per layer times the steps the block ran)."""
+    from indextts_tpu_torch.graphs import BLOCK, Graphs
+    from indextts_tpu_torch.models import gpt_decode as tdec
+    from indextts_tpu_torch.models import gpt_slots as tslots
+
+    cfg, model = _k6_model()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b = 3
+    conds = (0.1 * torch.randn(b, 8, cfg.model_dim, device="cuda", generator=g)).to(torch.bfloat16)
+    text = torch.randint(2, 50, (b, 12), device="cuda", generator=g)
+    lens = torch.tensor([12, 9, 5], device="cuda")
+
+    def run(graphs):
+        before = k6.launches
+        with torch.no_grad():
+            if loop in ("decode", "decode_int8"):
+                gen = tdec.GenerationConfig(do_sample=False, max_new_tokens=40)
+                codes, lengths = tdec.generate_speech(model, cfg, gen, conds, text, lens, torch.Generator(),
+                                                      quant_kv=loop == "decode_int8", graphs=graphs.decode)
+                steps = int(lengths.max()) - 1
+            elif loop == "beam":
+                gen = tdec.GenerationConfig(do_sample=False, num_beams=3, max_new_tokens=40, early_stopping=False)
+                stats = {}
+                codes, lengths = tdec.generate_speech_beam(model, cfg, gen, conds[:1], text[:1], lens[:1],
+                                                           torch.Generator(), stats=stats, graphs=graphs.decode)[:2]
+                steps = stats["steps"]
+            else:
+                gen = tdec.GenerationConfig(do_sample=False, max_new_tokens=40)
+                st = tslots.slot_state_init(cfg, gen, 4, 128, torch.bfloat16, device="cuda", quant_kv=True)
+                for slot in range(b):
+                    prod = tslots.slot_prefill(model, cfg, gen, conds[slot : slot + 1], text[slot : slot + 1, :12],
+                                               lens[slot : slot + 1], torch.Generator(), quant_kv=True)
+                    tslots.slot_admit(st, prod, slot, cfg)
+                tslots.slot_steps(model, cfg, gen, st, 45, torch.Generator(), graphs=graphs.slot)
+                codes, steps = st.codes, int(st.tick)
+        torch.cuda.synchronize()
+        return codes.cpu(), steps, k6.launches - before
+
+    graphs = Graphs("cuda")
+    eager_graphs = Graphs("cuda")
+    with eager_graphs.eager():
+        want, want_steps, want_launches = run(eager_graphs)
+    got, got_steps, got_launches = run(graphs)
+    assert torch.equal(got, want)
+    assert got_steps == want_steps > BLOCK and want_launches == got_launches == cfg.layers * want_steps
+    stage = graphs.slot if loop == "slot" else graphs.decode
+    assert any(lane.replays > 0 for lane in stage.lanes.values())
