@@ -1,5 +1,7 @@
-"""Frozen operation and byte counts: the card's peaks, the model FLOPs of
-each unit of IndexTTS-1.5's work, and K1's operations and bytes.
+"""Frozen operation and byte counts that every architecture shares: the
+card's peaks, a kernel's bound from its bytes and operations, and the
+vocoder's model FLOPs and K1's operations and bytes. Each architecture's own
+counts are in counts/models/<architecture>.py.
 
 Model FLOPs count the matrix products and convolutions of the model's
 definition at the sizes of the work (2 per multiply-add), whatever kernels
@@ -28,55 +30,16 @@ ACT_BYTES = 4
 # K1 launches of one vocoder call on the default route: three resblocks of
 # six activations at each upsampling stage, and activation_post
 K1_PER_STAGE = 18
+# K1's __global__ function, as the profiler names its launches
+K1_KERNEL = "anti_alias_snake_kernel"
 
 
-def gpt_token(g: Dict, ctx: int, head: bool) -> float:
-    """One token through the GPT-2 stack attending to `ctx` positions (its
-    own included), plus the mel head when `head`."""
-    d, layers = g["model_dim"], g["layers"]
-    return 2.0 * layers * 12 * d * d + 4.0 * layers * d * ctx + (2.0 * d * g["number_mel_codes"] if head else 0.0)
-
-
-def prefill(g: Dict, p: int) -> float:
-    """The causal prefill of p positions ([conds | text | start_mel]) and the
-    mel head at its last position."""
-    d, layers = g["model_dim"], g["layers"]
-    return 2.0 * layers * 12 * d * d * p + 2.0 * layers * d * p * p + 2.0 * d * g["number_mel_codes"]
-
-
-def decode_steps(g: Dict, p: int, first: int, steps: int) -> float:
-    """`steps` decode steps of one row whose prefill held p positions,
-    starting at step index `first` (step i attends to p + i + 1 positions)."""
-    n = steps
-    ctx_sum = n * (p + first + 1) + n * (n - 1) / 2.0
-    d, layers = g["model_dim"], g["layers"]
-    return n * (2.0 * layers * 12 * d * d + 2.0 * d * g["number_mel_codes"]) + 4.0 * layers * d * ctx_sum
-
-
-def latent_pass(g: Dict, t: int) -> float:
-    """The teacher-forced latent pass over t positions (no head)."""
-    d, layers = g["model_dim"], g["layers"]
-    return 2.0 * layers * 12 * d * d * t + 2.0 * layers * d * t * t
-
-
-def conditioning(g: Dict, frames: int) -> float:
-    """The conformer (conv2d2 input, rel_pos attention) and the perceiver on
-    a prompt of `frames` mel frames (as padded)."""
-    cm = g["condition_module"]
-    c, units, d = cm["output_size"], cm["linear_units"], g["model_dim"]
-    t = (frames - 3) // 2 + 1
-    f = (100 - 3) // 2 + 1
-    total = 2.0 * c * 9 * t * f + 2.0 * c * f * c * t
-    per_layer = (5 * 2.0 * c * c * t + 6.0 * c * t * t + 2.0 * c * 2 * c * t + 2.0 * c * 15 * t
-                 + 2.0 * c * c * t + 2 * 2.0 * c * units * t)
-    total += cm["num_blocks"] * per_layer
-    n = g["condition_num_latent"]
-    inner = 64 * cm["attention_heads"]
-    ff = int(d * cm["perceiver_mult"] * 2 / 3)
-    total += 2.0 * c * d * t
-    per_layer = (2.0 * d * inner * n + 2.0 * d * 2 * inner * (n + t) + 4.0 * inner * n * (n + t)
-                 + 2.0 * inner * d * n + 2.0 * d * 2 * ff * n + 2.0 * ff * d * n)
-    return total + 2 * per_layer
+def bound_s(bytes: float = 0.0, f32: float = 0.0, bf16: float = 0.0) -> float:
+    """The least time the card could take for a kernel's work: its bytes
+    over the memory rate, or its float32 operations over the CUDA cores'
+    rate, or its bf16 tensor-core operations over theirs, whichever is
+    longest."""
+    return max(bytes / PEAK_BYTES, f32 / PEAK_F32, bf16 / PEAK_BF16)
 
 
 def _stages(h: Dict):
@@ -131,4 +94,4 @@ def k1_launches(h: Dict) -> int:
 def k1_bound_s(elements: int) -> float:
     """The least time the card could take for K1's work: bytes over the
     memory rate or float32 operations over the CUDA cores' rate."""
-    return max(elements * ACT_BYTES / PEAK_BYTES, elements * ACT_OPS / PEAK_F32)
+    return bound_s(bytes=elements * ACT_BYTES, f32=elements * ACT_OPS)

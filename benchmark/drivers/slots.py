@@ -14,6 +14,7 @@ request due inside the window has finished, or `drain_s` has passed.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Any, Dict, List
 
 import numpy as np
@@ -85,6 +86,7 @@ def measure(ctx, seconds: float) -> Dict[str, Any]:
     left = len(counted)
     drain = float(mix.get("drain_s", 60.0))
     ticks: List[Any] = []
+    longest: List[float] = []  # each tick's seconds, for the report
     t0 = time.perf_counter()
     i = 0
 
@@ -116,6 +118,7 @@ def measure(ctx, seconds: float) -> Dict[str, Any]:
                 done = sess.tick()
             end = time.perf_counter() - t0
             ticks.append((end, sess.chunk_s[-1] if len(sess.chunk_s) > n_chunks else None))
+            longest.append(end - now)
             for rid, res in done:
                 r = by_rid.pop(rid)
                 r["done_at"] = end
@@ -132,6 +135,17 @@ def measure(ctx, seconds: float) -> Dict[str, Any]:
               f"({sum(r['stream'] for r in counted)} streaming); {len(ticks)} ticks; "
               f"finished {sum(r.get('out') is not None for r in counted)}; the loop ended at {end:.2f} s",
               f"submission lateness: median {np.median(late):.4f} s, max {late.max():.4f} s"]
+    for stream, mark in ((True, "first_at"), (False, "done_at")):
+        w = [r[mark] - r["due"] for r in counted if r["stream"] == stream and r.get(mark) is not None]
+        if w:
+            report.append(f"{'streaming to first chunk' if stream else 'whole-file to wav'}: {len(w)} finished, "
+                          f"median {np.median(w):.4f} s, p90 {sorted(w)[-(-9 * len(w) // 10) - 1]:.4f} s, "
+                          f"mean {np.mean(w):.4f} s, max {max(w):.4f} s")
+    tk = np.asarray(longest or [0.0])
+    report.append(f"ticks: longest {tk.max():.4f} s, {int((tk > 0.25).sum())} over 0.25 s ({tk[tk > 0.25].sum():.3f} s); "
+                  f"graph warm runs and captures in the window by stage "
+                  f"{dict(Counter(e[1] for e in rec.events if e[2] in ('warm', 'capture')))}; preset voices "
+                  f"{len({r['voice'] for r in counted if r['voice'] is not None})}")
     return {"window_s": seconds, "requests": counted, "ticks": ticks, "t0": t0, "report": report}
 
 

@@ -1,7 +1,8 @@
 """kernels.k1_roofline: K1's roofline bound over its own device time in the traced window, %."""
 
-from portbench.readers import k1_roofline
+from counts.flops import K1_KERNEL
+from portbench.readers import kernel_roofline
 
 
 def read(obs):
-    return k1_roofline(obs)
+    return kernel_roofline(obs, K1_KERNEL)

@@ -1,9 +1,13 @@
 """What a cell is made of, found by name: BENCHMARK.json's entries, the
-configuration file, the traffic mix (benchmark/workloads/<traffic>.json),
-the cell's limits (benchmark/limits/<cell>.json), its entry driver
+configuration file, the architecture it names (its plain reference,
+benchmark/reference/models/<architecture>.py, and its frozen counts,
+benchmark/counts/models/<architecture>.py), the traffic mix
+(benchmark/workloads/<traffic>.json), the cell's limits
+(benchmark/limits/<cell>.json), its entry driver
 (benchmark/drivers/<entry>.py) and each metric's reader
 (benchmark/metrics/<metric>.py, or its base's for a split metric). Adding
-a cell, a mix or a metric adds files and entries; nothing here names one."""
+a cell, a mix, a metric or an architecture adds files and entries; nothing
+here names one."""
 
 from __future__ import annotations
 
@@ -22,7 +26,11 @@ def load_json(path: str) -> Any:
 
 
 def load_module(path: str) -> ModuleType:
-    name = "portbench_" + os.path.splitext(os.path.basename(path))[0].replace(".", "_").replace("-", "_")
+    """The module in the file at `path`, named by its file and the two
+    folders above it (an architecture's reference and counts share a file
+    name)."""
+    parts = os.path.normpath(os.path.splitext(path)[0]).split(os.sep)[-3:]
+    name = "portbench_" + "_".join(parts).replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -45,6 +53,9 @@ class Cell:
         self.mix = load_json(os.path.join(bench_dir, "workloads", self.entry["traffic"] + ".json"))
         self.limits = load_json(os.path.join(bench_dir, "limits", name + ".json"))
         self.driver = load_module(os.path.join(bench_dir, "drivers", self.mix["entry"] + ".py"))
+        arch = self.config["architecture"] + ".py"
+        self.reference = load_module(os.path.join(bench_dir, "reference", "models", arch))
+        self.counts = load_module(os.path.join(bench_dir, "counts", "models", arch))
         self.bench_dir = bench_dir
 
     def metrics(self, kind: str) -> List[Dict[str, Any]]:

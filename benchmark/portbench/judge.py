@@ -79,12 +79,15 @@ def fp8_weights(W: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 class Model:
-    """The reference (or the control) on one device: float32 copies of the
-    weights, TF32 off, and the activation rounding `act`."""
+    """The reference (or the control) on one device: the architecture's
+    plain reference `arch` (reference/models/<architecture>.py: its
+    `conditioning` and `forward`) and the shared vocoder, float32 copies of
+    the weights, TF32 off, and the activation rounding `act`."""
 
-    def __init__(self, cfg: Dict[str, Any], w_gpt, w_voc, device, control: bool = False):
+    def __init__(self, cfg: Dict[str, Any], arch, w_gpt, w_voc, device, control: bool = False):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.arch = arch
         self.g, self.h = cfg["gpt"], cfg["bigvgan"]
         self.Wg = {k: v.to(device=device, dtype=torch.float32) if v.is_floating_point() else v.to(device)
                    for k, v in w_gpt.items()}
@@ -103,7 +106,7 @@ class Model:
         fb = max(_round_up(frames, 100), 100)
         m = torch.zeros(fb, mel.shape[1], device=self.device)
         m[:frames] = torch.from_numpy(np.ascontiguousarray(mel[0].T)).to(self.device)
-        return RG.conditioning(self.Wg, self.g, m, frames, self.act), RV.ecapa(self.Wv, m, frames / fb, self.act)
+        return self.arch.conditioning(self.Wg, self.g, m, frames, self.act), RV.ecapa(self.Wv, m, frames / fb, self.act)
 
     def vocode(self, lat: torch.Tensor, frames: int, spk: torch.Tensor) -> torch.Tensor:
         """The waveform of latents [n, D] zero-padded to `frames`."""
@@ -145,24 +148,24 @@ def judge_request(ref: Model, req: Dict[str, Any], served: Dict[tuple, np.ndarra
             continue
         codes = torch.as_tensor(np.asarray(codes_np, np.int64), device=dev)
         text = torch.as_tensor(r, device=dev)
-        logits, lat = RG.gpt_pass(ref.Wg, ref.g, conds, text, codes, path["pos_off"], path["quant_kv"])
+        logits, lat = ref.arch.forward(ref.Wg, ref.g, conds, text, codes, path["pos_off"], path["quant_kv"])
         gap = RG.support_gap(logits, codes, ref.g, knobs, path["beams"])
         res["gap"] = max(res["gap"], float(gap.max()))
         res["tokens"] += int(codes.shape[0])
         greedy = req.get("greedy") and not path["beams"]
         res["greedy_tokens"] += int(codes.shape[0]) if greedy else 0
         if control is not None:
-            c_logits, c_lat = RG.gpt_pass(control.Wg, control.g, c_conds, text, codes, path["pos_off"],
-                                          path["quant_kv"], control.act)
+            c_logits, c_lat = control.arch.forward(control.Wg, control.g, c_conds, text, codes, path["pos_off"],
+                                                   path["quant_kv"], control.act)
             cg = float(RG.drawn_gap(logits, c_logits, codes, ref.g, knobs, path["beams"], gen).max())
             res["ctrl_gap"] = max(res["ctrl_gap"] or 0.0, cg)
         if path["vocode"] != "stream":
             kept = remove_long_silence(codes_np)
             if len(kept) != len(codes_np) or path["pos_off"] != 1:
                 kt = torch.as_tensor(np.asarray(kept, np.int64), device=dev)
-                _, lat = RG.gpt_pass(ref.Wg, ref.g, conds, text, kt, 1)
+                _, lat = ref.arch.forward(ref.Wg, ref.g, conds, text, kt, 1)
                 if control is not None:
-                    _, c_lat = RG.gpt_pass(control.Wg, control.g, c_conds, text, kt, 1, act=control.act)
+                    _, c_lat = control.arch.forward(control.Wg, control.g, c_conds, text, kt, 1, act=control.act)
         lats.append(lat)
         c_lats.append(c_lat if control is not None else None)
     if res["rows_missing"]:

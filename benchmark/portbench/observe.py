@@ -18,16 +18,20 @@ Spans and layers:
 Graph events: every decision a graph stage logs (graphs.GraphStage._note),
 with its time and lane: captures and warm runs, and the steps each block
 replay ran.
-Work: the model FLOPs (counts/flops.py) of each call at its true sizes, with
-the call's host interval: decode rows and steps, admissions' prefills, latent
-passes, conditioning passes, and the codes each vocoder call had to make.
+Work: the model FLOPs of each call at its true sizes (the architecture's
+counts, counts/models/<architecture>.py, and the vocoder's, counts/flops.py),
+with the call's host interval: decode rows and steps, admissions' prefills,
+latent passes, conditioning passes, and the codes each vocoder call had to
+make. Beside them, the bound seconds of each kernel that the counts name for
+that work (`bounds`): K1's in each vocoder call as padded, and the
+architecture's kernels in its units of work.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -36,11 +40,13 @@ from counts import flops as F
 
 class Recorder:
     """Spans, graph events, work and served codes of one run, for the model
-    configuration `cfg` ({"gpt": ..., "bigvgan": ...}). `on` gates the
-    recording of spans, events and work (the warm-up is not recorded);
-    served codes are kept whenever `keep_codes` is set."""
+    configuration `cfg` ({"gpt": ..., "bigvgan": ..., "engine": ...}) whose
+    architecture's counts are the module `counts` (portbench.cell.Cell.counts).
+    `on` gates the recording of spans, events and work (the warm-up is not
+    recorded); served codes are kept whenever `keep_codes` is set."""
 
-    def __init__(self, cfg: Dict[str, Any]):
+    def __init__(self, cfg: Dict[str, Any], counts):
+        self.cfg, self.counts = cfg, counts
         self.g, self.h = cfg["gpt"], cfg["bigvgan"]
         self.on = False
         self.keep_codes = False
@@ -48,12 +54,26 @@ class Recorder:
         self.spans: List[Tuple[str, float, float, Any]] = []
         self.events: List[Tuple[float, str, str, Any]] = []
         self.work: List[Tuple[float, float, float]] = []
+        self.bounds: List[Tuple[float, float, Dict[str, float]]] = []
         self.codes: Dict[Tuple[int, ...], np.ndarray] = {}
         self.slot_steps = 0  # slot steps run since the last harvest
 
-    def did(self, t0: float, flops: float) -> None:
+    def did(self, t0: float, flops: float, bounds: Optional[Dict[str, float]] = None) -> None:
+        """A call that began at `t0` and ends now did `flops` model FLOPs,
+        and `bounds`: the bound seconds of each kernel named for it."""
         if self.on:
-            self.work.append((t0, time.perf_counter(), flops))
+            t1 = time.perf_counter()
+            self.work.append((t0, t1, flops))
+            if bounds:
+                self.bounds.append((t0, t1, bounds))
+
+    def cost(self, unit: str, times: int = 1, **sizes) -> Tuple[float, Dict[str, float]]:
+        """`times` units of the architecture's work (`unit`, one of its counts'
+        functions, at `sizes`): their model FLOPs, and the bound seconds of
+        each kernel its counts name for them."""
+        flops = times * getattr(self.counts, unit)(self.g, **sizes)
+        terms = self.counts.kernels(self.cfg, unit, **sizes)
+        return flops, {k: times * F.bound_s(**t) for k, t in terms.items()}
 
     @contextlib.contextmanager
     def span(self, name: str, info: Any = None):
@@ -80,6 +100,16 @@ class Recorder:
             self.codes[tuple(int(t) for t in tokens)] = (c[: hit[0]] if hit.size else c).copy()
 
 
+def _sum(units) -> Tuple[float, Dict[str, float]]:
+    """The model FLOPs and kernel bounds of several Recorder.cost units."""
+    work, bounds = 0.0, {}
+    for f, b in units:
+        work += f
+        for k, v in b.items():
+            bounds[k] = bounds.get(k, 0.0) + v
+    return work, bounds
+
+
 def _wrap(obj, attr: str, make):
     inner = getattr(obj, attr)
     setattr(obj, attr, make(inner))
@@ -95,7 +125,7 @@ def instrument_engine(engine, rec: Recorder) -> None:
                 out = inner(mel, lens)
             # rows as called (a batch padded to a power of two counts its padding: reading
             # the lengths back would make the host wait for the device)
-            rec.did(t0, int(mel.shape[0]) * F.conditioning(rec.g, int(mel.shape[1])))
+            rec.did(t0, *rec.cost("conditioning", int(mel.shape[0]), frames=int(mel.shape[1])))
             return out
         return f
 
@@ -106,12 +136,13 @@ def instrument_engine(engine, rec: Recorder) -> None:
             t0 = time.perf_counter()
             with rec.span("decode", (int(text_tokens.shape[0]), int(gen.num_beams))):
                 codes, lengths, lat, steps = inner(conds, text_tokens, text_lengths, gen, *a, **kw)
-            work = 0.0
+            units = []
             for r in range(text_tokens.shape[0]):
                 rec.served(text_tokens[r, : int(text_lengths[r])], codes[r, : int(lengths[r])])
                 p = n_lat + int(text_lengths[r]) + 3
-                work += F.prefill(rec.g, p) + gen.num_beams * F.decode_steps(rec.g, p, 0, int(steps))
-            rec.did(t0, work)
+                units += [rec.cost("prefill", p=p),
+                          rec.cost("decode_steps", gen.num_beams, p=p, first=0, steps=int(steps))]
+            rec.did(t0, *_sum(units))
             return codes, lengths, lat, steps
         return f
 
@@ -121,15 +152,20 @@ def instrument_engine(engine, rec: Recorder) -> None:
             with rec.span("latent", (int(text_tokens.shape[0]), int(text_tokens.shape[1]), int(codes.shape[1]))):
                 out = inner(conds, text_tokens, codes, code_lens, text_lengths)
             tl = np.full(text_tokens.shape[0], text_tokens.shape[1]) if text_lengths is None else text_lengths
-            rec.did(t0, sum(F.latent_pass(rec.g, n_lat + int(a) + 2 + int(b) + 2)
-                            for a, b in zip(np.asarray(tl).reshape(-1), np.asarray(code_lens).reshape(-1)) if b > 1))
+            rec.did(t0, *_sum(rec.cost("latent_pass", t=n_lat + int(a) + 2 + int(b) + 2)
+                              for a, b in zip(np.asarray(tl).reshape(-1), np.asarray(code_lens).reshape(-1)) if b > 1))
             return out
         return f
 
     def vocoder_call(inner):
         def f(latent, mel_ref, lens, *a, **kw):
-            with rec.span("vocode", (int(latent.shape[0]), int(latent.shape[1]), int(mel_ref.shape[1]))):
-                return inner(latent, mel_ref, lens, *a, **kw)
+            t0 = time.perf_counter()
+            rows, frames = int(latent.shape[0]), int(latent.shape[1])
+            with rec.span("vocode", (rows, frames, int(mel_ref.shape[1]))):
+                out = inner(latent, mel_ref, lens, *a, **kw)
+            # K1's work as the call is padded; its model FLOPs are the valid codes' (_vocode*)
+            rec.did(t0, 0.0, {F.K1_KERNEL: F.k1_bound_s(F.k1_elements(rec.h, rows, frames))})
+            return out
         return f
 
     def vocode_one(inner):
@@ -183,18 +219,18 @@ def instrument_session(sess, rec: Recorder) -> None:
             steps, rec.slot_steps = rec.slot_steps, 0
             if snap is not None:
                 seq, done, i_b, codes = snap
-                work = 0.0
+                units = []
                 for slot, row in enumerate(sess.slots):
                     if row is None or row["admit_seq"] > seq:
                         continue
                     p = n_lat + int(row["tokens"].shape[1]) + 3
                     if row["admit_seq"] == seq:  # admitted in this tick: its prefill, then i_b steps
-                        work += F.prefill(rec.g, p)
+                        units.append(rec.cost("prefill", p=p))
                     ran = min(steps, int(i_b[slot]))
-                    work += F.decode_steps(rec.g, p, int(i_b[slot]) - ran, ran)
+                    units.append(rec.cost("decode_steps", p=p, first=int(i_b[slot]) - ran, steps=ran))
                     if done[slot]:
                         rec.served(row["tokens"][0], codes[slot])
-                rec.did(t0, work)
+                rec.did(t0, *_sum(units))
             with rec.span("harvest"):
                 return inner(snap)
         return f

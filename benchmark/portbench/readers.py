@@ -9,6 +9,7 @@ import math
 from typing import Any, Dict, List, Optional
 
 from counts import flops as F
+from portbench.trace import own
 
 
 def tail(waits: List[float], missing: List[float], q: float) -> Optional[float]:
@@ -27,10 +28,17 @@ def tail(waits: List[float], missing: List[float], q: float) -> Optional[float]:
 
 
 def request_tail(obs: Dict[str, Any], stream: bool, mark: str, q: float) -> Optional[float]:
-    """The q-tail of (mark - due) over the window's streaming (or whole-file) requests."""
-    reqs = [r for r in obs["requests"] if bool(r.get("stream")) == stream]
-    waits = [r[mark] - r["due"] for r in reqs if r.get(mark) is not None and r.get("out") is not None]
-    missing = [r["cut_at"] - r["due"] for r in reqs if r.get(mark) is None or r.get("out") is None]
+    """The q-tail of (mark - due) over the window's streaming (or whole-file)
+    requests. In a traced run, over those due before the profiler opened
+    (its start holds the host for seconds, which every request then in
+    flight would carry), a request without its mark by then ranking beyond
+    the others at the wait it had reached."""
+    cut = obs.get("opened")
+    cut = None if cut is None else cut - obs["t0"]
+    reqs = [r for r in obs["requests"] if bool(r.get("stream")) == stream and (cut is None or r["due"] < cut)]
+    got = [r for r in reqs if r.get(mark) is not None and r.get("out") is not None and (cut is None or r[mark] <= cut)]
+    waits = [r[mark] - r["due"] for r in got]
+    missing = [(r["cut_at"] if cut is None else cut) - r["due"] for r in reqs if not any(r is g for g in got)]
     return tail(waits, missing, q)
 
 
@@ -84,17 +92,20 @@ def _overlap(a0: float, a1: float, b0: float, b1: float) -> float:
     return max(0.0, min(a1, b1) - max(a0, b0)) / (a1 - a0)
 
 
-def k1_roofline(obs: Dict[str, Any]) -> Optional[float]:
-    """K1's bound over its own device time in the traced window, in %: the
-    bound from the frozen per-element counts of the vocoder calls made in
-    the window (as padded), the time from the profiler's K1 events."""
+def kernel_roofline(obs: Dict[str, Any], function: str) -> Optional[float]:
+    """A kernel's bound over its own device time in the traced window, in %:
+    the bound seconds that the frozen counts gave the window's work for the
+    kernel (Recorder.bounds, by its __global__ function's name), over the
+    own time of the profiler's events of that function (the trace's
+    `kernels`). None where the window ran none of it, or no work named it."""
     tr = obs.get("trace")
-    if not tr or tr["k1"]["own_s"] <= 0:
+    if not tr:
         return None
-    h = obs["cfg"]["bigvgan"]
-    elements = sum(_overlap(t0, t1, tr["start"], tr["stop"]) * F.k1_elements(h, info[0], info[1])
-                   for name, t0, t1, info in obs["rec"].spans if name == "vocode")
-    return 100.0 * F.k1_bound_s(elements) / tr["k1"]["own_s"] if elements else None
+    own_s, _launches = own(tr["kernels"], function)
+    if own_s <= 0:
+        return None
+    bound = sum(_overlap(t0, t1, tr["start"], tr["stop"]) * b.get(function, 0.0) for t0, t1, b in obs["rec"].bounds)
+    return 100.0 * bound / own_s if bound else None
 
 
 def idle_share(obs: Dict[str, Any]) -> Optional[float]:

@@ -5,10 +5,13 @@ What it gives (`Tracer.summary`):
   window_s      the traced window's length on the host clock
   busy_s        the union of the device's operation intervals (kernels,
                 copies, sets) inside it; overlapping kernels count once
-  k1            K1's own device time and launches seen (events whose name
-                holds its __global__ function), beside the launches its
-                wrapper counted over the window (ops/cuda/antialias.launches,
-                which counts replayed launches too)
+  kernels       every device operation's own time and launches in the
+                window, by its full name (a kernel roofline reads its
+                __global__ function's entries, `own`)
+  k1            K1's own device time and launches seen (from `kernels`),
+                beside the launches its wrapper counted over the window
+                (ops/cuda/antialias.launches, which counts replayed
+                launches too)
   blocks        the decode loops' block graphs against the replays the
                 graph stages logged in the window: each replay launches
                 BLOCK predicate kernels (csrc/graph_block.cu), and the
@@ -32,8 +35,16 @@ import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional, Tuple
 
-K1_KERNEL = "anti_alias_snake_kernel"
+from counts.flops import K1_KERNEL
+
 PREDICATE_KERNEL = "block_predicate_kernel"
+
+
+def own(kernels: Dict[str, Dict[str, float]], function: str) -> Tuple[float, int]:
+    """The own device time and launches of the kernels whose name holds the
+    __global__ function `function`, from a summary's `kernels`."""
+    hits = [v for name, v in kernels.items() if function in name]
+    return sum(v["own_s"] for v in hits), sum(v["launches"] for v in hits)
 
 
 class Tracer:
@@ -42,6 +53,7 @@ class Tracer:
         self.on_card = device == "cuda"  # no device trace is taken off the card
         self.after_s, self.seconds = float(after_s), float(seconds)
         self.t0: Optional[float] = None  # the measured window's start
+        self.opened: Optional[float] = None  # when the profiler's start was called
         self.start: Optional[float] = None
         self.stop: Optional[float] = None
         self._prof = None
@@ -66,6 +78,7 @@ class Tracer:
 
         from indextts_tpu_torch.ops.cuda import antialias
 
+        self.opened = time.perf_counter()
         torch.cuda.synchronize()
         self._k1_before = antialias.launches
         self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -112,12 +125,13 @@ class Tracer:
                 g[2] += PREDICATE_KERNEL in e.name()
         self._prof = None
         by_name: Dict[str, float] = defaultdict(float)
-        k1_s, k1_n = 0.0, 0
+        kernels: Dict[str, Dict[str, float]] = {}
         for s, t, name in dev:
             by_name[name[:120]] += (t - s) * 1e-9
-            if K1_KERNEL in name:
-                k1_s += (t - s) * 1e-9
-                k1_n += 1
+            k = kernels.setdefault(name, {"own_s": 0.0, "launches": 0})
+            k["own_s"] += (t - s) * 1e-9
+            k["launches"] += 1
+        k1_s, k1_n = own(kernels, K1_KERNEL)
         dev.sort()
         busy, gaps = 0, []
         cur_s = cur_t = None
@@ -154,7 +168,7 @@ class Tracer:
             idle["before the first or after the last device operation"] += edge
         top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
         return {"window_s": window_s, "busy_s": busy * 1e-9, "start": self.start, "stop": self.stop,
-                "k1": {"own_s": k1_s, "seen": k1_n, "counted": self.k1_launches},
+                "kernels": kernels, "k1": {"own_s": k1_s, "seen": k1_n, "counted": self.k1_launches},
                 "blocks": self._blocks(launches),
                 "device_ops": top(by_name), "idle_gaps": top(idle), "device_events": len(dev)}
 

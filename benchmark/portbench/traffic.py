@@ -6,7 +6,10 @@ lengths, prompt lengths, arrival gaps) are a fixed multiset drawn from the
 mix's parameters with the mix's own `shape_seed`; the run's seed only orders
 them and fills them in: the letters of the text, the prompt's mel values,
 which preset voice a request takes, the sampling draws. So two seeds differ
-in content and order, not in how much there is to do.
+in content and order, not in how much there is to do. A mix with
+`fixed_order` (and `voice_by_shape`) keeps the order (and the preset voice
+of each shape) too, so that an open loop's schedule, whose order decides
+which requests meet in a tick, is the same for every seed.
 
 A request is a dict: `text` (words of capital letters, sentences ending in
 "."), `mel` (a [1, 100, frames] float32 prompt), `voice` (a preset voice's
@@ -99,13 +102,18 @@ def voice_pool(mix: Dict[str, Any], seed) -> List[np.ndarray]:
 
 def requests(mix: Dict[str, Any], seed, n: int, pool: List[np.ndarray] = (),
              subset: Optional[List[int]] = None) -> List[Dict[str, Any]]:
-    """n requests: the mix's shapes in the seed's order, filled in from the
-    seed (an int, or a list of ints for a stream of draws within a run). With
-    `subset`, only those indices of the mix's n shapes, in the seed's order.
+    """n requests: the mix's shapes in the seed's order (in the shapes' own
+    order, the same for every seed, when mix["fixed_order"]), filled in from
+    the seed (an int, or a list of ints for a stream of draws within a run).
+    With `subset`, only those indices of the mix's n shapes, in the seed's
+    order.
     A pooled shape takes a preset voice of `pool`: the voice of its shape's
     index when mix["prompts"]["voice_by_shape"], else one drawn at random."""
     rng = np.random.default_rng(seed)
-    order = rng.permutation(n) if subset is None else rng.permutation(np.asarray(subset, int))
+    if mix.get("fixed_order") and subset is None:
+        order = np.arange(n)
+    else:
+        order = rng.permutation(n) if subset is None else rng.permutation(np.asarray(subset, int))
     sh = shapes(mix, n)
     by_shape = bool(mix["prompts"].get("voice_by_shape"))
     out, due = [], 0.0

@@ -1,7 +1,8 @@
-"""The benchmark's weights: every tensor of IndexTTS-1.5's GPT (UnifiedVoice
-with the conformer + perceiver conditioning) and vocoder (BigVGAN with its
-ECAPA speaker encoder), named as the checkpoint's converted state dict names
-them, made from a seed.
+"""The benchmark's weights: every tensor of a configuration's model (the
+tensors its architecture's reference lists, reference/models/<architecture>.py
+`weight_spec`) and of its vocoder (BigVGAN with its ECAPA speaker encoder,
+listed here), named as the checkpoint's converted state dict names them,
+made from a seed.
 
 The weights are the benchmark's own: the program under test receives a copy
 (through its modules' load_state_dict), and the plain reference reads the
@@ -10,16 +11,18 @@ in two large calls (one normal draw for every matrix, one for every vector),
 then scaled per tensor, and stored in the type they are served in.
 
 Distributions (random weights are enough for speed and for agreement with
-the reference): matrices and convolutions ~ N(0, std) with the GPT-2 stds in
-the GPT (0.02, residual projections 0.02 / sqrt(2 * layers)); in the
+the reference): matrices and convolutions ~ N(0, std) with the stds the
+architecture's spec gives (for GPT-2: 0.02, residual projections
+0.02 / sqrt(2 * layers)); in the
 vocoder, gains that keep the signal's scale through the trunk (each upsample
 1 / sqrt(fan_in / stride), each resblock convolution 0.5 / sqrt(fan_in), the
 post convolution 0.25 / sqrt(fan_in): a waveform of about 0.2 RMS that never
 saturates the tanh, far above int16's step); 1 / sqrt(3 * fan_in) elsewhere
 (the variance of the usual U(+-1/sqrt(fan_in))); biases N(0, 0.01);
 norm gains 1 + N(0, 0.05); snake parameters N(0, 0.1) in log scale;
-BatchNorm statistics near the identity. The stop code's mel-head bias is set
-to STOP_BIAS, so that no row stops before its budget.
+BatchNorm statistics near the identity. The stop code's logit bias (the
+architecture's `stop_logit`) is set to STOP_BIAS, so that no row stops
+before its budget.
 """
 
 from __future__ import annotations
@@ -40,93 +43,26 @@ STOP_BIAS = -40.0
 Spec = List[Tuple[str, Tuple[int, ...], str, float]]
 
 
-def _lin(spec: Spec, name: str, fan_out: int, fan_in: int, std: float, bias: bool = True) -> None:
+def lin(spec: Spec, name: str, fan_out: int, fan_in: int, std: float, bias: bool = True) -> None:
     spec.append((f"{name}.weight", (fan_out, fan_in), "w", std))
     if bias:
         spec.append((f"{name}.bias", (fan_out,), "b", 0.01))
 
 
-def _conv(spec: Spec, name: str, cout: int, cin: int, k: int, std: float = None, bias: bool = True) -> None:
+def conv(spec: Spec, name: str, cout: int, cin: int, k: int, std: float = None, bias: bool = True) -> None:
     std = std if std is not None else 1.0 / math.sqrt(3 * cin * k)
     spec.append((f"{name}.weight", (cout, cin, k), "w", std))
     if bias:
         spec.append((f"{name}.bias", (cout,), "b", 0.01))
 
 
-def _ln(spec: Spec, name: str, d: int) -> None:
+def ln(spec: Spec, name: str, d: int) -> None:
     spec.append((f"{name}.weight", (d,), "g", 0.05))
     spec.append((f"{name}.bias", (d,), "b", 0.01))
 
 
-def _default(fan_in: int) -> float:
+def default_std(fan_in: int) -> float:
     return 1.0 / math.sqrt(3 * fan_in)
-
-
-def gpt_spec(g: dict) -> Spec:
-    """The GPT's tensors for the `gpt` section of a configuration."""
-    d, layers = g["model_dim"], g["layers"]
-    n_text = g["number_text_tokens"] * g.get("types", 1) + 1
-    v = g["number_mel_codes"]
-    spec: Spec = [
-        ("text_embedding", (n_text, d), "w", 0.02),
-        ("mel_embedding", (v, d), "w", 0.02),
-        ("text_pos_embedding", (g["max_text_tokens"] + 2, d), "w", 0.02),
-        ("mel_pos_embedding", (g["max_mel_tokens"] + 3, d), "w", 0.02),
-    ]
-    proj = 0.02 / math.sqrt(2 * layers)
-    for i in range(layers):
-        p = f"gpt.blocks.{i}"
-        _ln(spec, f"{p}.ln_1", d)
-        _lin(spec, f"{p}.attn_qkv", 3 * d, d, 0.02)
-        _lin(spec, f"{p}.attn_proj", d, d, proj)
-        _ln(spec, f"{p}.ln_2", d)
-        _lin(spec, f"{p}.mlp_fc", 4 * d, d, 0.02)
-        _lin(spec, f"{p}.mlp_proj", d, 4 * d, proj)
-    _ln(spec, "gpt.ln_f", d)
-    _ln(spec, "final_norm", d)
-    _lin(spec, "text_head", n_text, d, 0.02)
-    _lin(spec, "mel_head", v, d, 0.02)
-    cm = g["condition_module"]
-    c, units, heads = cm["output_size"], cm["linear_units"], cm["attention_heads"]
-    if g["condition_type"] != "conformer_perceiver" or cm["input_layer"] != "conv2d2":
-        raise ValueError("the reference implements the conformer_perceiver conditioning with a conv2d2 input layer")
-    e = "conditioning_encoder"
-    spec.append((f"{e}.pe", (5000, c), "pe", 0.0))
-    spec.append((f"{e}.embed.conv0.weight", (c, 1, 3, 3), "w", _default(9)))
-    spec.append((f"{e}.embed.conv0.bias", (c,), "b", 0.01))
-    f_out = (100 - 3) // 2 + 1
-    _lin(spec, f"{e}.embed.out", c, c * f_out, _default(c * f_out))
-    for i in range(cm["num_blocks"]):
-        p = f"{e}.layers.{i}"
-        spec.append((f"{p}.attn.pos_bias_u", (heads, c // heads), "b", 0.05))
-        spec.append((f"{p}.attn.pos_bias_v", (heads, c // heads), "b", 0.05))
-        for n in ("linear_q", "linear_k", "linear_v", "linear_out"):
-            _lin(spec, f"{p}.attn.{n}", c, c, _default(c))
-        _lin(spec, f"{p}.attn.linear_pos", c, c, _default(c), bias=False)
-        _lin(spec, f"{p}.ff.w1", units, c, _default(c))
-        _lin(spec, f"{p}.ff.w2", c, units, _default(units))
-        _conv(spec, f"{p}.conv.pw1", 2 * c, c, 1)
-        _conv(spec, f"{p}.conv.dw", c, 1, 15)
-        _ln(spec, f"{p}.conv.ln", c)
-        _conv(spec, f"{p}.conv.pw2", c, c, 1)
-        for n in ("norm_mha", "norm_ff", "norm_conv", "norm_final"):
-            _ln(spec, f"{p}.{n}", c)
-    _ln(spec, f"{e}.after_norm", c)
-    pr = "perceiver_encoder"
-    n_lat = g["condition_num_latent"]
-    inner = 64 * heads
-    ff_inner = int(d * cm["perceiver_mult"] * 2 / 3)
-    spec.append((f"{pr}.latents", (n_lat, d), "w", 0.02))
-    spec.append((f"{pr}.norm_gamma", (d,), "g", 0.05))
-    for i in range(2):
-        p = f"{pr}.layers.{i}"
-        _lin(spec, f"{p}.to_q", inner, d, _default(d), bias=False)
-        _lin(spec, f"{p}.to_kv", 2 * inner, d, _default(d), bias=False)
-        _lin(spec, f"{p}.to_out", d, inner, _default(inner), bias=False)
-        _lin(spec, f"{p}.ff_in", 2 * ff_inner, d, _default(d))
-        _lin(spec, f"{p}.ff_out", d, ff_inner, _default(ff_inner))
-    _lin(spec, f"{pr}.proj_context", d, c, _default(c))
-    return spec
 
 
 # ECAPA-TDNN's fixed widths (ECAPA_TDNN.py:470-484)
@@ -144,7 +80,7 @@ def _bn(spec: Spec, name: str, c: int) -> None:
 
 
 def _tdnn(spec: Spec, name: str, cin: int, cout: int, k: int) -> None:
-    _conv(spec, f"{name}.conv", cout, cin, k)
+    conv(spec, f"{name}.conv", cout, cin, k)
     _bn(spec, f"{name}.bn", cout)
 
 
@@ -155,7 +91,7 @@ def vocoder_spec(h: dict) -> Spec:
     c0 = h["upsample_initial_channel"]
     spk = h["speaker_embedding_dim"]
     spec: Spec = []
-    _conv(spec, "conv_pre", c0, h["gpt_dim"], 7)
+    conv(spec, "conv_pre", c0, h["gpt_dim"], 7)
     for i, (u, k) in enumerate(zip(h["upsample_rates"], h["upsample_kernel_sizes"])):
         cin, cout = c0 // 2**i, c0 // 2 ** (i + 1)
         spec.append((f"ups.{i}.weight", (cin, cout, k), "w", 1.0 / math.sqrt(cin * k / u)))
@@ -166,18 +102,18 @@ def vocoder_spec(h: dict) -> Spec:
         for j, (k, dils) in enumerate(zip(h["resblock_kernel_sizes"], h["resblock_dilation_sizes"])):
             p = f"resblocks.{i * n_k + j}"
             for n in range(len(dils)):
-                _conv(spec, f"{p}.convs1.{n}", ch, ch, k, 0.5 / math.sqrt(ch * k))
+                conv(spec, f"{p}.convs1.{n}", ch, ch, k, 0.5 / math.sqrt(ch * k))
             for n in range(len(dils)):
-                _conv(spec, f"{p}.convs2.{n}", ch, ch, k, 0.5 / math.sqrt(ch * k))
+                conv(spec, f"{p}.convs2.{n}", ch, ch, k, 0.5 / math.sqrt(ch * k))
             for n in range(2 * len(dils)):
                 spec.append((f"{p}.acts.{n}.alpha", (ch,), "b", 0.1))
                 spec.append((f"{p}.acts.{n}.beta", (ch,), "b", 0.1))
     ch_last = c0 // 2 ** len(h["upsample_rates"])
     for i in range(len(h["upsample_rates"])):
-        _conv(spec, f"conds.{i}", c0 // 2 ** (i + 1), spk, 1)
+        conv(spec, f"conds.{i}", c0 // 2 ** (i + 1), spk, 1)
     spec.append(("activation_post.alpha", (ch_last,), "b", 0.1))
     spec.append(("activation_post.beta", (ch_last,), "b", 0.1))
-    _conv(spec, "conv_post", 1, ch_last, 7, 0.25 / math.sqrt(ch_last * 7))
+    conv(spec, "conv_post", 1, ch_last, 7, 0.25 / math.sqrt(ch_last * 7))
     e = "speaker_encoder"
     ch, ks, ds = ECAPA_CHANNELS, ECAPA_KERNELS, ECAPA_DILATIONS
     _tdnn(spec, f"{e}.block0", h["num_mels"], ch[0], ks[0])
@@ -188,14 +124,14 @@ def vocoder_spec(h: dict) -> Spec:
         for n in range(7):
             _tdnn(spec, f"{p}.res2net.{n}", hid, hid, ks[i])
         _tdnn(spec, f"{p}.tdnn2", ch[i], ch[i], 1)
-        _conv(spec, f"{p}.se_conv1", 128, ch[i], 1)
-        _conv(spec, f"{p}.se_conv2", ch[i], 128, 1)
+        conv(spec, f"{p}.se_conv1", 128, ch[i], 1)
+        conv(spec, f"{p}.se_conv2", ch[i], 128, 1)
     _tdnn(spec, f"{e}.mfa", ch[3] * 3, ch[4], ks[4])
     _tdnn(spec, f"{e}.asp_tdnn", ch[4] * 3, 128, 1)
-    _conv(spec, f"{e}.asp_conv", ch[4], 128, 1)
+    conv(spec, f"{e}.asp_conv", ch[4], 128, 1)
     _bn(spec, f"{e}.asp_bn", ch[4] * 2)
-    _conv(spec, f"{e}.fc", spk, ch[4] * 2, 1)
-    _conv(spec, "cond_layer", c0, spk, 1)
+    conv(spec, f"{e}.fc", spk, ch[4] * 2, 1)
+    conv(spec, "cond_layer", c0, spk, 1)
     return spec
 
 
@@ -243,10 +179,13 @@ def make(spec: Spec, seed: int, device, dtype: torch.dtype) -> Dict[str, torch.T
     return out
 
 
-def make_gpt(g: dict, seed: int, device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The GPT's weights, the stop code's bias lowered."""
-    w = make(gpt_spec(g), seed, device, dtype)
-    w["mel_head.bias"][g["stop_mel_token"]] = STOP_BIAS
+def make_model(arch, g: dict, seed: int, device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The weights of the model section `g` of a configuration whose
+    architecture's reference is the module `arch`, the stop code's bias
+    lowered."""
+    w = make(arch.weight_spec(g), seed, device, dtype)
+    name, index = arch.stop_logit(g)
+    w[name][index] = STOP_BIAS
     return w
 
 

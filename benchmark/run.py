@@ -76,8 +76,8 @@ def open_engine(cell, seed: int, device, root: str = ROOT):
 
     _caches(root)
     workdir = os.path.join(os.environ.get("TMPDIR") or os.path.join(root, "build"), "portbench-" + cell.name)
-    eng = S.engine(cell.config, seed, device, workdir)
-    rec = observe.Recorder(cell.config)
+    eng = S.engine(cell.reference, cell.config, seed, device, workdir)
+    rec = observe.Recorder(cell.config, cell.counts)
     observe.instrument_engine(eng, rec)
     return eng, rec
 
@@ -125,6 +125,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
         obs["trace"] = tracer.summary()
         # closing the profiler holds the host for seconds; an open loop's counters stop there
         obs["until"] = tracer.stop
+        obs["opened"] = tracer.opened
     obs["rec"], obs["cfg"], obs["mix"] = rec, cell.config, cell.mix
     kind = "per_layer" if trace else "end_to_end"
     metrics: Dict[str, Any] = {}
@@ -164,9 +165,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, root: str = 
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    w_gpt, w_voc = S.weights(cell.config, seed, device)
-    ref = judge.Model(cell.config, w_gpt, w_voc, device)
-    ctl = judge.Model(cell.config, w_gpt, w_voc, device, control=True) if control else None
+    w_gpt, w_voc = S.weights(cell.reference, cell.config, seed, device)
+    ref = judge.Model(cell.config, cell.reference, w_gpt, w_voc, device)
+    ctl = judge.Model(cell.config, cell.reference, w_gpt, w_voc, device, control=True) if control else None
     del w_gpt, w_voc
     picked = judge.pick(requests, int(cell.mix["judge"]["requests"]), seed)
     results = [judge.judge_request(ref, requests[i], rec.codes, requests[i]["out"], path, ctl,

@@ -26,7 +26,7 @@ def root(tmp_path_factory):
     return tiny.make_root(str(tmp_path_factory.mktemp("bench")))
 
 
-@pytest.mark.parametrize("name", ["slots-mixed", "batch-offline", "single-beam"])
+@pytest.mark.parametrize("name", ["slots-mixed", "batch-offline", "single-beam", "batch-offline-serve"])
 def test_each_driver_runs_correct(root, name):
     out = _run(root, name)
     assert out["correct"], out["checks"]
@@ -55,6 +55,85 @@ def test_a_cell_added_from_new_files(root, tmp_path):
     out = _run(root, "batch-duo")
     assert out["correct"], out["checks"]
     assert "audio_s_per_s" in out["metrics"]
+
+
+def _files(d):
+    out = {}
+    for base, _dirs, files in os.walk(d):
+        for f in files:
+            if "__pycache__" not in base:
+                with open(os.path.join(base, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(base, f), d)] = fh.read()
+    return out
+
+
+TOY_SCALED = """
+
+_forward = forward
+
+
+def forward(*args, **kwargs):
+    logits, latents = _forward(*args, **kwargs)
+    return 1.5 * logits, latents
+"""
+
+
+@pytest.mark.parametrize("scaled", [False, True], ids=["copy", "logits_x1.5"])
+def test_an_architecture_added_from_new_files(tmp_path, scaled):
+    # a second architecture, toy-copy, arrives as its reference and counts (here
+    # copies of unifiedvoice-gpt2's), a configuration naming it and a cell; no
+    # file of the harness changes. Its reference scaling its logits by 1.5 reads
+    # `correct` false: the judge calls the reference the configuration names.
+    # The cell's mix samples every row from half the probability mass, whose
+    # edge a scaled score moves (a greedy row's best it does not)
+    root = tiny.make_root(str(tmp_path))
+    bench = os.path.join(root, "benchmark")
+    before = _files(bench)
+    for part in ("reference", "counts"):
+        with open(os.path.join(bench, part, "models", "unifiedvoice-gpt2.py")) as f:
+            src = f.read()
+        with open(os.path.join(bench, part, "models", "toy-copy.py"), "w") as f:
+            f.write(src + (TOY_SCALED if scaled and part == "reference" else ""))
+    with open(os.path.join(bench, "configs", "indextts-1.5.json")) as f:
+        cfg = json.load(f)
+    cfg["architecture"] = "toy-copy"
+    with open(os.path.join(bench, "configs", "toy-copy.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(bench, "workloads", "batch-offline.json")) as f:
+        mix = json.load(f)
+    mix["generation"].update(top_k=0, top_p=0.5)
+    mix["greedy_every"] = 0  # no greedy row
+    with open(os.path.join(bench, "workloads", "batch-toy.json"), "w") as f:
+        json.dump(mix, f)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    spec["configs"].append({"name": "toy", "source": "https://example.org/toy",
+                            "file": "benchmark/configs/toy-copy.json", "reduced": [],
+                            "why": "a second architecture by files alone"})
+    spec["workloads"].append({"name": "batch-toy", "config": "toy", "traffic": "batch-toy", "chips": 1,
+                              "why": "the toy architecture under a sampled batch mix"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m and "batch-offline" in m["workloads"]:
+            m["workloads"].append("batch-toy")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(bench, "limits", "batch-toy.json"), "w") as f:
+        json.dump(tiny.LIMITS, f)
+    cell = Cell(root, "batch-toy", bench)
+    assert cell.reference.__file__.endswith(os.path.join("models", "toy-copy.py"))
+    out = run.run_cell("batch-toy", SEED, 1.5, False, root=root, device="cpu", cell=cell)
+    after = _files(bench)
+    assert {k: v for k, v in after.items() if k in before} == before
+    assert set(after) - set(before) == {os.path.join("reference", "models", "toy-copy.py"),
+                                        os.path.join("counts", "models", "toy-copy.py"),
+                                        os.path.join("configs", "toy-copy.json"),
+                                        os.path.join("workloads", "batch-toy.json"),
+                                        os.path.join("limits", "batch-toy.json")}
+    assert "audio_s_per_s" in out["metrics"] and out["checks"]["rows_missing"]["value"] == 0
+    if scaled:
+        assert not out["correct"] and out["checks"]["logit_gap"]["value"] > tiny.LIMITS["logit_gap"], out["checks"]
+    else:
+        assert out["correct"], out["checks"]
 
 
 def test_traced_run_reads_per_layer_metrics_without_a_card(root):
@@ -130,12 +209,22 @@ def _step_returns_its_state(monkeypatch):
     monkeypatch.setattr(gpt.GPT2Block, "step", bad)
 
 
+def _int8_step_returns_its_state(monkeypatch):
+    from indextts_tpu_torch.models import gpt_decode
+
+    def bad(block, x, k8, ks, v8, vs, pos, bias, heads):
+        return x  # the block's step through the int8 cache leaves the hidden state as it came
+
+    monkeypatch.setattr(gpt_decode, "_decode_block_q", bad)
+
+
 @pytest.mark.parametrize("fault,cells", [
-    (_alter_a_token, ["slots-mixed", "batch-offline"]),
+    (_alter_a_token, ["slots-mixed", "batch-offline", "batch-offline-serve"]),
     (_alter_a_beam_token, ["single-beam"]),
-    (_alter_the_answer, ["slots-mixed", "batch-offline", "single-beam"]),
-    (_leave_half_the_batch_out, ["batch-offline"]),
+    (_alter_the_answer, ["slots-mixed", "batch-offline", "single-beam", "batch-offline-serve"]),
+    (_leave_half_the_batch_out, ["batch-offline", "batch-offline-serve"]),
     (_step_returns_its_state, ["batch-offline", "single-beam"]),
+    (_int8_step_returns_its_state, ["batch-offline-serve", "slots-mixed"]),
 ])
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault, cells):
     fault(monkeypatch)

@@ -3,6 +3,7 @@ loads nothing of the program. Top-level names are compared whole."""
 
 import ast
 import os
+import re
 import types
 
 import run
@@ -46,3 +47,12 @@ def test_harness_sources_import_no_jax():
 def test_reference_imports_nothing_of_the_program():
     for path in _sources("reference"):
         assert "indextts_tpu_torch" not in set(_imports(path)), path
+
+
+def test_the_harness_names_no_architecture():
+    # the model comes from the files the configuration's architecture names
+    # (portbench.cell.Cell.reference and .counts), never from a fixed import
+    for part in ("portbench", "drivers", "metrics"):
+        for path in _sources(part):
+            with open(path) as f:
+                assert not re.search(r"unifiedvoice|gpt_pass|gpt_spec|make_gpt", f.read()), path

@@ -3,6 +3,8 @@ conditioning encoder, the GPT's prefill and decode through the cache (greedy
 and 3 sampled beams, both positions, the int8 KV cache), the teacher-forced
 latents, and the vocoder with its speaker encoder."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -11,17 +13,21 @@ from indextts_tpu_torch.config import IndexTTSConfig
 from indextts_tpu_torch.models.bigvgan import BigVGAN, bigvgan_apply
 from indextts_tpu_torch.models.gpt import UnifiedVoice, get_conditioning, unified_voice_forward
 from indextts_tpu_torch.models.gpt_decode import GenerationConfig, generate_speech, generate_speech_beam
+from portbench.cell import BENCH_DIR, load_module
 from reference import gpt as RG
 from reference import text as RT
 from reference import vocoder as RV
 from reference import weights as RW
 from tiny import GPT, VOC
 
+# the plain reference of the architecture the configurations name
+ARCH = load_module(os.path.join(BENCH_DIR, "reference", "models", "unifiedvoice-gpt2.py"))
+
 
 @pytest.fixture(scope="module")
 def models():
     cfg = IndexTTSConfig.from_dict({"gpt": GPT, "bigvgan": VOC})
-    wg, wv = RW.make_gpt(GPT, 5, "cpu", torch.float32), RW.make_vocoder(VOC, 5, "cpu", torch.float32)
+    wg, wv = RW.make_model(ARCH, GPT, 5, "cpu", torch.float32), RW.make_vocoder(VOC, 5, "cpu", torch.float32)
     m, v = UnifiedVoice(cfg.gpt), BigVGAN(cfg.bigvgan)
     m.load_state_dict(wg, strict=True)
     v.load_state_dict(wv, strict=True)
@@ -40,7 +46,7 @@ def test_conditioning(models):
     cfg, m, _v, wg, _wv = models
     mel, frames = _prompt()
     port = get_conditioning(m, cfg.gpt, mel[None], torch.tensor([frames]))[0]
-    assert (port - RG.conditioning(wg, GPT, mel, frames)).abs().max() < 1e-4
+    assert (port - ARCH.conditioning(wg, GPT, mel, frames)).abs().max() < 1e-4
 
 
 @pytest.mark.parametrize("pos_off,quant", [(2, False), (1, False), (1, True)])
@@ -48,7 +54,7 @@ def test_conditioning(models):
 def test_greedy_decode_through_the_cache(models, pos_off, quant):
     cfg, m, _v, wg, _wv = models
     mel, frames = _prompt()
-    conds = RG.conditioning(wg, GPT, mel, frames)
+    conds = ARCH.conditioning(wg, GPT, mel, frames)
     text = torch.tensor(RT.tokenize("ABC DEF GHIJK LMNOP."))
     padded = torch.full((1, 24), GPT["stop_text_token"])
     padded[0, : len(text)] = text
@@ -56,14 +62,14 @@ def test_greedy_decode_through_the_cache(models, pos_off, quant):
     codes, _lens, lat = generate_speech(m, cfg.gpt, gen, conds[None], padded, torch.tensor([len(text)]),
                                         torch.Generator(), repetition_penalty=10.0, pos_off=pos_off,
                                         capture_latents=True, quant_kv=quant)
-    logits, ref_lat = RG.gpt_pass(wg, GPT, conds, text, codes[0], pos_off, quant_kv=quant)
+    logits, ref_lat = ARCH.forward(wg, GPT, conds, text, codes[0], pos_off, quant_kv=quant)
     knobs = dict(repetition_penalty=10.0, temperature=1.0, do_sample=False, top_k=0, top_p=1.0)
     assert RG.support_gap(logits, codes[0], GPT, knobs, False).max() < 1e-4
     if pos_off == 1:
         assert (lat[0] - ref_lat).abs().max() < 1e-4
     if quant:  # the int8 cache's rounding is in the reference: without it the logits move
-        plain, _ = RG.gpt_pass(wg, GPT, conds, text, codes[0], pos_off, quant_kv=False)
-        assert (plain - logits).abs().max() > 10 * (logits - RG.gpt_pass(wg, GPT, conds, text, codes[0], pos_off,
+        plain, _ = ARCH.forward(wg, GPT, conds, text, codes[0], pos_off, quant_kv=False)
+        assert (plain - logits).abs().max() > 10 * (logits - ARCH.forward(wg, GPT, conds, text, codes[0], pos_off,
                                                                           quant_kv=True)[0]).abs().max()
 
 
@@ -71,7 +77,7 @@ def test_greedy_decode_through_the_cache(models, pos_off, quant):
 def test_sampled_beams_stay_inside_the_support(models):
     cfg, m, _v, wg, _wv = models
     mel, frames = _prompt()
-    conds = RG.conditioning(wg, GPT, mel, frames)
+    conds = ARCH.conditioning(wg, GPT, mel, frames)
     text = torch.tensor(RT.tokenize("QRS TUVW XYZ."))
     padded = torch.full((1, 16), GPT["stop_text_token"])
     padded[0, : len(text)] = text
@@ -80,7 +86,7 @@ def test_sampled_beams_stay_inside_the_support(models):
                                torch.Generator().manual_seed(1), top_p=0.8, repetition_penalty=10.0)
     codes = out[0][0, : int(out[1][0])]
     codes = codes[codes != GPT["stop_mel_token"]]
-    logits, _ = RG.gpt_pass(wg, GPT, conds, text, codes, 2)
+    logits, _ = ARCH.forward(wg, GPT, conds, text, codes, 2)
     knobs = dict(repetition_penalty=10.0, temperature=1.0, do_sample=True, top_k=30, top_p=0.8)
     assert RG.support_gap(logits, codes, GPT, knobs, True).max() < 1e-4
     # and a code outside the support reads a gap
@@ -93,7 +99,7 @@ def test_sampled_beams_stay_inside_the_support(models):
 def test_teacher_forced_latents(models):
     cfg, m, _v, wg, _wv = models
     mel, frames = _prompt()
-    conds = RG.conditioning(wg, GPT, mel, frames)
+    conds = ARCH.conditioning(wg, GPT, mel, frames)
     text = torch.tensor(RT.tokenize("HELLO THERE."))
     codes = torch.randint(0, 256, (21,), generator=torch.Generator().manual_seed(2))
     padded = torch.full((1, 16), 1)
@@ -102,7 +108,7 @@ def test_teacher_forced_latents(models):
                                  mel_codes=torch.cat([codes, torch.full((11,), 257)])[None],
                                  wav_lengths=torch.tensor([21 * 1024]), cond_mel_lengths=None, conds=conds[None],
                                  mask_pad_keys=True)[0, :21]
-    assert (port - RG.gpt_pass(wg, GPT, conds, text, codes, 1)[1]).abs().max() < 1e-4
+    assert (port - ARCH.forward(wg, GPT, conds, text, codes, 1)[1]).abs().max() < 1e-4
 
 
 @torch.no_grad()

@@ -93,6 +93,11 @@ def test_every_cell_reports_what_it_must(spec):
 
 
 def test_a_file_for_everything_named(spec):
+    for c in spec["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            arch = json.load(f)["architecture"]
+        for part in ("reference", "counts"):
+            assert os.path.exists(os.path.join(BENCH, part, "models", arch + ".py")), (c["name"], part)
     for w in spec["workloads"]:
         with open(os.path.join(BENCH, "workloads", w["traffic"] + ".json")) as f:
             mix = json.load(f)

@@ -38,6 +38,19 @@ def test_every_seed_gets_the_same_sizes():
     assert gaps(a) == gaps(b)
 
 
+def test_fixed_order_gives_every_seed_one_schedule():
+    # the open loop's order and voices are the shapes', whatever the seed; the content is the seed's
+    m = mix("slots-mixed")
+    assert m["fixed_order"] and m["prompts"]["voice_by_shape"]
+    plan = lambda reqs: [(tuple(r["lengths"]), r["mel"].shape[-1], r["voice"], r["stream"], r["greedy"], r["due"])
+                         for r in reqs]
+    a, b = traffic.open_loop(m, 2**31 + 5, 30.0), traffic.open_loop(m, 2**32 + 6, 30.0)
+    assert plan(a) == plan(b)
+    assert [r["text"] for r in a] != [r["text"] for r in b]
+    shuffled = traffic.open_loop(dict(m, fixed_order=False), 2**31 + 5, 30.0)
+    assert plan(shuffled) != plan(a)
+
+
 @pytest.mark.parametrize("name", ["slots-mixed", "batch-offline", "single-beam"])
 def test_parameters_as_stated(name):
     m = mix(name)
