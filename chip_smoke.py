@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1-K6 kernels and the decode
+  2. build   — nvcc builds the K1-K7 kernels and the decode
                block's graph assembly (graph_block.cu) from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
@@ -52,6 +52,17 @@ Phases, in order; any failure exits non-zero:
                bit-equal, device times of both per layer and per step with
                the 24 layers' caches cycled past the L2 cache, the bound;
                and the rounding rule of PyTorch's int8 scale on the card;
+     k7      — K7 (ssm_step) at granite-4.0-h-micro's widths, 3, 8 and 32
+               rows, against its plain version (two runs bit-equal), own and
+               plain device times per layer with the 36 layers' states cycled
+               past the L2 cache, the bound; K6's grouped-query instance
+               (32 query over 8 KV heads, granite's scale) against float64;
+     hybrid  — in a process of its own: the hybrid decoder's engine at its
+               published widths (benchmark/configs/indextts-granite-4.0-h-
+               micro-serve.json, random weights): one infer and a slot session
+               of 8 slots, K7 launched once a Mamba layer and K6 once an
+               attention layer in every decode step; then the profiler's count
+               of both kernels a decode step, eager and replayed;
   5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
@@ -186,7 +197,7 @@ Phases, in order; any failure exits non-zero:
                warmup twice (its captures, then
                replays), then each request under the engine's private eager
                switch, replayed, and replayed again, its code rows
-               token-exact, K1-K6's launches and the blocks' host reads
+               token-exact, K1-K7's launches and the blocks' host reads
                equal in the three: greedy and sampled num_beams=1, greedy
                and default num_beams=3, a 320-code segmented request, with
                fast_latents a sampled and a default request, infer_stream
@@ -236,6 +247,8 @@ K5_REPLACES = "indextts_tpu/ops/pallas/qmatmul.py:42"
 K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
 K6_REPLACES = "none: XLA's attention in indextts_tpu/models/gpt_decode.py _decode_block / _decode_block_q"
 K6_SOURCE = "indextts_tpu_torch/csrc/decode_attn.cu"
+K7_REPLACES = "none: the JAX package runs no state-space layer"
+K7_SOURCE = "indextts_tpu_torch/csrc/ssm_step.cu"
 K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
 K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
 K3_REPLACES = "indextts_tpu/ops/pallas/antialias_tmajor.py:163"
@@ -873,6 +886,260 @@ def k6_phase(card: str) -> dict:
     if failures:
         raise AssertionError(f"K6 is farther from float64 than the plain path, or two runs differ: {failures}")
     return {"rows": rows, "scale_rule": rule}
+
+
+# granite-4.0-h-micro's hybrid decoder (benchmark/configs/indextts-granite-4.0-h-micro-serve.json): 36 Mamba-2
+# layers of 64 heads of 64 x 128, 4 attention layers of 32 query and 8 KV heads of 64
+K7_ROWS = (3, 8, 32)
+GRANITE = dict(layers=36, heads=64, head_dim=64, d_state=128, d_conv=4, model_dim=2048, attn_layers=4, q_heads=32,
+               kv_heads=8, scale=0.015625)
+
+
+def k7_phase(card: str) -> dict:
+    """K7 (ssm_step) and K6's grouped-query instance at granite-4.0-h-micro's
+    widths, per layer at 3 / 8 / 32 rows. K7 against its plain version (the
+    gated output and both states, two runs bit-equal), the own device time
+    of ssm_step_kernel with one state per layer of a step cycled (36 layers,
+    past the L2 cache), the plain version's, and the bound: the float32 SSM
+    state read and written, the conv state read and written, the token's
+    inputs, the output and the weights, over 3.35 TB/s. K6 with 4 query heads
+    a KV head on the int8 slot cache (S = 320, 8 KV heads) and on the bf16
+    cache, against float64 beside the plain path, with its own time and
+    bound (each KV head read once)."""
+    import itertools
+
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import ssm_step as k7
+
+    gz = GRANITE
+    h, p, n, k, d = gz["heads"], gz["head_dim"], gz["d_state"], gz["d_conv"], gz["model_dim"]
+    di, cd = h * p, h * p + 2 * n
+    g = torch.Generator(device="cuda").manual_seed(7)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    rows, failures = [], []
+    w = (0.3 * torch.randn(cd, 1, k, device="cuda", generator=g)).to(torch.bfloat16)
+    wb = (0.01 * torch.randn(cd, device="cuda", generator=g)).to(torch.bfloat16)
+    dt_bias = (2.0 * torch.randn(h, device="cuda", generator=g)).to(torch.bfloat16)
+    a_log = (0.5 * torch.randn(h, device="cuda", generator=g)).to(torch.bfloat16)
+    d_skip = (1 + 0.05 * torch.randn(h, device="cuda", generator=g)).to(torch.bfloat16)
+    for b in K7_ROWS:
+        zx = torch.randn(b, di + cd + h, device="cuda", generator=g).to(torch.bfloat16)
+        layers = [(torch.randn(b, cd, k - 1, device="cuda", generator=g).to(torch.bfloat16),
+                   torch.randn(b, h, p, n, device="cuda", generator=g)) for _ in range(gz["layers"])]
+        conv0, st0 = layers[0]
+        runs = []
+        for _ in range(2):
+            conv, st = conv0.clone(), st0.clone()
+            out = k7.ssm_step(zx, conv, w, wb, dt_bias, a_log, d_skip, st, h, p, n)
+            runs.append((out, conv, st))
+        conv, st = conv0.clone(), st0.clone()
+        plain = k7.ssm_step_plain(zx, conv, w, wb, dt_bias, a_log, d_skip, st, h, p, n)
+        torch.cuda.synchronize()
+        abs_err = max((runs[0][0] - plain).abs().max().item(), (runs[0][2] - st).abs().max().item())
+        err = max((runs[0][0] - plain).abs().max().item() / plain.abs().max().item(),
+                  (runs[0][2] - st).abs().max().item() / st.abs().max().item())
+        conv_same = bool(torch.equal(runs[0][1], conv))
+        same = all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+        it = itertools.cycle(layers)
+
+        def kern(fn=k7.ssm_step):
+            conv, st = next(it)
+            return fn(zx, conv, w, wb, dt_bias, a_log, d_skip, st, h, p, n)
+
+        plain_fn = lambda: kern(k7.ssm_step_plain)
+        ms, plain_ms = cuda_time_ms(kern, 2 * gz["layers"]), cuda_time_ms(plain_fn, 2 * gz["layers"])
+        prof = device_profile(kern, 2 * gz["layers"], ("ssm_step_kernel",))
+        prof_plain = device_profile(plain_fn, 2 * gz["layers"])
+        dev_ms = None if prof is None else prof["own_ms"]["ssm_step_kernel"]
+        dev_plain_ms = None if prof_plain is None else prof_plain["call_ms"]
+        nbytes = (b * (2 * 4 * h * p * n + 2 * 2 * cd * (k - 1) + 2 * (di + cd + h) + 4 * di)
+                  + 2 * cd * (k + 1) + 3 * 4 * h)
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        row = dict(kernel="k7", B=b, max_rel_err=err, max_abs_err=abs_err, conv_state_equal=conv_same, bit_equal_runs=same, ms=ms,
+                   plain_ms=plain_ms, device_ms=dev_ms, device_plain_ms=dev_plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                   roofline=None if not dev_ms else bound_ms / dev_ms,
+                   per_step_ms=None if dev_ms is None else gz["layers"] * dev_ms,
+                   ok=bool(err < 1e-4 and conv_same and same))
+        rows.append(row)
+        log(f"[k7] B={b:2d} rel err vs plain {err:.3e}, conv state equal {conv_same}, two runs bit-equal {same} | "
+            f"events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms | device: kernel {fmt(dev_ms)} ms, plain "
+            f"{fmt(dev_plain_ms)} ms; bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB), roofline "
+            f"{fmt(None if not dev_ms else 100 * bound_ms / dev_ms)} %; per step of {gz['layers']} layers: kernel "
+            f"{fmt(row['per_step_ms'])} ms [{card}]")
+        if not row["ok"]:
+            failures.append(row)
+        del layers
+    hq, hk, dh, s_len = gz["q_heads"], gz["kv_heads"], 64, 320
+    for kind, b in (("int8", 32), ("bf16", 8), ("bf16", 3)):
+        y = torch.randn(b, (hq + 2 * hk) * dh, device="cuda", generator=g).to(torch.bfloat16)
+        q, kk, v = (t.unflatten(-1, (-1, dh)) for t in y.split([hq * dh, hk * dh, hk * dh], dim=-1))
+        valid = (torch.rand(b, s_len, device="cuda", generator=g) < 0.6) & (torch.arange(s_len, device="cuda") != 200)
+        bias = torch.where(valid, torch.zeros((), device="cuda"), torch.finfo(torch.float32).min)[:, None, :]
+        posd = torch.tensor([200], device="cuda")
+        caches = []
+        for _ in range(gz["attn_layers"] * 8):
+            kv = [torch.randn(b, hk, s_len, dh, device="cuda", generator=g).to(torch.bfloat16) for _ in range(2)]
+            caches.append(k6.quant_cols(kv[0]) + k6.quant_cols(kv[1]) if kind == "int8" else tuple(kv))
+        ref = k6.decode_attn_f64(q, kk, v, caches[0], bias, gz["scale"])
+        first = k6.decode_attn(q, kk, v, tuple(c.clone() for c in caches[0]), posd, bias, gz["scale"])
+        plain = k6.decode_attn_plain(q, kk, v, tuple(c.clone() for c in caches[0]), posd, bias, gz["scale"])
+        torch.cuda.synchronize()
+        err = (first.double() - ref).abs().max().item()
+        err_plain = (plain.double() - ref).abs().max().item()
+        it = itertools.cycle(caches)
+        kern = lambda: k6.decode_attn(q, kk, v, next(it), posd, bias, gz["scale"])
+        plain_fn = lambda: k6.decode_attn_plain(q, kk, v, next(it), posd, bias, gz["scale"])
+        prof = device_profile(kern, len(caches), ("decode_attn_kernel",))
+        prof_plain = device_profile(plain_fn, len(caches))
+        dev_ms = None if prof is None else prof["own_ms"]["decode_attn_kernel"]
+        dev_plain_ms = None if prof_plain is None else prof_plain["call_ms"]
+        cols_read = int(valid.sum())
+        per_col = 2 * dh * (1 if kind == "int8" else 2) + (4 if kind == "int8" else 0)
+        nbytes = (cols_read * hk * per_col + b * s_len * 4 + 2 * b * hq * dh * 2 + 2 * b * hk * dh * 2
+                  + b * hk * 2 * dh * (1 if kind == "int8" else 2))
+        bound_ms = 1e3 * nbytes / PEAK_BYTES
+        row = dict(kernel="k6_gqa", cache=kind, B=b, Hq=hq, Hkv=hk, S=s_len, err_f64=err, plain_err_f64=err_plain,
+                   device_ms=dev_ms, device_plain_ms=dev_plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                   roofline=None if not dev_ms else bound_ms / dev_ms, ok=bool(err <= err_plain))
+        rows.append(row)
+        log(f"[k6-gqa] {kind} B={b:2d} Hq={hq} Hkv={hk} S={s_len} err vs f64 {err:.3e}, plain {err_plain:.3e} | "
+            f"device: kernel {fmt(dev_ms)} ms, plain {fmt(dev_plain_ms)} ms; bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.2f} MB) [{card}]")
+        if not row["ok"]:
+            failures.append(row)
+        del caches
+    if failures:
+        raise AssertionError(f"K7 differs from its plain version, or K6-GQA is farther from float64 than the plain "
+                             f"path: {failures}")
+    return {"rows": rows}
+
+
+GRANITE_CONFIG = os.path.join(REPO, "benchmark", "configs", "indextts-granite-4.0-h-micro-serve.json")
+
+
+def hybrid_engine():
+    """The port's engine of the hybrid configuration (GRANITE_CONFIG's gpt
+    and bigvgan sections and engine flags: bf16, the int8 KV cache,
+    fast_latents), its own random weights from seed 0."""
+    from indextts_tpu_torch.config import IndexTTSConfig, save_config
+    from indextts_tpu_torch.engine import IndexTTS
+
+    with open(GRANITE_CONFIG) as f:
+        cfg = json.load(f)
+    d = os.path.join(REPO, "build", "hybrid_engine")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "config.yaml")
+    save_config(IndexTTSConfig.from_dict({"gpt": cfg["gpt"], "bigvgan": cfg["bigvgan"]}), path)
+    e = cfg["engine"]
+    return IndexTTS(cfg_path=path, model_dir=d, is_fp16=e["dtype"] == "bfloat16", device="cuda",
+                    use_cuda_kernel=True, allow_random_init=True, seed=0, quant_kv=e["quant_kv"],
+                    fast_latents=e["fast_latents"])
+
+
+def hybrid_phase(card: str) -> dict:
+    """The hybrid decoder at its published widths through the engine's
+    entry points on the card: one infer (one sampled row, K6's GQA instance
+    on the int8 cache, K7), then a slot session of 8 slots (10 sampled
+    requests, one streamed, rows admitted into freed slots), each with the
+    launch counters set to 0 just before. K7 must launch once a Mamba layer
+    and K6 once an attention layer in every decode step the call ran (steps
+    of infer's loop; ticks of the slot state, every slot in each launch),
+    eager or replayed. Then 4 sampled rows' decode steps under the profiler,
+    eager and replayed: its count of ssm_step_kernel and decode_attn_kernel
+    must be the same a step (step_profile). Run in a process of its own (it
+    profiles replayed blocks)."""
+    import numpy as np
+    import torch
+
+    from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import ssm_step as k7
+
+    t0 = time.perf_counter()
+    engine = hybrid_engine()
+    cfg = engine.cfg.gpt
+    with torch.no_grad():  # every row decodes its budget, as the benchmark's weights do (stop_logit)
+        engine.gpt.mel_head.bias[engine.stop_mel_token] = -40.0
+    mamba = sum(kind == "mamba" for kind in cfg.layer_types)
+    attn = len(cfg.layer_types) - mamba
+    if (mamba, attn, cfg.model_dim) != (GRANITE["layers"], GRANITE["attn_layers"], GRANITE["model_dim"]):
+        raise AssertionError(f"{GRANITE_CONFIG}: {mamba} Mamba and {attn} attention layers of {cfg.model_dim}, want "
+                             f"granite-4.0-h-micro's {GRANITE['layers']} and {GRANITE['attn_layers']} of "
+                             f"{GRANITE['model_dim']}")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spc = engine._samples_per_code()
+    max_new = 100
+    mel = engine.extract_features(PROMPT)
+    half = np.ascontiguousarray(mel[..., : mel.shape[-1] // 2])
+
+    def start():
+        k6.launches = k7.launches = 0
+
+    def counted(what: str, steps: int) -> dict:
+        want = {"k7": mamba * steps, "k6": attn * steps}
+        got = {"k7": k7.launches, "k6": k6.launches}
+        if got != want or not steps:
+            raise AssertionError(f"{what}: launches {got} over {steps} decode steps, want {want} (one a Mamba / "
+                                 f"attention layer a step)")
+        return dict(got, steps=steps)
+
+    # (a) one infer: a sampled row, one sentence
+    engine.infer(mel, "HELLO WORLD.", None, do_sample=True, num_beams=1, max_mel_tokens=max_new)  # warm, capture
+    start()
+    t = time.perf_counter()
+    sr, wav = engine.infer(mel, "HELLO WORLD.", None, do_sample=True, num_beams=1, max_mel_tokens=max_new)
+    infer_s = time.perf_counter() - t
+    st = dict(engine.last_stats)
+    infer = dict(counted("infer", st["gpt_steps"]), total_s=infer_s, codes=int(wav.shape[0]) // spc,
+                 decode_ms_per_step=1e3 * st["gpt_gen_s"] / max(st["gpt_steps"], 1))
+    if sr != 24000 or wav.dtype != np.int16 or not spc <= wav.shape[0] <= max_new * spc:
+        raise AssertionError(f"infer: wav {wav.shape} {wav.dtype} at {sr} Hz, want 1-{max_new} codes at 24000")
+    log(f"[hybrid] engine of {os.path.basename(GRANITE_CONFIG)} ({mamba} Mamba + {attn} attention layers of "
+        f"{cfg.model_dim}, int8 KV, fast_latents) built in {init_s:.1f} s; infer, 1 sampled row: {infer['codes']} "
+        f"codes, {infer['steps']} steps at {infer['decode_ms_per_step']:.2f} ms/step; K7 {infer['k7']}, K6 "
+        f"{infer['k6']} launches [{card}]")
+
+    # (b) a slot session: 10 requests over 8 slots, one streamed; two wait for freed slots
+    texts = ["HELLO WORLD.", "GOOD DAY TO YOU.", "THIS IS A TEST.", "THE QUICK BROWN FOX.", "HELLO AGAIN.",
+             "GOOD DAY.", "A TEST.", "ONE MORE.", "AND ANOTHER.", "THE LAST ONE."]
+
+    def session():
+        sess = engine.slot_session(n_slots=8, chunk_steps=25, do_sample=True, max_mel_tokens=max_new)
+        chunks = []
+        rids = [sess.submit(half if i % 2 else mel, text, on_chunk=(lambda rid, c: chunks.append(c.copy())) if i == 0
+                            else None) for i, text in enumerate(texts)]
+        done, ticks = {}, 0
+        while sess.busy and ticks < 60:
+            done.update(sess.tick())
+            ticks += 1
+        rest = sess.drain()
+        if rest or sess.busy or set(done) != set(rids):
+            raise AssertionError(f"slot session: completed {sorted(done)} of {sorted(rids)}; left {sorted(rest)}")
+        for rid in rids:
+            if done[rid][1].shape != (max_new * spc, 1):
+                raise AssertionError(f"slot request {rid}: wav {done[rid][1].shape}, want {max_new} codes")
+        if not np.array_equal(np.concatenate(chunks), done[rids[0]][1].reshape(-1)):
+            raise AssertionError("the streamed chunks do not concatenate to the streaming request's result")
+        return sess, ticks
+
+    session()  # warm: captures the slot stage's keys
+    start()
+    t = time.perf_counter()
+    sess, ticks = session()
+    slots = dict(counted("slot session", int(sess.state.tick)), ticks=ticks, total_s=time.perf_counter() - t,
+                 chunk_ms_per_step=1e3 * sum(sess.chunk_s) / max(int(sess.state.tick), 1))
+    log(f"[hybrid] slot session, 8 slots, {len(texts)} sampled requests (one streamed), {max_new} codes each: "
+        f"{ticks} ticks, {slots['steps']} slot steps at {slots['chunk_ms_per_step']:.2f} ms/step; K7 {slots['k7']}, "
+        f"K6 {slots['k6']} launches [{card}]")
+
+    # (c) the profiler's count of K6's and K7's kernels a decode step, eager and replayed
+    conds1 = engine._conds_for(mel)
+    step = step_profile(engine, b4_decode(engine, conds1, 16, True), card, "hybrid decode step, B=4, int8 KV",
+                        {"k6": attn, "k7": mamba}, modes=("eager", "graph"), own=("ssm_step_kernel",))
+    return {"init_s": init_s, "infer": infer, "slots": slots, "step": step,
+            "k7_launches": infer["k7"] + slots["k7"], "k6_launches": infer["k6"] + slots["k6"]}
 
 
 def flagship_engine(quant_kv: bool = False, fast_latents: bool = False):
@@ -2863,7 +3130,7 @@ def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str
     """One rank of the mesh phase's captured programs (spawned), bf16 at
     tp = 2 (dp = world / 2): which stages capture here; each request eager
     (Graphs.eager()), replayed and replayed again, its codes token-exact and
-    K1-K6's launches and the host reads equal (graph_vs_eager): greedy and
+    K1-K7's launches and the host reads equal (graph_vs_eager): greedy and
     sampled num_beams=1 and the default num_beams=3, the same with the stop
     code's bias raised by `stop_raise` (rows stop mid-block), infer_batch of
     4 requests, a SlotSession of 4 slots serving 6 requests (the host ms of
@@ -3279,22 +3546,22 @@ def _count_events(entries) -> dict:
     return out
 
 
-# the kernel wrappers' launch counters, K1-K6 (the graphs phase compares them eager against replayed)
-K_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6")
-# the __global__ functions of K1-K6 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
-# steps (or vocoder calls) in the short window where step_profile counts K1-K6's kernels
+# the kernel wrappers' launch counters, K1-K7 (the graphs phase compares them eager against replayed)
+K_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
+# the __global__ functions of K1-K7 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
+# steps (or vocoder calls) in the short window where step_profile counts K1-K7's kernels
 COUNT_STEPS = 4
-# a window whose count of K1-K6's kernels falls short of the launches (the profiler dropped
+# a window whose count of K1-K7's kernels falls short of the launches (the profiler dropped
 # records: a replayed int8 window once read 387 of 388 K5 kernels over 4 steps) is taken
 # again, up to this many windows; a count above the launches fails at once
 COUNT_TRIES = 3
 K_KERNELS = {"k1": ("anti_alias_snake_kernel",), "k2": ("aa_snake_dconv_f32_kernel", "aa_snake_dconv_wgmma_kernel"),
              "k3": ("tmajor_taps_kernel", "tmajor_ident_kernel", "tmajor_mma_kernel"), "k4": ("folded_aa_kernel",),
-             "k5": ("int8_matmul_kernel",), "k6": ("decode_attn_kernel",)}
+             "k5": ("int8_matmul_kernel",), "k6": ("decode_attn_kernel",), "k7": ("ssm_step_kernel",)}
 
 
 def kernel_counts(prof) -> dict:
-    """How many kernels of K1-K6 a profile recorded on the card, by name.
+    """How many kernels of K1-K7 a profile recorded on the card, by name.
     Kernels inside a replayed CUDA graph are recorded one by one, so this
     count does not depend on the wrappers' counters, which a replay does not
     run."""
@@ -3327,9 +3594,10 @@ def run_profiled(fn, tries: int = 3):
 
 def kernel_modules() -> dict:
     from indextts_tpu_torch.ops.cuda import (aa_conv_branch, antialias, antialias_folded, antialias_tmajor,
-                                             decode_attn, qmatmul)
+                                             decode_attn, qmatmul, ssm_step)
 
-    return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul, decode_attn)))
+    return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul, decode_attn,
+                              ssm_step)))
 
 
 class CodeRecorder:
@@ -3367,9 +3635,9 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
     through its graphs (capturing the keys it has not seen), then once more
     (replays only), the engine's generator reseeded alike before each (a
     slot session seeds its own). Every code row the three decode must be
-    token-exact, K1-K6's wrappers must count as many launches in each (a
+    token-exact, K1-K7's wrappers must count as many launches in each (a
     replay adds the counts its capture took), and a list fn returns (chunk
-    or wav sizes) must be the same. The profiler's own count of K1-K6's
+    or wav sizes) must be the same. The profiler's own count of K1-K7's
     kernels under replay is step_profile's and the vocoder routes'. Returns
     the wall seconds, the launches of one run and the decode ms per step of
     each."""
@@ -3572,7 +3840,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
     the span from the first kernel's start to the last one's end: what the
     span adds to the sum is the gaps between kernels, what the host time
     adds to the span is the host's own part of a step). Then one short run,
-    go(COUNT_STEPS), under the profiler again: its count of K1-K6's kernels,
+    go(COUNT_STEPS), under the profiler again: its count of K1-K7's kernels,
     by name, must be `want` a step (the wrappers' count) in each mode; under
     replay, the count that does not rest on the wrappers' counters. The
     window is short because the profiler drops a kernel record now and then
@@ -3628,7 +3896,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
         if dropped:
             log(f"[profile] {label}, {mode}: windows with records dropped, taken again: {dropped} [{card}]")
         if counted != expected:
-            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K6 over {n3} {mode} steps, "
+            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K7 over {n3} {mode} steps, "
                                  f"want {want} a step (earlier windows: {dropped})")
         device = sum(e.self_device_time_total for e in events) / 1e3 / n2 if events else None
         kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
@@ -3643,7 +3911,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
                                                 / 1e3 / n2 if events else None) for name in own}}
     dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
         f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
-        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K6 kernels "
+        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K7 kernels "
         f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps"
         + "".join(f"; {name} kernels {ms:.4f} ms" for name, ms in v["own_ms_per_step"].items() if ms is not None))
     names = {"eager": "eager", "graph": "replayed in blocks", "graph_per_step": "replayed one step a call"}
@@ -4042,7 +4310,7 @@ def phase_child(rank: int, name: str, card: str, out_dir: str) -> None:
     sys.stdout = sys.stderr = open(os.path.join(out_dir, "phase0.log"), "w", buffering=1)
     out = {"ok": False}
     try:
-        out["result"] = {"graphs": graphs_phase}[name](card)
+        out["result"] = {"graphs": graphs_phase, "hybrid": hybrid_phase}[name](card)
         out["ok"] = True
     except BaseException:
         out["error"] = traceback.format_exc()
@@ -4185,7 +4453,7 @@ def graphs_phase(card: str) -> dict:
     published widths, bf16, random init from seed 0: the toy block check;
     each request eager (the private switch), then replayed twice, also with
     the stop code's bias raised (rows stop mid-block); codes token-exact,
-    K1-K6 launch counts and host reads equal; conditioning and latent passes
+    K1-K7 launch counts and host reads equal; conditioning and latent passes
     within 1 bf16 unit; vocoder wav within 1 int16 unit on the four routes;
     host and device ms per step eager beside replayed in blocks and one step
     a call; capture seconds and pool bytes per key; warmup seconds."""
@@ -4332,7 +4600,7 @@ def graphs_phase(card: str) -> dict:
             if per_call != want[route] or any(v % 2 for v in counts["eager"].values()):
                 raise AssertionError(f"vocoder {route}: {counts['eager']} launches over 2 calls, want {want[route]} a call")
             vocoder[route] = {"max_int16_diff": err, "launches": counts["graph"], "kernels_profiled": by_profiler}
-            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K6 kernels {by_profiler['graph']} "
+            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K7 kernels {by_profiler['graph']} "
                 f"for one 100-code call and one batch of 2 by the profiler, as the wrappers launched eager [{card}]")
 
         # host vs device per step, eager beside replayed
@@ -4563,8 +4831,8 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
     return out
 
 
-PHASES = ("kernel", "k2", "k3", "k4", "k5", "k6", "engine", "beam", "stream", "serve", "int8", "small", "ckpt",
-          "legacy", "fidelity", "mesh", "meshgraphs", "graphs")
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "k6", "k7", "hybrid", "engine", "beam", "stream", "serve", "int8", "small",
+          "ckpt", "legacy", "fidelity", "mesh", "meshgraphs", "graphs")
 
 
 def main(argv) -> int:
@@ -4597,11 +4865,12 @@ def main(argv) -> int:
     from indextts_tpu_torch.ops.cuda import graph_block
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
+    from indextts_tpu_torch.ops.cuda import ssm_step as k7
 
-    # one nvcc per source, started together (K1-K6, and the decode block's
+    # one nvcc per source, started together (K1-K7, and the decode block's
     # predicate kernel and graph assembly, which every CUDA engine's loops use)
     t = time.perf_counter()
-    kernels_built = (k1, k2, k3, k4, k5, k6, graph_block)
+    kernels_built = (k1, k2, k3, k4, k5, k6, k7, graph_block)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
@@ -4613,6 +4882,7 @@ def main(argv) -> int:
                 log(f"[build] {src}:", line.strip())
 
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase, "k6": k6_phase,
+                 "k7": k7_phase, "hybrid": lambda c: phase_in_child("hybrid", c),
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
                  "fidelity": fidelity_phase, "mesh": mesh_phase, "meshgraphs": mesh_graphs_phase, "graphs": lambda c: phase_in_child("graphs", c)}
@@ -4630,6 +4900,8 @@ def main(argv) -> int:
     kern4 = k4_phase(card)
     kern5 = k5_phase(card)
     kern6 = k6_phase(card)
+    kern7 = k7_phase(card)
+    hybrid = phase_in_child("hybrid", card)
     eng = engine_phase(card)
     beam = beam_phase(card)
     stream = stream_phase(card)
@@ -4701,6 +4973,15 @@ def main(argv) -> int:
                     "operations": sum(2 * m * k * n for k, n in tp2_shapes) / PEAK_BF16}
     k5_tp2_by = max(k5_tp2_terms, key=k5_tp2_terms.get)
 
+    k7_rows = {r["B"]: r for r in kern7["rows"] if r["kernel"] == "k7"}
+
+    def k7_step(b: int, key: str, fallback: str) -> float:
+        """K7's (or the plain version's, or the bound's) ms a decode step of
+        the hybrid decoder's Mamba layers at b rows: profiler device time
+        where it saw the kernels, else CUDA-event time."""
+        r = k7_rows[b]
+        return GRANITE["layers"] * (r[key] if r[key] is not None else r[fallback])
+
     report = {
         "device": card,
         "build_seconds": dict(build.build_seconds),
@@ -4715,6 +4996,8 @@ def main(argv) -> int:
         "k5": kern5,
         "k5_per_decode_step_ms": {str(m): v for m, v in k5_per_step.items()},
         "k6": kern6,
+        "k7": kern7,
+        "hybrid": hybrid,
         "engine": eng,
         "beam": beam,
         "stream": stream,
@@ -4791,6 +5074,20 @@ def main(argv) -> int:
         "call_ms": kern6["rows"][0]["per_step_ms"],  # the wrapper launches nothing but the kernel
         "cases": {r["case"]: {"ms": r["per_step_ms"], "plain_ms": r["plain_per_step_ms"],
                               "bound_ms": layers * r["bound_ms"]} for r in kern6["rows"]},
+        # the hybrid decoder's 4 attention layers: K6's grouped-query instance
+        "launches_hybrid_phase": hybrid["k6_launches"],
+    }, {
+        # per decode step (one launch a Mamba layer) of the hybrid decoder at 32 slot rows; 3 and 8 rows beside it
+        "name": "ssm_step", "route": "cuda", "source": K7_SOURCE, "replaces": K7_REPLACES,
+        "launches": hybrid["k7_launches"], "launches_hybrid_phase_by_profiler": {
+            mode: v["k_kernels"]["k7"] for mode, v in hybrid["step"].items()},
+        "max_abs_err": max(r["max_abs_err"] for r in k7_rows.values()),
+        "max_rel_err": max(r["max_rel_err"] for r in k7_rows.values()),
+        "ms": k7_step(32, "device_ms", "ms"), "plain_ms": k7_step(32, "device_plain_ms", "plain_ms"),
+        "bound_ms": k7_step(32, "bound_ms", "bound_ms"), "bound_by": "bytes", "library_ms": None,
+        "call_ms": k7_step(32, "device_ms", "ms"),  # the wrapper launches nothing but the kernel
+        "cases": {f"B{b}": {"ms": k7_step(b, "device_ms", "ms"), "plain_ms": k7_step(b, "device_plain_ms", "plain_ms"),
+                            "bound_ms": k7_step(b, "bound_ms", "bound_ms")} for b in k7_rows},
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -62,10 +62,66 @@ class GPTConfig:
     condition_num_latent: int = 32
     condition_type: str = "conformer_perceiver"
     condition_module: ConditionModuleConfig = field(default_factory=ConditionModuleConfig)
+    # the decoder stack: "gpt2" (UnifiedVoice's GPT-2 blocks) or "granite_hybrid"
+    # (granite-4.0-h's GraniteMoeHybrid without experts: Mamba-2 and NoPE GQA
+    # attention layers as `layer_types` orders them, a SwiGLU MLP in every layer,
+    # RMSNorm, and the four multipliers; models/granite.py)
+    block: str = "gpt2"
+    layer_types: Optional[Tuple[str, ...]] = None  # "mamba" | "attention" per layer
+    kv_heads: Optional[int] = None  # attention's KV heads (None: heads)
+    intermediate_size: int = 0  # the hybrid's SwiGLU width
+    mamba_heads: int = 0
+    mamba_head_dim: int = 64
+    mamba_d_state: int = 128
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_n_groups: int = 1
+    mamba_chunk_size: int = 256
+    rms_norm_eps: float = 1e-5
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None  # the softmax scale (None: 1 / sqrt(head_dim))
+    logits_scaling: float = 1.0  # the heads' logits are divided by it
 
     def __post_init__(self):
         if isinstance(self.condition_module, dict):
             self.condition_module = ConditionModuleConfig.from_dict(self.condition_module)
+        if self.layer_types is not None:
+            self.layer_types = tuple(self.layer_types)
+        if self.block not in ("gpt2", "granite_hybrid"):
+            raise ValueError(f"block={self.block!r}: 'gpt2' or 'granite_hybrid'")
+        if is_hybrid(self):
+            if self.layer_types is None or len(self.layer_types) != self.layers or \
+                    set(self.layer_types) - {"mamba", "attention"}:
+                raise ValueError(f"a granite_hybrid stack needs layer_types of 'mamba' / 'attention', one per layer "
+                                 f"({self.layers}), got {self.layer_types}")
+            if self.mamba_n_groups != 1:
+                raise NotImplementedError(f"mamba_n_groups={self.mamba_n_groups}: the port keeps one B / C group")
+            if self.heads % self.n_kv_heads or self.mamba_heads * self.mamba_head_dim != self.d_inner:
+                raise ValueError("heads must be a multiple of kv_heads, and mamba_heads x mamba_head_dim "
+                                 "= mamba_expand x model_dim")
+
+    @property
+    def n_kv_heads(self) -> int:
+        return self.heads if self.kv_heads is None else int(self.kv_heads)
+
+    @property
+    def d_inner(self) -> int:
+        return self.mamba_expand * self.model_dim
+
+    @property
+    def conv_dim(self) -> int:
+        """The Mamba layers' convolved channels: x, B and C."""
+        return self.d_inner + 2 * self.mamba_n_groups * self.mamba_d_state
+
+    @property
+    def attn_layers(self) -> int:
+        """The layers that keep a KV cache."""
+        return self.layers if not is_hybrid(self) else sum(t == "attention" for t in self.layer_types)
+
+    @property
+    def mamba_layers(self) -> int:
+        return 0 if not is_hybrid(self) else sum(t == "mamba" for t in self.layer_types)
 
     @property
     def head_dim(self) -> int:
@@ -202,6 +258,12 @@ class IndexTTSConfig:
             bigvgan_checkpoint=d.get("bigvgan_checkpoint", "bigvgan_generator.pth"),
             dvae_checkpoint=d.get("dvae_checkpoint", "dvae.pth"),
         )
+
+
+def is_hybrid(cfg) -> bool:
+    """Whether a GPT config (the port's GPTConfig, or one of the same fields,
+    as the JAX package's) names the granite hybrid stack."""
+    return getattr(cfg, "block", "gpt2") == "granite_hybrid"
 
 
 def load_config(path: str) -> IndexTTSConfig:

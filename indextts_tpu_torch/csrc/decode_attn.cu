@@ -12,7 +12,8 @@
 //   s_* = (q . k_new) * scale                    the token's own logit
 //   a   = (sum_j e^(s_j - m) vs_j v_j + e^(s_* - m) v_new)
 //         / (sum_j e^(s_j - m) + e^(s_* - m))
-// with ks_j = vs_j = 1 on a bf16 / float32 cache and scale = 1 / sqrt(Dh),
+// with ks_j = vs_j = 1 on a bf16 / float32 cache and scale the caller's (1 /
+// sqrt(Dh) for GPT-2, granite-4.0-h's attention_multiplier for its layers),
 // all in float32 and rounded once, to the output's dtype; then it writes
 // k_new and v_new into column pos, on the int8 cache quantized as
 // models/gpt_decode._quant_cols does (one scale per head pair: the float32
@@ -26,12 +27,15 @@
 // races with a read. Masked columns are not read: what they hold never
 // reaches the result.
 //
-// Layout: q, k_new, v_new [B, H, Dh] in the output's dtype (float32 or bf16),
-// heads Dh apart and rows `qkv_stride` elements apart (the three thirds of
-// the qkv projection, read in place); the cache [B, H, S, Dh] in that dtype,
-// or int8 with the scales ks, vs [B, H/2, S] float32; bias [B, S] float32;
-// pos one int64 on the device (a captured step reads no host value) or a
-// value, inside [0, S) (the kernel traps on another); out [B, H * Dh].
+// Grouped-query attention: with G query heads a KV head, query head h * G + i
+// (i < G) reads KV head h; G = 1 is multi-head attention.
+//
+// Layout: q [B, H * G, Dh], k_new, v_new [B, H, Dh] in the output's dtype
+// (float32 or bf16), heads Dh apart and rows `qkv_stride` elements apart (the
+// parts of the qkv projection, read in place); the cache [B, H, S, Dh] in that
+// dtype, or int8 with the scales ks, vs [B, H/2, S] float32; bias [B, S]
+// float32; pos one int64 on the device (a captured step reads no host value)
+// or a value, inside [0, S) (the kernel traps on another); out [B, H * G * Dh].
 //
 // Bound: bytes. Each cache byte meets one multiply-add, far under the card's
 // operations-per-byte ridge: the least time is the K/V cache (and its
@@ -41,8 +45,10 @@
 // memory, so the design is about bytes in flight and filling the card.
 //
 // Design:
-//  * A block owns one (row, head pair): the pair's int8 scale and the write
-//    of column pos stay inside one block. Two warps a head split the
+//  * A block owns one (row, KV head pair, query i of the group): the pair's
+//    int8 scale and the write of column pos stay inside the blocks of i = 0.
+//    The G blocks of a pair read the same columns, the later ones mostly from
+//    L2 (the counts' bound reads each KV head once). Two warps a head split the
 //    block's columns; each lane loads 16 bytes of a column (8 bf16, 16 int8,
 //    4 float32 values), so Dh / (16 bytes) lanes take one column (4 lanes an
 //    int8 head of 64, 8 a bf16 one) and a warp load reads whole columns,
@@ -142,8 +148,9 @@ __device__ __forceinline__ void merge(float& m, float& l, float* acc, float m2, 
   m = mx;
 }
 
-// T: q, k_new, v_new and out (float or bf16); C: the cache (T, or int8 with scales); DH: the head size
-template <typename T, typename C, int DH>
+// T: q, k_new, v_new and out (float or bf16); C: the cache (T, or int8 with scales); DH: the head size;
+// G: query heads a KV head
+template <typename T, typename C, int DH, int G>
 __global__ void __launch_bounds__(THREADS)
     decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kn, const T* __restrict__ vn,
                        long long qkv_stride, C* kc, C* vc, float* ksc, float* vsc, const float* __restrict__ bias,
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ float p_m[2], p_l[2], p_acc[2][DH];  // the block's triple, read by the cluster
   __shared__ float s_amax[2][2];                  // int8: |k_new|, |v_new| max of each head of the pair
 
-  const int split = blockIdx.x, nsplit = gridDim.x, g = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, nsplit = gridDim.x, g = blockIdx.y / G, gi = blockIdx.y % G, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hl = warp / WARPS_PER_HEAD, w = warp % WARPS_PER_HEAD;
   const int h = 2 * g + hl;
@@ -171,11 +178,12 @@ __global__ void __launch_bounds__(THREADS)
   if (pos < 0 || pos >= S) __trap();  // a cursor off the cache: fail, as index_copy_ does, not skip the write
 
   const size_t row = static_cast<size_t>(b) * qkv_stride + static_cast<size_t>(head ? h : 0) * DH + sub * E;
+  const size_t qrow = static_cast<size_t>(b) * qkv_stride + static_cast<size_t>(head ? h * G + gi : 0) * DH + sub * E;
   float qf[E], acc[E];
   float self = 0.0f;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    qf[e] = head ? to_f(q[row + e]) : 0.0f;
+    qf[e] = head ? to_f(q[qrow + e]) : 0.0f;
     self = fmaf(qf[e], head ? to_f(kn[row + e]) : 0.0f, self);
     acc[e] = 0.0f;
   }
@@ -280,7 +288,7 @@ __global__ void __launch_bounds__(THREADS)
       s_l[hl][w] = l;
     }
   }
-  if (Q8 && split == 0 && w == 0) {  // the pair's int8 scales of column pos
+  if (Q8 && split == 0 && w == 0 && gi == 0) {  // the pair's int8 scales of column pos
     float ak = 0.0f, av = 0.0f;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
@@ -307,7 +315,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int v = 0; v < WARPS_PER_HEAD; ++v) merge<1>(M, L, &A, s_m[hh][v], s_l[hh][v], &s_acc[hh][v][d]);
     if (single) {
-      if (2 * g + hh < H) store_f(out + (static_cast<size_t>(b) * H + 2 * g + hh) * DH + d, A / L);
+      if (2 * g + hh < H) store_f(out + ((static_cast<size_t>(b) * H + 2 * g + hh) * G + gi) * DH + d, A / L);
     } else {
       p_acc[hh][d] = A;
       if (d == 0) {
@@ -329,7 +337,7 @@ __global__ void __launch_bounds__(THREADS)
           const float a2 = cluster.map_shared_rank(&p_acc[0][0], r)[hh * DH + d];
           merge<1>(M, L, &A, m2, l2, &a2);
         }
-        if (2 * g + hh < H) store_f(out + (static_cast<size_t>(b) * H + 2 * g + hh) * DH + d, A / L);
+        if (2 * g + hh < H) store_f(out + ((static_cast<size_t>(b) * H + 2 * g + hh) * G + gi) * DH + d, A / L);
       }
     }
     // no block leaves while the first reads its triple; the first's reads are
@@ -338,7 +346,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // column pos: the new K and V, after this block's reads of the cache
-  if (split == 0 && w == 0 && grp == 0 && head) {
+  if (split == 0 && w == 0 && grp == 0 && head && gi == 0) {
     const size_t at = (plane + static_cast<size_t>(pos)) * DH + sub * E;
     if constexpr (Q8) {
       const float sk = fmaxf(fmaxf(s_amax[0][0], s_amax[1][0]), 1e-8f) * (1.0f / 127.0f);
@@ -389,15 +397,15 @@ int choose_split(int blocks, int S) {
   return split;
 }
 
-template <typename T, typename C, int DH>
+template <typename T, typename C, int DH, int G>
 int launch(const void* q, const void* k, const void* v, long long qkv_stride, void* kc, void* vc, void* ks, void* vs,
            const void* bias, const void* pos, long long pos_val, void* out, int B, int H, int S, float scale,
            cudaStream_t s) {
   const int pairs = (H + 1) / 2;
-  const int split = choose_split(B * pairs, S);
+  const int split = choose_split(B * pairs * G, S);
   const int chunk = (S + split - 1) / split;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, pairs, B);
+  cfg.gridDim = dim3(split, pairs * G, B);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -408,7 +416,7 @@ int launch(const void* q, const void* k, const void* v, long long qkv_stride, vo
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, decode_attn_kernel<T, C, DH>, static_cast<const T*>(q), static_cast<const T*>(k),
+      &cfg, decode_attn_kernel<T, C, DH, G>, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qkv_stride, static_cast<C*>(kc), static_cast<C*>(vc), static_cast<float*>(ks),
       static_cast<float*>(vs), static_cast<const float*>(bias), static_cast<const long long*>(pos), pos_val,
       static_cast<T*>(out), H, S, chunk, scale);
@@ -416,42 +424,47 @@ int launch(const void* q, const void* k, const void* v, long long qkv_stride, vo
 }
 
 template <typename T, typename C>
-int by_head_size(int Dh, const void* q, const void* k, const void* v, long long qkv_stride, void* kc, void* vc,
+int by_head_size(int Dh, int G, const void* q, const void* k, const void* v, long long qkv_stride, void* kc, void* vc,
                  void* ks, void* vs, const void* bias, const void* pos, long long pos_val, void* out, int B, int H,
                  int S, float scale, cudaStream_t s) {
-  switch (Dh) {
-    case 16: return launch<T, C, 16>(q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out, B, H, S, scale, s);
-    case 64: return launch<T, C, 64>(q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out, B, H, S, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define DECODE_ATTN_CASE(D, GG)                                                                                \
+  if (Dh == D && G == GG)                                                                                     \
+    return launch<T, C, D, GG>(q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out, B, H, S, scale, s);
+  DECODE_ATTN_CASE(16, 1)
+  DECODE_ATTN_CASE(64, 1)
+  DECODE_ATTN_CASE(16, 2)
+  DECODE_ATTN_CASE(64, 4)
+#undef DECODE_ATTN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, k, v: device [B, H, Dh], rows qkv_stride elements apart, heads Dh apart;
+// q: device [B, H * G, Dh], k, v: device [B, H, Dh], rows qkv_stride elements apart, heads Dh apart;
 // kc, vc: device [B, H, S, Dh] in their dtype, or int8 with ks, vs [B, H/2, S]
 // float32 (int8_cache = 1; null otherwise); bias: device float32 [B, S]; pos:
 // a device int64, or null to take pos_val; out: device [B, H * Dh]. dtype:
 // 0 = float32, 1 = bfloat16 (q, k, v, out and a full-precision cache). Dh:
-// 16 (the tiny test models) or 64 (the published ones). stream: the cudaStream_t to launch on. Returns the
-// launch's error (0 on success).
+// 16 (the tiny test models) or 64 (the published ones); G: query heads a KV head, 1 at either, 2 at 16,
+// 4 at 64. scale: the scores' factor. stream: the cudaStream_t to launch on. Returns the launch's error (0
+// on success).
 extern "C" int indextts_decode_attn(const void* q, const void* k, const void* v, long long qkv_stride, void* kc,
                                     void* vc, void* ks, void* vs, const void* bias, const void* pos,
-                                    long long pos_val, void* out, int B, int H, int S, int Dh, float scale,
+                                    long long pos_val, void* out, int B, int H, int G, int S, int Dh, float scale,
                                     int dtype, int int8_cache, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || (H + 1) / 2 > 65535 || (dtype != 0 && dtype != 1) ||
+  if (B <= 0 || H <= 0 || G <= 0 || S <= 0 || B > 65535 || (H + 1) / 2 * G > 65535 || (dtype != 0 && dtype != 1) ||
       (int8_cache && H % 2 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return int8_cache ? by_head_size<float, int8_t>(Dh, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out,
+    return int8_cache ? by_head_size<float, int8_t>(Dh, G, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out,
                                                     B, H, S, scale, s)
-                      : by_head_size<float, float>(Dh, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out,
+                      : by_head_size<float, float>(Dh, G, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val, out,
                                                    B, H, S, scale, s);
   }
-  return int8_cache ? by_head_size<__nv_bfloat16, int8_t>(Dh, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val,
+  return int8_cache ? by_head_size<__nv_bfloat16, int8_t>(Dh, G, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos, pos_val,
                                                           out, B, H, S, scale, s)
-                    : by_head_size<__nv_bfloat16, __nv_bfloat16>(Dh, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos,
+                    : by_head_size<__nv_bfloat16, __nv_bfloat16>(Dh, G, q, k, v, qkv_stride, kc, vc, ks, vs, bias, pos,
                                                                  pos_val, out, B, H, S, scale, s);
 }

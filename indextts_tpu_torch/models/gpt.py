@@ -21,9 +21,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.config import GPTConfig, is_hybrid
 from indextts_tpu_torch.models.attention_block import ConditioningEncoder
 from indextts_tpu_torch.models.conformer import ConformerEncoder
+from indextts_tpu_torch.models.granite import GraniteHybrid
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
 from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.conv import conv1d
@@ -72,13 +73,13 @@ def _row(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return y + lin.bias.to(y.dtype)
 
 
-def head_logits(lin: nn.Module, h: torch.Tensor) -> torch.Tensor:
+def head_logits(lin: nn.Module, h: torch.Tensor, scaling: float = 1.0) -> torch.Tensor:
     """The mel / text head; a vocabulary-split head's logits are gathered,
-    so every rank holds the whole [..., V]."""
+    so every rank holds the whole [..., V]. `scaling` divides them (a
+    granite hybrid's logits_scaling)."""
     comm = getattr(lin, "tp_comm", None)
-    if comm is None:
-        return lin(h)
-    return gather_from_region(lin(copy_to_region(h, comm)), comm)
+    out = lin(h) if comm is None else gather_from_region(lin(copy_to_region(h, comm)), comm)
+    return out if scaling == 1.0 else out / scaling
 
 
 class GPT2Block(nn.Module):
@@ -167,7 +168,9 @@ class UnifiedVoice(nn.Module):
         self.mel_embedding = nn.Parameter(torch.zeros(cfg.number_mel_codes, d))
         self.text_pos_embedding = nn.Parameter(torch.zeros(cfg.max_text_seq_len, d))
         self.mel_pos_embedding = nn.Parameter(torch.zeros(cfg.max_mel_seq_len, d))
-        self.gpt = GPT2(cfg.layers, d)
+        self.hybrid = is_hybrid(cfg)
+        self.logits_scaling = float(getattr(cfg, "logits_scaling", 1.0))
+        self.gpt = GraniteHybrid(cfg) if self.hybrid else GPT2(cfg.layers, d)
         self.final_norm = nn.LayerNorm(d)
         self.text_head = nn.Linear(d, n_text)
         self.mel_head = nn.Linear(d, cfg.number_mel_codes)
@@ -201,18 +204,22 @@ class UnifiedVoice(nn.Module):
 
     def reset_parameters(self, g: torch.Generator) -> None:
         """init_unified_voice's distributions: GPT-2 normal(0.02) with the
-        residual projections at 0.02/sqrt(2*layers), zero biases; torch
+        residual projections at 0.02/sqrt(2*layers), zero biases (a granite
+        hybrid stack: GraniteHybrid.reset_parameters); torch
         default uniform for the conditioning encoders, xavier pos biases, and
         the legacy encoder's own init (ConditioningEncoder.reset_parameters)."""
         default_init_(self, g)
         for p in (self.text_embedding, self.mel_embedding, self.text_pos_embedding, self.mel_pos_embedding):
             normal_(p, 0.02, g)
-        proj_std = 0.02 / math.sqrt(2 * self.cfg.layers)
-        for blk in self.gpt.blocks:
-            for lin, std in ((blk.attn_qkv, 0.02), (blk.attn_proj, proj_std), (blk.mlp_fc, 0.02),
-                             (blk.mlp_proj, proj_std)):
-                normal_(lin.weight, std, g)
-                nn.init.zeros_(lin.bias)
+        if self.hybrid:  # the granite stack's published init
+            self.gpt.reset_parameters(g)
+        else:
+            proj_std = 0.02 / math.sqrt(2 * self.cfg.layers)
+            for blk in self.gpt.blocks:
+                for lin, std in ((blk.attn_qkv, 0.02), (blk.attn_proj, proj_std), (blk.mlp_fc, 0.02),
+                                 (blk.mlp_proj, proj_std)):
+                    normal_(lin.weight, std, g)
+                    nn.init.zeros_(lin.bias)
         for head in (self.text_head, self.mel_head):
             normal_(head.weight, 0.02, g)
             nn.init.zeros_(head.bias)
@@ -322,6 +329,20 @@ def _frame(tokens: torch.Tensor, start: int, stop: int) -> Tuple[torch.Tensor, t
     return torch.cat([start_col, tokens, stop_col], dim=1), torch.cat([tokens, stop_col, stop_col], dim=1)
 
 
+def _hybrid_apply(stack: GraniteHybrid, emb: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The hybrid stack over [B, T, D] with the key mask [B, T] (None: all
+    real): each row's real positions are moved to its front in order, so that
+    a Mamba layer's convolution and state run over the row's real tokens
+    alone, as over the row's sequence without padding; the hiddens go back to
+    their places (a padded position's is unused)."""
+    if mask is None:
+        return stack(emb)
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)  # real positions first, in order
+    idx = order[..., None].expand(-1, -1, emb.shape[-1])
+    hidden = stack(torch.gather(emb, 1, idx), torch.gather(mask, 1, order))
+    return torch.empty_like(hidden).scatter_(1, idx, hidden)
+
+
 def unified_voice_forward(
     model: UnifiedVoice,
     cfg: GPTConfig,
@@ -374,14 +395,18 @@ def unified_voice_forward(
         mel_ok = torch.arange(mel_in.shape[1], device=dev)[None, :] < (mel_code_lengths + 1)[:, None]
         blocks = (text_ok, mel_ok) if text_first else (mel_ok, text_ok)
         mask = torch.cat([torch.ones(b, conds.shape[1], dtype=torch.bool, device=dev), *blocks], dim=1)
-    hidden = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask)
+    if model.hybrid:
+        hidden = _hybrid_apply(model.gpt, emb, mask)
+    else:
+        hidden = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask)
     enc = _ln(model.final_norm, hidden[:, conds.shape[1]:])
     first_out, second_out = enc[:, : first.shape[1]], enc[:, -second.shape[1]:]
     if return_latent:
         # the second block, without the two trailing frames this forward adds (model.py:576-578)
         return second_out[:, :-2]
     text_out, mel_out = (first_out, second_out) if text_first else (second_out, first_out)
-    text_logits, mel_logits = head_logits(model.text_head, text_out), head_logits(model.mel_head, mel_out)
+    text_logits = head_logits(model.text_head, text_out, model.logits_scaling)
+    mel_logits = head_logits(model.mel_head, mel_out, model.logits_scaling)
 
     def ce(logits, targets):
         return F.cross_entropy(logits.float().flatten(0, 1), targets.flatten())

@@ -9,7 +9,11 @@ cache, monolithic or with a cache that grows by segments).
     [L, B, H, S, Dh] of length S = prefill + max_new_tokens. The decode loop
     writes each token's K/V into that cache in place (the JAX loop returns a
     new cache each step) and stops early when every row has emitted
-    stop_mel_token.
+    stop_mel_token. A granite hybrid stack (models/granite.py) keeps the KV
+    cache of its attention layers and, after it in the cache tuple, its
+    Mamba layers' conv and SSM states, which have no sequence axis: they are
+    never grown or padded, only written per row (the prefill, a slot's
+    admission, every step) or reordered with the beams.
   * With quant_kv the cache is int8 (k8, ks, v8, vs): k8 / v8 [L, B, H, S,
     Dh] int8 and one float32 scale per head PAIR and position, ks / vs [L,
     B, H/2, S]. The JAX cache is head-paired ([.., H/2, S, 2*Dh], a TPU lane
@@ -71,6 +75,8 @@ from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
                                            write_at)
+from indextts_tpu_torch.models.granite import split_cache
+from indextts_tpu_torch.ops.cuda import ssm_step
 from indextts_tpu_torch.ops.cuda.decode_attn import decode_attn, quant_cols as _quant_cols
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
@@ -219,8 +225,8 @@ def _mel_logits(model: UnifiedVoice, hidden: torch.Tensor, return_normed: bool =
     it beside the logits."""
     h = layer_norm(hidden, model.final_norm.weight, model.final_norm.bias)
     if return_normed:
-        return head_logits(model.mel_head, h), h
-    return head_logits(model.mel_head, h)
+        return head_logits(model.mel_head, h, model.logits_scaling), h
+    return head_logits(model.mel_head, h, model.logits_scaling)
 
 
 def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch.Tensor, cache_len: int,
@@ -229,9 +235,15 @@ def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch
     the cache, zero past the prompt: (k, v), each [L, B, H, cache_len, Dh],
     or with quant_kv (k8, ks, v8, vs), quantized after the full-precision
     prefill attention; the pad columns' scales are zero (the attention bias
-    masks those columns). return_hidden adds the last position's final-norm
-    hidden [B, D], the latent that predicts the first code."""
-    hidden, (k, v) = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask, return_kv=True)
+    masks those columns). A hybrid stack's cache holds its attention layers'
+    K / V and then its Mamba layers' conv and SSM states after the prompt.
+    return_hidden adds the last position's final-norm hidden [B, D], the
+    latent that predicts the first code."""
+    states = ()
+    if model.hybrid:
+        hidden, (k, v, *states) = model.gpt(emb, mask, return_state=True)
+    else:
+        hidden, (k, v) = gpt2_apply(model.gpt, emb, cfg.heads, attention_mask=mask, return_kv=True)
     pad = cache_len - k.shape[3]
     if quant_kv:
         (k8, ks), (v8, vs) = _quant_cols(k), _quant_cols(v)
@@ -239,6 +251,7 @@ def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch
         cache = tuple(torch.nn.functional.pad(t, pad8 if t.dim() == 5 else pads) for t in (k8, ks, v8, vs))
     else:
         cache = tuple(torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    cache += tuple(states)
     if return_hidden:
         logits, h = _mel_logits(model, hidden[:, -1], return_normed=True)
         return logits, cache, h
@@ -263,11 +276,14 @@ def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_p
     do), its K/V written into the one shared cache slot `pos` (an int or a
     [1] long device index; in place). valid: [B, S]
     bool, the cache slots already written that the token attends, `pos`
-    excluded (JAX's base_mask). The cache is (k, v) or int8 (k8, ks, v8, vs).
-    Returns logits [B, V], and with return_hidden also the final-norm hidden
-    [B, D]."""
+    excluded (JAX's base_mask). The cache is (k, v) or int8 (k8, ks, v8, vs),
+    with a hybrid stack's conv and SSM states after them (advanced in
+    place). Returns logits [B, V], and with return_hidden also the
+    final-norm hidden [B, D]."""
     x = model.mel_embedding[token] + model.mel_pos_embedding[mel_pos]
     bias = torch.where(valid, torch.zeros((), device=x.device), NEG)[:, None, :]  # [B, 1, S]
+    if model.hybrid:
+        return _mel_logits(model, model.gpt.step(x, cache, pos, bias), return_normed=return_hidden)
     for layer, block in enumerate(model.gpt.blocks):
         caches = [c[layer] for c in cache]
         if len(cache) == 4:
@@ -350,8 +366,10 @@ def _initial_seen(cfg: GPTConfig, rows: int, dev, input_tokens: Optional[torch.T
 
 def _pad_slots(cache: Tuple[torch.Tensor, ...], extra: int) -> Tuple[torch.Tensor, ...]:
     """A cache with `extra` zero slots appended: (k, v) [L, B, H, S, Dh] or
-    int8 (k8, ks, v8, vs) with the scales [L, B, H/2, S]."""
-    return tuple(torch.nn.functional.pad(c, (0, 0, 0, extra) if c.dim() == 5 else (0, extra)) for c in cache)
+    int8 (k8, ks, v8, vs) with the scales [L, B, H/2, S]; a hybrid stack's
+    conv and SSM states, which have no slots, as they are."""
+    kv, states = split_cache(cache)
+    return tuple(torch.nn.functional.pad(c, (0, 0, 0, extra) if c.dim() == 5 else (0, extra)) for c in kv) + states
 
 
 def grow_cache(state: DecodeState, ctx: DecodeContext, extra: int) -> Tuple[DecodeState, DecodeContext]:
@@ -399,8 +417,8 @@ def _bind_decode(stage: GraphStage, model: UnifiedVoice, state: DecodeState, ctx
     segment, the positional offsets, the dtype, the weights and the block's
     steps; the device counter t is set to the host's i."""
     b = state.codes.shape[0]
-    key = ("dec", b, ctx.p, ctx.gen, state.lat is not None, len(state.cache) == 4, ctx.prefill_valid.shape[1],
-           pos_off, ctx.s0, state.cache[0].dtype, weights_key(model), BLOCK)
+    key = ("dec", b, ctx.p, ctx.gen, state.lat is not None, state.cache[0].dtype == torch.int8,
+           ctx.prefill_valid.shape[1], pos_off, ctx.s0, state.cache[0].dtype, weights_key(model), BLOCK)
     lane = stage.bind(key, state, [(state, _DECODE_STATE_BUFFERS), (ctx, _DECODE_CONTEXT_BUFFERS)])
     state.t.fill_(state.i)
     return lane
@@ -418,8 +436,10 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
     captured block, whose steps after the last row stopped are skipped on
     the card; the uniforms of a block's steps are drawn into ctx.u before
     it, one draw for each step the budget allows. One host read a block.
-    A span dec.loop (tracing.py) around the whole call."""
-    with tracing.span("dec.loop"):
+    A span dec.loop (tracing.py) around the whole call, with `k7_launches`,
+    the K7 launches its steps ran."""
+    with tracing.span("dec.loop") as loop_span:
+        k7 = ssm_step.launches
         stop = min(state.i + n_steps, state.codes.shape[1] - 1)
         stage = stage_or_uncaptured(graphs, state.codes.device)
         lane = _bind_decode(stage, model, state, ctx, pos_off)
@@ -429,6 +449,7 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
             ctx.draw(min(BLOCK, stop - state.i))
             ran, state.live = stage.run(lane, step, live, stop - state.i)
             state.i += ran
+        loop_span.set(k7_launches=ssm_step.launches - k7)
     return state
 
 
@@ -829,8 +850,9 @@ class _BeamLoop:
     def _bind(self, stage: GraphStage):
         """Move the loop onto the static buffers of its key (_bind_decode's,
         with gen.num_beams > 1); the device counter t is set to the host's i."""
-        key = ("dec", self.b, self.p, self.gen, self.capture, len(self.cache) == 4, self.prefill_valid.shape[1],
-               self.pos_off, self.s0, self.cache[0].dtype, weights_key(self.model), BLOCK)
+        key = ("dec", self.b, self.p, self.gen, self.capture, self.cache[0].dtype == torch.int8,
+               self.prefill_valid.shape[1], self.pos_off, self.s0, self.cache[0].dtype, weights_key(self.model),
+               BLOCK)
         lane = stage.bind(key, self, [(self, self._BUFFERS), (self.best, ("score", "codes", "length", "lat"))])
         self.t.fill_(self.i)
         return lane
@@ -838,8 +860,9 @@ class _BeamLoop:
     def run(self, n_steps: int, graphs: Optional[GraphStage] = None) -> None:
         """Up to n_steps steps (at most to max_new - 1) while _live(), in
         blocks through `graphs`, the engine's decode stage, as in
-        decode_steps (a span dec.loop)."""
-        with tracing.span("dec.loop"):
+        decode_steps (a span dec.loop, with k7_launches)."""
+        with tracing.span("dec.loop") as loop_span:
+            k7 = ssm_step.launches
             stop = min(self.i + n_steps, self.max_new - 1)
             stage = stage_or_uncaptured(graphs, self.codes.device)
             lane = self._bind(stage)
@@ -848,6 +871,7 @@ class _BeamLoop:
                 self._draw(min(BLOCK, stop - self.i))
                 ran, self.alive = stage.run(lane, step, self._live, stop - self.i)
                 self.i += ran
+            loop_span.set(k7_launches=ssm_step.launches - k7)
 
     def grow(self, extra: int) -> None:
         """`extra` more generated-token slots: the cache, the key mask and,

@@ -23,7 +23,10 @@ What makes rolling admission exact is kept from the JAX package:
   vectors.
 
 What differs: the cache is the port's [L, B, H, S, Dh] (int8: k8, ks, v8, vs
-with one scale per head pair and position), not the head-paired one. The
+with one scale per head pair and position), not the head-paired one. A
+granite hybrid stack's attention layers keep it with their KV heads, and its
+Mamba layers keep a conv and an SSM state per slot beside it, which an
+admission overwrites whole and every step advances in place. The
 admission and the per-row writes of codes / seen / latents are indexed
 writes, the plain form on a GPU (the JAX package uses roll-pad-where and
 dense masked selects because XLA on a TPU serializes scatters). The step
@@ -48,10 +51,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from indextts_tpu_torch import tracing
-from indextts_tpu_torch.config import GPTConfig
+from indextts_tpu_torch.config import GPTConfig, is_hybrid
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
 from indextts_tpu_torch.models.gpt import UnifiedVoice, write_at
 from indextts_tpu_torch.models.gpt_decode import GenerationConfig, _decode_step, prefill_decode_state
+from indextts_tpu_torch.models.granite import split_cache
+from indextts_tpu_torch.ops.cuda import ssm_step
 from indextts_tpu_torch.ops.sampling import Knob, greedy_token, process_logits, row_knob, sample_token, uniforms
 
 
@@ -68,7 +73,7 @@ class SlotState:
     cursor: torch.Tensor   # 0-dim long, the shared circular write cursor, in [0, S)
     i_b: torch.Tensor      # [B] long, each row's index of its last code
     codes: torch.Tensor    # [B, max_new] long, stop-filled
-    cache: Tuple[torch.Tensor, ...]  # (k, v) or int8 (k8, ks, v8, vs)
+    cache: Tuple[torch.Tensor, ...]  # (k, v) or int8 (k8, ks, v8, vs); a hybrid stack's (conv, ssm) after them
     active: torch.Tensor   # [B] bool
     done: torch.Tensor     # [B] bool
     seen: torch.Tensor     # [B, V] bool, the repetition penalty's seen set
@@ -83,17 +88,25 @@ def slot_state_init(cfg: GPTConfig, gen: GenerationConfig, n_slots: int, cache_l
                     heads: Optional[int] = None) -> SlotState:
     """The empty state. cache_len (S) must reach the longest admitted prefill
     + gen.max_new_tokens (slot_admit checks each admission). `heads`: the
-    attention heads of the cache, cfg.heads, or a tensor-parallel shard's
-    (parallel/mesh.local_heads)."""
+    KV heads of the cache, cfg.n_kv_heads, or a tensor-parallel shard's
+    (parallel/mesh.local_heads). A hybrid stack's cache holds its attention
+    layers and then each Mamba layer's conv state (in `dtype`) and SSM state
+    (float32) per slot."""
     b, dev = n_slots, torch.device(device)
-    h = cfg.heads if heads is None else int(heads)
-    shape5 = (cfg.layers, b, h, cache_len, cfg.model_dim // cfg.heads)
-    shape4 = (cfg.layers, b, h // 2, cache_len)
+    hybrid = is_hybrid(cfg)
+    h = (cfg.n_kv_heads if hybrid else cfg.heads) if heads is None else int(heads)
+    layers = cfg.attn_layers if hybrid else cfg.layers
+    shape5 = (layers, b, h, cache_len, cfg.model_dim // cfg.heads)
+    shape4 = (layers, b, h // 2, cache_len)
     if quant_kv:
         cache = (torch.zeros(shape5, dtype=torch.int8, device=dev), torch.zeros(shape4, device=dev),
                  torch.zeros(shape5, dtype=torch.int8, device=dev), torch.zeros(shape4, device=dev))
     else:
         cache = (torch.zeros(shape5, dtype=dtype, device=dev), torch.zeros(shape5, dtype=dtype, device=dev))
+    if hybrid:
+        lm = cfg.mamba_layers
+        cache += (torch.zeros(lm, b, cfg.conv_dim, cfg.mamba_d_conv - 1, dtype=dtype, device=dev),
+                  torch.zeros(lm, b, cfg.mamba_heads, cfg.mamba_head_dim, cfg.mamba_d_state, device=dev))
     return SlotState(
         tick=torch.zeros((), dtype=torch.long, device=dev), cursor=torch.zeros((), dtype=torch.long, device=dev),
         i_b=torch.zeros(b, dtype=torch.long, device=dev),
@@ -114,11 +127,13 @@ def slot_prefill(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, con
                  text_tokens: torch.Tensor, text_lengths: torch.Tensor, generator: torch.Generator,
                  temperature: Knob = 1.0, top_p: Knob = 0.8, repetition_penalty: Knob = 10.0,
                  typical_mass: Knob = 0.9, capture_latents: bool = False, quant_kv: bool = False) -> Dict[str, Any]:
-    """Prefill ONE request (b = 1) for a later admission, through
-    prefill_decode_state with cache_len = p: the one definition of the
-    prefill and the first code (input mask, the ids {1, start_mel} that start
-    out seen, the first draw) that the one-piece, streaming and segmented
-    decodes use. The cache comes back at its own length p."""
+    """Prefill queued rows (one or a batch, each to be admitted by
+    slot_admit with its row index), through prefill_decode_state with
+    cache_len = p: the one definition of the prefill and the first code
+    (input mask, the ids {1, start_mel} that start out seen, the first draw)
+    that the one-piece, streaming and segmented decodes use. The cache comes
+    back at its own length p; a shorter row is left-padded to it, its pad
+    columns masked."""
     p = conds.shape[1] + text_tokens.shape[1] + 3  # [cond latents | start, text, stop | start_mel]
     state, ctx = prefill_decode_state(
         model, cfg, gen, conds, text_tokens, text_lengths, generator,
@@ -135,11 +150,12 @@ def slot_prefill(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, con
 
 
 @torch.no_grad()
-def slot_admit(state: SlotState, prod: Dict[str, Any], slot: int, cfg: GPTConfig) -> SlotState:
-    """Write a prefilled request into slot `slot`, its prefill placed so
-    that it ENDS at the shared cursor: columns (cursor - p) mod S .. cursor
-    of the slot's own cache plane. The row is reset as a whole, so a
-    harvested slot needs no clearing."""
+def slot_admit(state: SlotState, prod: Dict[str, Any], slot: int, cfg: GPTConfig, row: int = 0) -> SlotState:
+    """Write row `row` of a prefill (slot_prefill) into slot `slot`, its
+    prefill placed so that it ENDS at the shared cursor: columns
+    (cursor - p) mod S .. cursor of the slot's own cache plane; a hybrid
+    stack's conv and SSM states are the slot's whole. The row is reset as a
+    whole, so a harvested slot needs no clearing."""
     p = prod["prefill_mask"].shape[1]
     s_len = state.mask.shape[1]
     max_new = state.codes.shape[1]
@@ -148,22 +164,25 @@ def slot_admit(state: SlotState, prod: Dict[str, Any], slot: int, cfg: GPTConfig
                          "own content")
     dev = state.codes.device
     cols = (state.cursor - p + torch.arange(p, device=dev)) % s_len
-    for big, small in zip(state.cache, prod["cache"]):
-        # big [L, B, H, S, Dh] or the scales [L, B, H/2, S]; small the same with B = 1 and S = p
-        big[:, slot][:, :, cols] = small[:, 0].to(big.dtype)
+    kv, states = split_cache(state.cache)
+    for big, small in zip(kv, prod["cache"]):
+        # big [L, B, H, S, Dh] or the scales [L, B, H/2, S]; small the same with the prefill's rows and S = p
+        big[:, slot][:, :, cols] = small[:, row].to(big.dtype)
+    for big, small in zip(states, prod["cache"][len(kv):]):
+        big[:, slot] = small[:, row].to(big.dtype)
     state.mask[slot] = False
-    state.mask[slot, cols] = prod["prefill_mask"][0]
-    tok1 = prod["tok1"][0]
+    state.mask[slot, cols] = prod["prefill_mask"][row]
+    tok1 = prod["tok1"][row]
     state.codes[slot] = cfg.stop_mel_token
     state.codes[slot, 0] = tok1
-    state.seen[slot] = prod["seen1"][0]
+    state.seen[slot] = prod["seen1"][row]
     state.cur[slot] = tok1
     state.i_b[slot] = 0
-    state.active[slot] = ~prod["done0"][0]
-    state.done[slot] = prod["done0"][0]
+    state.active[slot] = ~prod["done0"][row]
+    state.done[slot] = prod["done0"][row]
     if state.lat is not None:
         state.lat[slot] = 0
-        state.lat[slot, 0] = prod["h0"][0].to(state.lat.dtype)
+        state.lat[slot, 0] = prod["h0"][row].to(state.lat.dtype)
     return state
 
 
@@ -229,14 +248,15 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
     CUDA engine a replay of the key's captured block, its uniforms drawn
     into state.u before it, one draw for each step the budget allows. One
     host read a block. Spans (tracing.py): slot.loop around the whole call
-    (a knob given as a host tensor is uploaded inside it), slot.draws around
-    a block's draws."""
+    (a knob given as a host tensor is uploaded inside it; `k7_launches`, the
+    K7 launches its steps ran), slot.draws around a block's draws."""
     b, dev = state.codes.shape[0], state.codes.device
-    with tracing.span("slot.loop"):
+    with tracing.span("slot.loop") as loop_span:
+        k7 = ssm_step.launches
         knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
             _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
         stage = stage_or_uncaptured(graphs, dev)
-        key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, len(state.cache) == 4,
+        key = ("slot", b, state.mask.shape[1], gen, state.lat is not None, state.cache[0].dtype == torch.int8,
                state.cache[0].shape[2], pos_off, state.cache[0].dtype, weights_key(model), BLOCK)
         lane = stage.bind(key, state, [(state, ("tick", "cursor", "i_b", "codes", "cache", "active", "done", "seen",
                                                 "cur", "mask", "lat", "u")), (knobs, _KNOBS)])
@@ -253,6 +273,7 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
             done += ran
             if not alive:
                 break
+        loop_span.set(k7_launches=ssm_step.launches - k7)
     return state
 
 

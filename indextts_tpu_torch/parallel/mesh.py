@@ -44,6 +44,8 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from indextts_tpu_torch.config import is_hybrid
+
 Spec = Tuple[Optional[str], ...]
 
 
@@ -356,7 +358,14 @@ def shard_gpt_params(model: nn.Module, mesh: Mesh, quant_kv: bool = False) -> nn
     whose weight split gets `tp_comm` (the model group) and `tp_dim` (0:
     output channels, 1: input); the model code reads them. An int8
     (QuantLinear) model shards its int8 rows and scales as above. `quant_kv`:
-    the engine decodes with the int8 KV cache (the head-pair rule)."""
+    the engine decodes with the int8 KV cache (the head-pair rule). A
+    granite hybrid stack is refused (NotImplementedError): the mesh has no
+    sharded Mamba heads and states."""
+    if is_hybrid(model.cfg):
+        raise NotImplementedError(
+            "the multi-device mesh does not run a granite_hybrid GPT: it has no sharded Mamba heads and states "
+            "(tensor-parallel in_proj / conv / out_proj by Mamba head, and each rank's share of the conv and SSM "
+            "states); run the hybrid stack on one process")
     tp = mesh.shape["model"]
     if tp == 1:
         return model
@@ -405,9 +414,12 @@ def gathered_state_dict(model: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]
 
 
 def local_heads(model: nn.Module) -> int:
-    """The attention heads this rank holds (cfg.heads, or cfg.heads / tp
-    where the attention splits)."""
+    """The attention heads of the KV cache this rank holds (cfg.heads, or
+    cfg.heads / tp where the attention splits; a granite hybrid stack, which
+    the mesh does not shard, its KV heads)."""
     cfg = model.cfg
+    if is_hybrid(cfg):
+        return cfg.n_kv_heads
     return model.gpt.blocks[0].attn_qkv.weight.shape[0] * cfg.heads // (3 * cfg.model_dim)
 
 

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from indextts_tpu_torch import tracing
+from indextts_tpu_torch.config import is_hybrid
 from indextts_tpu_torch.engine import _round_up
 from indextts_tpu_torch.models.gpt_slots import slot_admit, slot_prefill, slot_state_init, slot_steps
 from indextts_tpu_torch.parallel.mesh import local_heads
@@ -177,28 +178,57 @@ class SlotSession:
     # ------------------------------------------------------------------
 
     def _admit_one(self, row: Dict[str, Any], slot: int) -> None:
-        """Prefill a queued row and write it into `slot`: a span slot.admit
-        whose waited_ns is the time from the row's queueing to its admission."""
-        with tracing.span("slot.admit", rid=row["rid"], row=row["row"]) as span:
-            if span:
-                span.set(waited_ns=span.t0 - row["queued_ns"])
-            eng = self.engine
-            cfg = eng.cfg.gpt
-            t = row["tokens"]
-            padded = np.full((1, eng._text_bucket(t.shape[1])), cfg.stop_text_token, np.int64)
-            padded[:, : t.shape[1]] = t
-            prod = slot_prefill(
-                eng.gpt, cfg, self.gen, row["conds"].to(eng.dtype), torch.from_numpy(padded).to(eng.device),
-                torch.tensor([t.shape[1]], dtype=torch.long, device=eng.device), self.generator,
-                temperature=row["dyn"]["temperature"], top_p=row["dyn"]["top_p"],
-                repetition_penalty=row["dyn"]["repetition_penalty"], typical_mass=row["dyn"]["typical_mass"],
-                capture_latents=eng.fast_latents, quant_kv=eng.quant_kv,
-            )
-            self.state = slot_admit(self.state, prod, slot, cfg)
-            for k, col in self.dyn_cols.items():
-                col[slot] = row["dyn"][k]
-            row["admit_seq"] = self._seq + 1  # the first chunk that includes this row
-            self.slots[slot] = row
+        self._admit([(row, slot)])
+
+    def _admit(self, take: List[Tuple[Dict[str, Any], int]]) -> None:
+        """Prefill the queued rows of `take` ((row, slot) pairs) and write
+        each into its slot. A hybrid stack prefills them in one batch: its
+        prefill launches thousands of eager operations from the host whatever
+        its rows (each Mamba layer's convolution, chunked scan and gated norm),
+        so a tick that admits k rows pays for one prefill, not k. GPT-2's
+        prefill, a few hundred operations, keeps one row and one first draw
+        each, as the JAX engine's.
+        One span slot.admit a row; a batch's prefill runs inside its first
+        row's span, so the spans' mean is the admission's cost a row, and
+        each row's waited_ns runs from its queueing to the batch's start."""
+        groups = [take] if is_hybrid(self.engine.cfg.gpt) else [[t] for t in take]
+        for group in groups:
+            prod, start = None, None
+            for r, (row, slot) in enumerate(group):
+                with tracing.span("slot.admit", rid=row["rid"], row=row["row"]) as span:
+                    if span:
+                        start = span.t0 if start is None else start
+                        span.set(waited_ns=start - row["queued_ns"])
+                    if prod is None:
+                        prod = self._prefill([row for row, _slot in group])
+                    self.state = slot_admit(self.state, prod, slot, self.engine.cfg.gpt, row=r)
+                    for k, col in self.dyn_cols.items():
+                        col[slot] = row["dyn"][k]
+                    row["admit_seq"] = self._seq + 1  # the first chunk that includes this row
+                    self.slots[slot] = row
+
+    def _prefill(self, rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+        """slot_prefill of queued rows: their texts padded to the largest
+        of their buckets, their knobs one value a row (a float for one row)."""
+        eng = self.engine
+        cfg = eng.cfg.gpt
+        lens = [row["tokens"].shape[1] for row in rows]
+        padded = np.full((len(rows), max(eng._text_bucket(n) for n in lens)), cfg.stop_text_token, np.int64)
+        for r, row in enumerate(rows):
+            padded[r, : lens[r]] = row["tokens"][0]
+
+        def knob(name):
+            if len(rows) == 1:
+                return rows[0]["dyn"][name]
+            return torch.tensor([row["dyn"][name] for row in rows], dtype=torch.float32)
+
+        return slot_prefill(
+            eng.gpt, cfg, self.gen, torch.cat([row["conds"] for row in rows]).to(eng.dtype),
+            torch.from_numpy(padded).to(eng.device), torch.tensor(lens, dtype=torch.long, device=eng.device),
+            self.generator, temperature=knob("temperature"), top_p=knob("top_p"),
+            repetition_penalty=knob("repetition_penalty"), typical_mass=knob("typical_mass"),
+            capture_latents=eng.fast_latents, quant_kv=eng.quant_kv,
+        )
 
     def _harvest(self, snap) -> List[Tuple[int, Any]]:
         """Take the finished rows off the state, resolve their latents (the
@@ -389,8 +419,10 @@ class SlotSession:
         host tensors, to be uploaded inside its slot.loop."""
         with tracing.span("slot.tick") as span:
             free = [i for i, r in enumerate(self.slots) if r is None]
+            take = []
             while free and self.pending:
-                self._admit_one(self.pending.popleft(), free.pop(0))
+                take.append((self.pending.popleft(), free.pop(0)))
+            self._admit(take)
             if span:
                 span.set(rows=sum(r is not None for r in self.slots))
             snap = None

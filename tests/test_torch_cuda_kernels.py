@@ -1025,3 +1025,204 @@ def test_k6_replayed_blocks_equal_eager(card, loop):
     assert got_steps == want_steps > BLOCK and want_launches == got_launches == cfg.layers * want_steps
     stage = graphs.slot if loop == "slot" else graphs.decode
     assert any(lane.replays > 0 for lane in stage.lanes.values())
+
+
+# ---------------------------------------------------------------------------
+# K6 with grouped-query attention, and K7 (the Mamba-2 decode step)
+# ---------------------------------------------------------------------------
+
+from indextts_tpu_torch.ops.cuda import ssm_step as k7  # noqa: E402
+
+GRANITE_SCALE = 0.015625  # granite-4.0-h's attention_multiplier
+
+
+def _k6_gqa_inputs(kind, b, hq, hk, s_len, dh=64, pos=None, seed=0):
+    """q [B, Hq, Dh], k, v [B, Hkv, Dh] as views of one qkv projection (so
+    they share its stride), the KV-head cache, the bias (as _k6_inputs') and
+    pos."""
+    pos = min(200, s_len - 20) if pos is None else pos
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(b, (hq + 2 * hk) * dh, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (-1, dh)) for t in y.split([hq * dh, hk * dh, hk * dh], dim=-1))
+    kv = [torch.randn(b, hk, s_len, dh, device="cuda", generator=g).to(torch.bfloat16) for _ in range(2)]
+    cols = torch.arange(s_len, device="cuda")[None, :]
+    valid = (cols >= 7 * torch.arange(b, device="cuda")[:, None] % pos) & (cols < pos)
+    if kind == "int8":
+        cache = k6.quant_cols(kv[0]) + k6.quant_cols(kv[1])
+        cache = (cache[0], cache[1], cache[2], cache[3])
+        valid |= (cols > pos) & (torch.rand(b, s_len, device="cuda", generator=g) < 0.7)
+    else:
+        cache = tuple(kv)
+    valid &= cols != pos
+    bias = torch.where(valid, torch.zeros((), device="cuda"), torch.finfo(torch.float32).min)[:, None, :]
+    return q, k, v, cache, torch.tensor([pos], device="cuda"), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,hq,hk,s_len,dh", [("int8", 32, 32, 8, 320, 64), ("bf16", 8, 32, 8, 331, 64),
+                                                   ("bf16", 3, 32, 8, 351, 64), ("int8", 4, 4, 2, 96, 16),
+                                                   ("int8", 1, 32, 8, 320, 64), ("bf16", 1, 32, 8, 331, 64)])
+def test_k6_gqa_is_no_farther_from_float64_than_the_plain_path(card, kind, b, hq, hk, s_len, dh):
+    """K6 with Hq / Hkv query heads a KV head and granite's scale: against
+    the formula in float64, as test_k6_is_no_farther_from_float64_than_the_plain_path
+    holds the multi-head instance; column pos is written as the plain path
+    writes it, the int8 bytes and scales exactly, and every other column
+    keeps its bytes. One row too (infer's): its q, k and v views of the
+    projection carry different strides on their size-1 batch dimension."""
+    q, k, v, cache, pos, bias = _k6_gqa_inputs(kind, b, hq, hk, s_len, dh)
+    ref = k6.decode_attn_f64(q, k, v, cache, bias, GRANITE_SCALE)
+    before = k6.launches
+    mine = tuple(c.clone() for c in cache)
+    out = k6.decode_attn(q, k, v, mine, pos, bias, GRANITE_SCALE)
+    again = k6.decode_attn(q, k, v, tuple(c.clone() for c in cache), pos, bias, GRANITE_SCALE)
+    theirs = tuple(c.clone() for c in cache)
+    plain = k6.decode_attn_plain(q, k, v, theirs, pos, bias, GRANITE_SCALE)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 2 and out.shape == (b, hq * dh) and torch.equal(out, again)
+    err = (out.double() - ref).abs()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp(min=2.0 ** -126))) - 7)
+    assert (err <= ulp + 1e-5).all(), (err.max().item(), (err / (ulp + 1e-5)).max().item())
+    assert err.max().item() <= (plain.double() - ref).abs().max().item()
+    for c, t in zip(mine, theirs):
+        assert torch.equal(c, t)
+
+
+@pytest.mark.cuda
+def test_k6_gqa_raises_on_a_group_it_was_not_built_for(card):
+    q, k, v, cache, pos, bias = _k6_gqa_inputs("bf16", 2, 24, 8, 64, pos=40)
+    before = k6.launches
+    with pytest.raises(ValueError):
+        k6.decode_attn(q, k, v, cache, pos, bias, GRANITE_SCALE)  # 3 query heads a KV head
+    assert k6.launches == before
+
+
+def _k7_inputs(b, h, p, n, dtype, seed=0, k=4):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di, cd = h * p, h * p + 2 * n
+    rnd = lambda *shape, s=1.0: (s * torch.randn(*shape, device="cuda", generator=g))
+    zx = rnd(b, di + cd + h).to(dtype)
+    conv = rnd(b, cd, k - 1).to(dtype)
+    state = rnd(b, h, p, n)
+    params = (rnd(cd, 1, k, s=0.3).to(dtype), rnd(cd, s=0.01).to(dtype), rnd(h, s=2.0).to(dtype),
+              rnd(h, s=0.5).to(dtype), (1 + rnd(h, s=0.05)).to(dtype))
+    return zx, conv, state, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,p,n", [(1, 64, 64, 128), (3, 64, 64, 128), (32, 64, 64, 128), (5, 4, 16, 16)])
+def test_k7_matches_plain(card, dtype, b, h, p, n):
+    """K7 against its plain version on the card: the gated output and the
+    SSM state within float32's rounding of a 128-term sum (relative 1e-5),
+    the conv state exactly (a shift of the stored values); one launch, two
+    runs bit-equal, and the rows' last-block counters back at zero."""
+    zx, conv, state, (w, wb, dtb, alog, dsk) = _k7_inputs(b, h, p, n, dtype)
+    before = k7.launches
+    outs = []
+    for _ in range(2):
+        c, s = conv.clone(), state.clone()
+        outs.append((k7.ssm_step(zx, c, w, wb, dtb, alog, dsk, s, h, p, n), c, s))
+    c, s = conv.clone(), state.clone()
+    plain = k7.ssm_step_plain(zx, c, w, wb, dtb, alog, dsk, s, h, p, n)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(outs[0], outs[1]))
+    out, c_k, s_k = outs[0]
+    assert out.dtype == torch.float32 and out.shape == (b, h * p)
+    assert torch.equal(c_k, c)
+    assert ((out - plain).abs().max() <= 1e-5 * plain.abs().max()).item(), (out - plain).abs().max().item()
+    assert ((s_k - s).abs().max() <= 1e-5 * s.abs().max()).item(), (s_k - s).abs().max().item()
+    assert not k7._counters[zx.device][:b].any()
+
+
+@pytest.mark.cuda
+def test_k7_raises_instead_of_falling_back(card):
+    zx, conv, state, (w, wb, dtb, alog, dsk) = _k7_inputs(2, 64, 64, 128, torch.bfloat16)
+    before = k7.launches
+    with pytest.raises(TypeError):
+        k7.ssm_step(zx.half(), conv, w, wb, dtb, alog, dsk, state, 64, 64, 128)
+    with pytest.raises(ValueError):
+        k7.ssm_step(zx, conv, w, wb, dtb, alog, dsk, state, 32, 128, 128)  # a head size it was not built for
+    with pytest.raises(ValueError):
+        k7.ssm_step(zx, conv.float(), w, wb, dtb, alog, dsk, state, 64, 64, 128)
+    with pytest.raises(ValueError):
+        k7.ssm_step(zx, conv, w, wb, dtb, alog, dsk, state.transpose(2, 3).contiguous().transpose(2, 3), 64, 64, 128)
+    assert k7.launches == before
+
+
+def _hybrid_model():
+    """A tiny granite hybrid UnifiedVoice on the card in bf16 (Mamba heads of
+    16 x 16, K7's tiny instance; attention heads of 64 with 4 query heads a
+    KV head, K6-GQA's published one), the stop code's logit lowered."""
+    from indextts_tpu_torch.config import ConditionModuleConfig, GPTConfig
+    from indextts_tpu_torch.models.gpt import UnifiedVoice
+
+    cfg = GPTConfig(layers=4, model_dim=512, heads=8, kv_heads=2, max_text_tokens=60, max_mel_tokens=48,
+                    number_text_tokens=50, number_mel_codes=66, start_mel_token=64, stop_mel_token=65,
+                    condition_num_latent=8, block="granite_hybrid",
+                    layer_types=("mamba", "mamba", "attention", "mamba"), intermediate_size=768, mamba_heads=64,
+                    mamba_head_dim=16, mamba_d_state=16, mamba_chunk_size=8, embedding_multiplier=12.0,
+                    residual_multiplier=0.22, attention_multiplier=GRANITE_SCALE, logits_scaling=8.0,
+                    condition_module=ConditionModuleConfig(output_size=32, linear_units=64, attention_heads=4,
+                                                           num_blocks=1, input_layer="conv2d2", perceiver_mult=2))
+    model = UnifiedVoice(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.mel_head.bias[cfg.stop_mel_token] = -1e4
+    return cfg, model.to("cuda", torch.bfloat16).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", ["decode", "decode_int8", "beam", "slot"])
+def test_k7_replayed_hybrid_blocks_equal_eager(card, loop):
+    """The hybrid decoder's loops, captured and replayed, against the same
+    blocks run eagerly: token for token over more than one block, and K7's
+    `launches` counts Mamba layers x steps in both (K6's attention layers x
+    steps)."""
+    from indextts_tpu_torch.graphs import BLOCK, Graphs
+    from indextts_tpu_torch.models import gpt_decode as tdec
+    from indextts_tpu_torch.models import gpt_slots as tslots
+
+    cfg, model = _hybrid_model()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b = 3
+    conds = (0.1 * torch.randn(b, 8, cfg.model_dim, device="cuda", generator=g)).to(torch.bfloat16)
+    text = torch.randint(2, 50, (b, 12), device="cuda", generator=g)
+    lens = torch.tensor([12, 9, 5], device="cuda")
+
+    def run(graphs):
+        before, before6 = k7.launches, k6.launches
+        with torch.no_grad():
+            if loop in ("decode", "decode_int8"):
+                gen = tdec.GenerationConfig(do_sample=False, max_new_tokens=40)
+                codes, lengths = tdec.generate_speech(model, cfg, gen, conds, text, lens, torch.Generator(),
+                                                      quant_kv=loop == "decode_int8", graphs=graphs.decode)
+                steps = int(lengths.max()) - 1
+            elif loop == "beam":
+                gen = tdec.GenerationConfig(do_sample=False, num_beams=3, max_new_tokens=40, early_stopping=False)
+                stats = {}
+                codes, lengths = tdec.generate_speech_beam(model, cfg, gen, conds[:1], text[:1], lens[:1],
+                                                           torch.Generator(), stats=stats, graphs=graphs.decode)[:2]
+                steps = stats["steps"]
+            else:
+                gen = tdec.GenerationConfig(do_sample=False, max_new_tokens=40)
+                st = tslots.slot_state_init(cfg, gen, 4, 128, torch.bfloat16, device="cuda", quant_kv=True)
+                for slot in range(b):
+                    prod = tslots.slot_prefill(model, cfg, gen, conds[slot : slot + 1], text[slot : slot + 1, :12],
+                                               lens[slot : slot + 1], torch.Generator(), quant_kv=True)
+                    tslots.slot_admit(st, prod, slot, cfg)
+                tslots.slot_steps(model, cfg, gen, st, 45, torch.Generator(), graphs=graphs.slot)
+                codes, steps = st.codes, int(st.tick)
+        torch.cuda.synchronize()
+        return codes.cpu(), steps, k7.launches - before, k6.launches - before6
+
+    graphs = Graphs("cuda")
+    eager_graphs = Graphs("cuda")
+    with eager_graphs.eager():
+        want, want_steps, want_k7, want_k6 = run(eager_graphs)
+    got, got_steps, got_k7, got_k6 = run(graphs)
+    assert torch.equal(got, want)
+    assert got_steps == want_steps > BLOCK
+    assert want_k7 == got_k7 == cfg.mamba_layers * want_steps and want_k6 == got_k6 == cfg.attn_layers * want_steps
+    stage = graphs.slot if loop == "slot" else graphs.decode
+    assert any(lane.replays > 0 for lane in stage.lanes.values())
