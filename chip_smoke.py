@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds the K1-K7 kernels and the decode
+  2. build   — nvcc builds the K1-K8 kernels and the decode
                block's graph assembly (graph_block.cu) from
                indextts_tpu_torch/csrc/, one nvcc per source, started together;
   3. kernel  — K1 against its plain PyTorch version at the vocoder's shapes
@@ -57,6 +57,13 @@ Phases, in order; any failure exits non-zero:
                plain device times per layer with the 36 layers' states cycled
                past the L2 cache, the bound; K6's grouped-query instance
                (32 query over 8 KV heads, granite's scale) against float64;
+     k8      — K8 (gpt2_chains.add_layer_norm with a delta) and the
+               block's gelu_new (PyTorch's tanh GELU on the card) at the
+               GPT-2 step's rows (8 batch rows, 3 beams, 32 slots) and a
+               prefill's (8 x 160), bf16: err against float64 beside the plain
+               path's, two runs bit-equal, the sum bit-equal to the bf16 add;
+               own, plain and library device times, the bound, and per
+               decode step;
      hybrid  — in a process of its own: the hybrid decoder's engine at its
                published widths (benchmark/configs/indextts-granite-4.0-h-
                micro-serve.json, random weights): one infer and a slot session
@@ -66,9 +73,10 @@ Phases, in order; any failure exits non-zero:
   5. engine  — IndexTTS.infer at the published IndexTTS-1.5 width
                (configs/indextts_1_5.yaml), random weights from a fixed seed,
                bf16: a greedy, a sampled and a two-sentence request; the K1
-               launch count must be 109 per vocoder call and K6's one a
-               layer in every decode step (as in the beam, serve, int8 and
-               graphs phases); then one profiled
+               launch count must be 109 per vocoder call, K6's one a
+               layer in every decode step and K8's 2 x layers + 1 a decode
+               step and a whole-sequence pass (as in the beam, serve, int8
+               and graphs phases); then one profiled
                bigvgan_apply at 100 codes on the default route (host ms,
                device ms, kernels, device-idle share, K1's own ms);
   6. beam    — the same width with fast_latents and INDEXTTS_WIDE_BRANCH=1:
@@ -197,7 +205,7 @@ Phases, in order; any failure exits non-zero:
                warmup twice (its captures, then
                replays), then each request under the engine's private eager
                switch, replayed, and replayed again, its code rows
-               token-exact, K1-K7's launches and the blocks' host reads
+               token-exact, K1-K8's launches and the blocks' host reads
                equal in the three: greedy and sampled num_beams=1, greedy
                and default num_beams=3, a 320-code segmented request, with
                fast_latents a sampled and a default request, infer_stream
@@ -248,6 +256,8 @@ K5_SOURCE = "indextts_tpu_torch/csrc/int8_matmul.cu"
 K6_REPLACES = "none: XLA's attention in indextts_tpu/models/gpt_decode.py _decode_block / _decode_block_q"
 K6_SOURCE = "indextts_tpu_torch/csrc/decode_attn.cu"
 K7_REPLACES = "none: the JAX package runs no state-space layer"
+K8_REPLACES = "none: XLA fuses the GPT-2 block's residual adds, LayerNorms and gelu_new (indextts_tpu/models/gpt.py)"
+K8_SOURCE = "indextts_tpu_torch/csrc/gpt2_chains.cu"
 K7_SOURCE = "indextts_tpu_torch/csrc/ssm_step.cu"
 K2_REPLACES = "indextts_tpu/ops/pallas/aa_conv_branch.py:166"
 K2_SOURCE = "indextts_tpu_torch/csrc/aa_snake_dconv.cu"
@@ -888,6 +898,109 @@ def k6_phase(card: str) -> dict:
     return {"rows": rows, "scale_rule": rule}
 
 
+# K8 at the GPT-2 step's shapes, (label, rows): the batch loop's 8 rows, 3 beams, 32 slots a decode step,
+# and one prefill of 8 rows x 160 positions; D = 1280 (the LayerNorms), 4 D = 5120 (gelu_new), bf16
+K8_CASES = [("batch8", 8), ("beams3", 3), ("slots32", 32), ("prefill8x160", 8 * 160)]
+
+
+def k8_phase(card: str) -> dict:
+    """K8 (gpt2_chains.add_layer_norm, with a delta) at K8_CASES, beside the
+    block's gelu_new on the card (PyTorch's tanh GELU): each against float64
+    beside the plain path's error, two runs bit-equal, x_new bit-equal to the
+    card's bf16 add; add_layer_norm's library yardstick too (the bf16 add,
+    then F.layer_norm on the bf16 sum: 2 kernels). Own device time of the
+    kernel (profiler events of its __global__ function), the device time of
+    the plain path and of the library calls, CUDA-event times, and the
+    bound: x and d read, x_new and y written (gelu_new: read and written)
+    over 3.35 TB/s. Per decode step: 2 x layers + 1 add_layer_norm (layer
+    0's ln_1, which has no delta, counted at the delta's time) and layers
+    gelu_new."""
+    import torch
+    import torch.nn.functional as F
+
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
+
+    cfg = load_config(FLAGSHIP).gpt
+    dim, layers = cfg.model_dim, cfg.layers
+    g = torch.Generator(device="cuda").manual_seed(8)
+    gamma = (1.0 + 0.3 * torch.randn(dim, device="cuda", generator=g)).to(torch.bfloat16)
+    beta = (0.2 * torch.randn(dim, device="cuda", generator=g)).to(torch.bfloat16)
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    pick = lambda r, key, fallback: r[key] if r[key] is not None else r[fallback]
+    rows_out, failures = [], []
+    for label, rows in K8_CASES:
+        x = (2.0 * torch.randn(rows, dim, device="cuda", generator=g)).to(torch.bfloat16)
+        d = torch.randn(rows, dim, device="cuda", generator=g).to(torch.bfloat16)
+        h = (3.0 * torch.randn(rows, 4 * dim, device="cuda", generator=g)).to(torch.bfloat16)
+        library_ln = lambda: F.layer_norm(x + d, (dim,), gamma, beta, 1e-5)
+        # name: (the route's call, its plain version, a library yardstick or None, the kernel's own name or None
+        # (the whole call), bytes)
+        fns = {"add_layer_norm": (lambda: k8.add_layer_norm(x, d, gamma, beta)[1],
+                                  lambda: k8.add_layer_norm_plain(x, d, gamma, beta)[1], library_ln,
+                                  "add_layer_norm", (4 * rows * dim + 2 * dim) * 2),
+               "gelu_new": (lambda: k8.gelu_new(h), lambda: k8.gelu_new_plain(h), None, None,
+                            2 * rows * 4 * dim * 2)}
+        row = dict(case=label, rows=rows, D=dim)
+        x_new, _ = k8.add_layer_norm(x, d, gamma, beta)
+        x_again, _ = k8.add_layer_norm(x, d, gamma, beta)
+        torch.cuda.synchronize()
+        refs = {"add_layer_norm": k8.add_layer_norm_f64(x, d, gamma, beta), "gelu_new": k8.gelu_new_f64(h)}
+        same, ok = bool(torch.equal(x_new, x_again)), True
+        sum_exact = bool(torch.equal(x_new, x + d))
+        for name, (route, plain_fn, library_fn, own, nbytes) in fns.items():
+            err_of = lambda fn: (fn().double() - refs[name]).abs().max().item()
+            y, y_again = route(), route()
+            same = same and bool(torch.equal(y, y_again))
+            err, err_plain = err_of(route), err_of(plain_fn)
+            ok = ok and err <= err_plain
+            prof, prof_plain = device_profile(route, 200, (own,) if own else ()), device_profile(plain_fn, 200)
+            dev_ms = None if prof is None else (prof["own_ms"][own] if own else prof["call_ms"])
+            out = dict(max_abs_err_f64=err, plain_max_abs_err_f64=err_plain, ms=cuda_time_ms(route, 200),
+                       plain_ms=cuda_time_ms(plain_fn, 200), device_ms=dev_ms,
+                       kernels=None if prof is None else prof["kernels"],
+                       device_plain_ms=None if prof_plain is None else prof_plain["call_ms"],
+                       plain_kernels=None if prof_plain is None else prof_plain["kernels"],
+                       bytes=nbytes, bound_ms=1e3 * nbytes / PEAK_BYTES,
+                       roofline=None if not dev_ms else 1e3 * nbytes / PEAK_BYTES / dev_ms)
+            extra = ""
+            if library_fn is not None:
+                prof_lib = device_profile(library_fn, 200)
+                out.update(library_max_abs_err_f64=err_of(library_fn), library_ms=cuda_time_ms(library_fn, 200),
+                           device_library_ms=None if prof_lib is None else prof_lib["call_ms"],
+                           library_kernels=None if prof_lib is None else prof_lib["kernels"])
+                extra = (f" | library (bf16 add, F.layer_norm): err {out['library_max_abs_err_f64']:.3e}, "
+                         f"events {out['library_ms']:.4f} ms, device {fmt(out['device_library_ms'])} ms in "
+                         f"{fmt(out['library_kernels'])} kernels")
+            row[name] = out
+            log(f"[k8] {label:12s} {name:14s} rows={rows:4d} err vs f64 {err:.3e}, plain {err_plain:.3e} "
+                f"| events: route {out['ms']:.4f} ms plain {out['plain_ms']:.4f} ms | device: route {fmt(dev_ms)} ms "
+                f"in {fmt(out['kernels'])} kernels, plain {fmt(out['device_plain_ms'])} ms in "
+                f"{fmt(out['plain_kernels'])} kernels; bound {out['bound_ms']:.5f} ms ({nbytes / 1e3:.1f} KB){extra} "
+                f"[{card}]")
+        ln, gl = row["add_layer_norm"], row["gelu_new"]
+        n_ln = 2 * layers + 1
+        row.update(per_step_ms=n_ln * pick(ln, "device_ms", "ms"),
+                   plain_per_step_ms=n_ln * pick(ln, "device_plain_ms", "plain_ms"),
+                   library_per_step_ms=n_ln * pick(ln, "device_library_ms", "library_ms"),
+                   bound_per_step_ms=n_ln * ln["bound_ms"],
+                   gelu_per_step_ms=layers * pick(gl, "device_ms", "ms"),
+                   gelu_plain_per_step_ms=layers * pick(gl, "device_plain_ms", "plain_ms"),
+                   gelu_bound_per_step_ms=layers * gl["bound_ms"],
+                   bit_equal_runs=same, sum_bit_equal_to_bf16_add=sum_exact, ok=bool(same and sum_exact and ok))
+        log(f"[k8] {label:12s} per decode step: {n_ln} add_layer_norm {row['per_step_ms']:.4f} ms (plain "
+            f"{row['plain_per_step_ms']:.4f}, library {row['library_per_step_ms']:.4f}, bound "
+            f"{row['bound_per_step_ms']:.4f}); {layers} gelu_new {row['gelu_per_step_ms']:.4f} ms (plain "
+            f"{row['gelu_plain_per_step_ms']:.4f}, bound {row['gelu_bound_per_step_ms']:.4f}); two runs bit-equal "
+            f"{same}, x_new = the bf16 add {sum_exact} [{card}]")
+        rows_out.append(row)
+        if not row["ok"]:
+            failures.append(row)
+    if failures:
+        raise AssertionError(f"K8 or gelu_new is farther from float64 than the plain path, or two runs differ: "
+                             f"{failures}")
+    return {"rows": rows_out}
+
+
 # granite-4.0-h-micro's hybrid decoder (benchmark/configs/indextts-granite-4.0-h-micro-serve.json): 36 Mamba-2
 # layers of 64 heads of 64 x 128, 4 attention layers of 32 query and 8 KV heads of 64
 K7_ROWS = (3, 8, 32)
@@ -1151,12 +1264,35 @@ def flagship_engine(quant_kv: bool = False, fast_latents: bool = False):
                     fast_latents=fast_latents)
 
 
+def k8_per_pass(cfg) -> int:
+    """K8's launches in one GPT-2 decode step or whole-sequence pass (a
+    prefill, a latent pass): add_layer_norm into each layer's ln_1 and ln_2
+    and into ln_f (49 at 24 layers)."""
+    return 2 * cfg.layers + 1
+
+
+def check_k8(what: str, launches: int, cfg, steps: int, prefills: int) -> int:
+    """K8's launches over a run of `steps` decode steps and at least
+    `prefills` whole-sequence passes: k8_per_pass a step and a pass, so
+    (launches - per pass x steps) is a whole number of passes, at least
+    `prefills`. Returns that number of passes."""
+    per = k8_per_pass(cfg)
+    passes, rest = divmod(launches - per * steps, per)
+    log(f"[k8] {what}: {launches} launches = {per} x ({steps} decode steps + {passes} whole-sequence passes)"
+        f"{f' + {rest}' if rest else ''}")
+    if rest or passes < prefills or not steps:
+        raise AssertionError(f"{what}: K8 launched {launches} times over {steps} decode steps, want {per} a step and "
+                             f"{per} for each of at least {prefills} whole-sequence passes")
+    return passes
+
+
 def engine_phase(card: str) -> dict:
     import numpy as np
     import torch
 
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
 
     t0 = time.perf_counter()
     engine = flagship_engine()
@@ -1193,8 +1329,8 @@ def engine_phase(card: str) -> dict:
         ("two_sentences", dict(text="HELLO WORLD. THIS IS A TEST.", do_sample=True, num_beams=1,
                                max_mel_tokens=200, max_text_tokens_per_sentence=16)),
     ]
-    k1.launches = k6.launches = 0  # the main path's run starts here
-    results, vocoder_calls, decode_steps = [], 0, 0
+    k1.launches = k6.launches = k8.launches = 0  # the main path's run starts here
+    results, vocoder_calls, decode_steps, gpt_calls = [], 0, 0, 0
     for name, kw in requests:
         start = len(vocoded)
         sr, wav = engine.infer(audio_prompt=PROMPT, **kw)
@@ -1202,6 +1338,7 @@ def engine_phase(card: str) -> dict:
         these = vocoded[start:]
         vocoder_calls += st["vocoder_calls"]
         decode_steps += st["gpt_steps"]
+        gpt_calls += st["gpt_calls"]
         n_codes = sum(n for n, _ in these)
         for n, w in these:
             if not np.isfinite(w).all():
@@ -1235,7 +1372,8 @@ def engine_phase(card: str) -> dict:
         raise AssertionError(f"K1 launched {launches} times, want {per_call} x {vocoder_calls} = {want}")
     if k6.launches != layers * decode_steps or not decode_steps:
         raise AssertionError(f"K6 launched {k6.launches} times over {decode_steps} decode steps, want {layers} a step")
-    k6_launches = k6.launches
+    k6_launches, k8_launches = k6.launches, k8.launches
+    k8_passes = check_k8("engine", k8_launches, engine.cfg.gpt, decode_steps, gpt_calls)
 
     # vocoder stage with K1 and with the composed activations, in turns
     latent = torch.randn(1, 112, engine.cfg.gpt.model_dim, device="cuda", dtype=engine.dtype,
@@ -1255,7 +1393,8 @@ def engine_phase(card: str) -> dict:
     log(f"[engine] one profiled bigvgan_apply, {prof['codes']} codes, B=1, {engine.dtype}, default route: "
         f"{vocoder_profile_line(prof)} [{card}]")
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "k1_launches": launches, "vocoder_calls": vocoder_calls,
-            "k6_launches": k6_launches, "decode_steps": decode_steps, "vocoder_ab": ab, "vocoder_profile": prof}
+            "k6_launches": k6_launches, "k8_launches": k8_launches, "k8_whole_sequence_passes": k8_passes,
+            "decode_steps": decode_steps, "vocoder_ab": ab, "vocoder_profile": prof}
 
 
 def vocoder_profile(engine, codes: int = 100) -> dict:
@@ -1372,6 +1511,7 @@ def int8_phase(card: str) -> dict:
 
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
     from indextts_tpu_torch.ops.quant import quantize_unified_voice
 
@@ -1423,7 +1563,7 @@ def int8_phase(card: str) -> dict:
         ("greedy", "infer", dict(text="HELLO WORLD.", do_sample=False, num_beams=1, max_mel_tokens=200)),
     ]
     spc = engine._samples_per_code()
-    k1.launches = k5.launches = k6.launches = 0  # the int8 path's run starts here
+    k1.launches = k5.launches = k6.launches = k8.launches = 0  # the int8 path's run starts here
     results, gen_calls, gen_steps, vocoder_calls = [], 0, 0, 0
     for name, method, kw in requests:
         start = len(vocoded)
@@ -1463,9 +1603,12 @@ def int8_phase(card: str) -> dict:
     if k5.launches != want_k5 or k1.launches != want_k1 or k6.launches != want_k6 or not gen_steps:
         raise AssertionError(f"launch counts: K5 {k5.launches} (want {want_k5}), K1 {k1.launches} (want {want_k1}), "
                              f"K6 {k6.launches} (want {want_k6})")
+    k8_launches = k8.launches
+    k8_passes = check_k8("int8", k8_launches, engine.cfg.gpt, gen_steps, gen_calls)
     return {"init_s": init_s, "cold_first_request_s": cold_s, "drift": drift, "step_profile": step_profile,
             "requests": results,
             "k5_launches": k5.launches, "k1_launches": k1.launches, "k6_launches": k6.launches,
+            "k8_launches": k8_launches, "k8_whole_sequence_passes": k8_passes,
             "generate_calls": gen_calls,
             "decode_steps": gen_steps, "vocoder_calls": vocoder_calls}
 
@@ -1549,6 +1692,7 @@ def beam_phase(card: str) -> dict:
     from indextts_tpu_torch.ops.cuda import aa_conv_branch as k2
     from indextts_tpu_torch.ops.cuda import antialias as k1
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
 
     os.environ["INDEXTTS_WIDE_BRANCH"] = "1"
     try:
@@ -1577,16 +1721,18 @@ def beam_phase(card: str) -> dict:
         ]
         spc = engine._samples_per_code()
         layers = engine.cfg.gpt.layers
-        results, k1_total, k2_total, k6_total = [], 0, 0, 0
+        results, k1_total, k2_total, k6_total, k8_total = [], 0, 0, 0, 0
         for name, method, quant_kv, kw in requests:
             engine.quant_kv = quant_kv
-            k1.launches = k2.launches = k6.launches = 0  # this request of the main path starts here
+            k1.launches = k2.launches = k6.launches = k8.launches = 0  # this request of the main path starts here
             sr, wav = getattr(engine, method)(audio_prompt=PROMPT, **kw)
             launches = {"k1": k1.launches, "k2": k2.launches}
             st = dict(engine.last_stats)
             k1_total += launches["k1"]
             k2_total += launches["k2"]
             k6_total += k6.launches
+            k8_total += k8.launches
+            k8_passes = check_k8(name, k8.launches, engine.cfg.gpt, st["gpt_steps"], st["gpt_calls"])
             calls = st["vocoder_calls"]
             if launches != {"k1": 55 * calls, "k2": 54 * calls}:
                 raise AssertionError(f"{name}: launches {launches} over {calls} vocoder calls, want 55 and 54 each")
@@ -1607,7 +1753,8 @@ def beam_phase(card: str) -> dict:
                        latent_ms=1e3 * st["gpt_forward_s"], teacher_forced_rows=st["tf_latent_rows"],
                        teacher_forced_skipped=st["tf_latent_rows"] == 0, vocoder_ms=1e3 * st["bigvgan_s"],
                        vocoder_calls=calls, k1_launches=launches["k1"], k2_launches=launches["k2"],
-                       k6_launches=k6.launches, total_s=st["total_s"], rtf=st["rtf"])
+                       k6_launches=k6.launches, k8_launches=k8.launches, k8_whole_sequence_passes=k8_passes,
+                       total_s=st["total_s"], rtf=st["rtf"])
             results.append(row)
             log(f"[beam] {name} ({method}, num_beams 3{', int8 KV' if quant_kv else ''}): {row['codes']} codes, "
                 f"{st['audio_s']:.2f} s audio | cond {row['cond_ms']:.1f} ms, decode {row['decode_ms_per_step']:.2f} "
@@ -1625,7 +1772,7 @@ def beam_phase(card: str) -> dict:
     finally:
         del os.environ["INDEXTTS_WIDE_BRANCH"]
     return {"init_s": init_s, "cold_first_request_s": cold_s, "requests": results, "forced_step": step,
-            "k1_launches": k1_total, "k2_launches": k2_total, "k6_launches": k6_total}
+            "k1_launches": k1_total, "k2_launches": k2_total, "k6_launches": k6_total, "k8_launches": k8_total}
 
 
 def stream_phase(card: str) -> dict:
@@ -1767,9 +1914,11 @@ def serve_phase(card: str) -> dict:
     from indextts_tpu_torch.ops.cuda import antialias_folded as k4
     from indextts_tpu_torch.ops.cuda import antialias_tmajor as k3
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
 
     # one vocoder call of an engine: its warm run or a replay of its graph
     voc = {"calls": 0}
+    k8_launches = {}  # K8's launches and whole-sequence passes of the batch call and of the slot session
     vocoder_call = engine_mod.IndexTTS._vocoder_call
 
     def counting_call(self, *a, **kw):
@@ -1777,13 +1926,15 @@ def serve_phase(card: str) -> dict:
         return vocoder_call(self, *a, **kw)
 
     def start():
-        k1.launches = k3.launches = k4.launches = k6.launches = voc["calls"] = 0
+        k1.launches = k3.launches = k4.launches = k6.launches = k8.launches = voc["calls"] = 0
 
-    def decoded(what: str, steps: int) -> int:
-        """K6's launches since start(): one a layer in each of `steps` decode steps."""
+    def decoded(what: str, steps: int, prefills: int) -> int:
+        """K6's launches since start(): one a layer in each of `steps` decode
+        steps; K8's held to check_k8 with at least `prefills` passes."""
         want = engine.cfg.gpt.layers * steps
         if k6.launches != want or not steps:
             raise AssertionError(f"{what}: K6 launched {k6.launches} times over {steps} decode steps, want {want}")
+        k8_launches[what] = (k8.launches, check_k8(what, k8.launches, engine.cfg.gpt, steps, prefills))
         return k6.launches
 
     def launched(what: str, want=(54, 54, 1)) -> dict:
@@ -1821,7 +1972,7 @@ def serve_phase(card: str) -> dict:
                                  per_request_kwargs=[{"temperature": 0.8}, {"temperature": 1.0}, {}, {"temperature": 1.2}])
         batch_launches = launched("infer_batch")
         st = dict(engine.last_stats)
-        batch_launches["k6"] = decoded("infer_batch", st["gpt_steps"])
+        batch_launches["k6"] = decoded("infer_batch", st["gpt_steps"], st["gpt_calls"])
         if len(out) != len(items):
             raise AssertionError(f"infer_batch returned {len(out)} results for {len(items)} requests")
         for i, ((sr, wav), n) in enumerate(zip(out, sentences)):
@@ -1880,7 +2031,7 @@ def serve_phase(card: str) -> dict:
         if rest or sess.busy or set(done) != set(rids):
             raise AssertionError(f"slot session: completed {sorted(done)} of {sorted(rids)}; left after the loop {sorted(rest)}")
         slot_launches = launched("slot session")
-        slot_launches["k6"] = decoded("slot session", int(sess.state.tick))
+        slot_launches["k6"] = decoded("slot session", int(sess.state.tick), len(rids))
         for rid in rids:
             sr, wav = done[rid]
             if sr != 24000 or wav.dtype != np.int16 or wav.shape != (max_new * spc, 1):
@@ -1930,7 +2081,9 @@ def serve_phase(card: str) -> dict:
             "k4_launches": warm["k4"] + batch_launches["k4"] + slot_launches["k4"],
             "k3_launches": warm["k3"] + batch_launches["k3"] + slot_launches["k3"],
             "k1_launches": warm["k1"] + batch_launches["k1"] + slot_launches["k1"],
-            "k6_launches": batch_launches["k6"] + slot_launches["k6"]}
+            "k6_launches": batch_launches["k6"] + slot_launches["k6"],
+            "k8_launches": sum(n for n, _ in k8_launches.values()),
+            "k8_launches_and_whole_sequence_passes": k8_launches}
 
 
 def tiny_config():
@@ -3130,7 +3283,7 @@ def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str
     """One rank of the mesh phase's captured programs (spawned), bf16 at
     tp = 2 (dp = world / 2): which stages capture here; each request eager
     (Graphs.eager()), replayed and replayed again, its codes token-exact and
-    K1-K7's launches and the host reads equal (graph_vs_eager): greedy and
+    K1-K8's launches and the host reads equal (graph_vs_eager): greedy and
     sampled num_beams=1 and the default num_beams=3, the same with the stop
     code's bias raised by `stop_raise` (rows stop mid-block), infer_batch of
     4 requests, a SlotSession of 4 slots serving 6 requests (the host ms of
@@ -3242,7 +3395,8 @@ def mesh_graph_rank(rank: int, world: int, port: int, backend: str, out_dir: str
 
             either = lambda flag: bool(e.mesh.world.all_reduce(torch.tensor([int(flag)]), op=dist.ReduceOp.MAX))
             out["step"] = step_profile(e, b4_decode(e, conds1, 32 if nccl else 8, False), tag,
-                                       "mesh decode step, B=4, bf16", {"k6": e.cfg.gpt.layers},
+                                       "mesh decode step, B=4, bf16",
+                                       {"k6": e.cfg.gpt.layers, "k8": k8_per_pass(e.cfg.gpt)},
                                        modes=("eager", "graph", "graph_per_step") if nccl else ("eager",),
                                        own=("nccl", "Memcpy"), agree=either)
             quantize_unified_voice(e.gpt)
@@ -3546,22 +3700,23 @@ def _count_events(entries) -> dict:
     return out
 
 
-# the kernel wrappers' launch counters, K1-K7 (the graphs phase compares them eager against replayed)
-K_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6", "k7")
-# the __global__ functions of K1-K7 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
-# steps (or vocoder calls) in the short window where step_profile counts K1-K7's kernels
+# the kernel wrappers' launch counters, K1-K8 (the graphs phase compares them eager against replayed)
+K_NAMES = ("k1", "k2", "k3", "k4", "k5", "k6", "k7", "k8")
+# the __global__ functions of K1-K8 (indextts_tpu_torch/csrc), as the profiler names the kernels that ran
+# steps (or vocoder calls) in the short window where step_profile counts K1-K8's kernels
 COUNT_STEPS = 4
-# a window whose count of K1-K7's kernels falls short of the launches (the profiler dropped
+# a window whose count of K1-K8's kernels falls short of the launches (the profiler dropped
 # records: a replayed int8 window once read 387 of 388 K5 kernels over 4 steps) is taken
 # again, up to this many windows; a count above the launches fails at once
 COUNT_TRIES = 3
 K_KERNELS = {"k1": ("anti_alias_snake_kernel",), "k2": ("aa_snake_dconv_f32_kernel", "aa_snake_dconv_wgmma_kernel"),
              "k3": ("tmajor_taps_kernel", "tmajor_ident_kernel", "tmajor_mma_kernel"), "k4": ("folded_aa_kernel",),
-             "k5": ("int8_matmul_kernel",), "k6": ("decode_attn_kernel",), "k7": ("ssm_step_kernel",)}
+             "k5": ("int8_matmul_kernel",), "k6": ("decode_attn_kernel",), "k7": ("ssm_step_kernel",),
+             "k8": ("add_layer_norm",)}
 
 
 def kernel_counts(prof) -> dict:
-    """How many kernels of K1-K7 a profile recorded on the card, by name.
+    """How many kernels of K1-K8 a profile recorded on the card, by name.
     Kernels inside a replayed CUDA graph are recorded one by one, so this
     count does not depend on the wrappers' counters, which a replay does not
     run."""
@@ -3594,10 +3749,10 @@ def run_profiled(fn, tries: int = 3):
 
 def kernel_modules() -> dict:
     from indextts_tpu_torch.ops.cuda import (aa_conv_branch, antialias, antialias_folded, antialias_tmajor,
-                                             decode_attn, qmatmul, ssm_step)
+                                             decode_attn, gpt2_chains, qmatmul, ssm_step)
 
     return dict(zip(K_NAMES, (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul, decode_attn,
-                              ssm_step)))
+                              ssm_step, gpt2_chains)))
 
 
 class CodeRecorder:
@@ -3635,9 +3790,9 @@ def graph_vs_eager(engine, rec, name: str, fn, card: str, seed: int = 11) -> dic
     through its graphs (capturing the keys it has not seen), then once more
     (replays only), the engine's generator reseeded alike before each (a
     slot session seeds its own). Every code row the three decode must be
-    token-exact, K1-K7's wrappers must count as many launches in each (a
+    token-exact, K1-K8's wrappers must count as many launches in each (a
     replay adds the counts its capture took), and a list fn returns (chunk
-    or wav sizes) must be the same. The profiler's own count of K1-K7's
+    or wav sizes) must be the same. The profiler's own count of K1-K8's
     kernels under replay is step_profile's and the vocoder routes'. Returns
     the wall seconds, the launches of one run and the decode ms per step of
     each."""
@@ -3770,10 +3925,10 @@ def conditioning_vs_eager(engine, card: str, label: str) -> dict:
                                     lambda b=b: engine._conditioning(mel_t[:b], lens[:b]), card) for b in (1, 2)}
 
 
-def raise_stop_bias(engine, card: str):
+def raise_stop_bias(engine, card: str, sample: bool = True):
     """Random weights never emit the stop code. Raise its mel-head bias, in
     place (the captured programs read it at its address), until a sampled
-    one-row 60-code request, eager, stops after 4 codes and before its
+    (`sample`, else greedy) one-row 60-code request, eager, stops after 4 codes and before its
     budget: the first raise of a grid that does, else a bisection between
     the last raise that never stopped and the first that stopped at once
     (which it keeps when the bisection finds nothing between: the request
@@ -3785,14 +3940,14 @@ def raise_stop_bias(engine, card: str):
     bias = engine.gpt.mel_head.bias
     stop = engine.cfg.gpt.stop_mel_token
     base = bias[stop].item()
-    tried = []
+    tried, kind = [], "sampled" if sample else "greedy"
 
     def steps_at(delta: float) -> int:
         with torch.no_grad():
             bias[stop] = base + delta
         engine._generator.manual_seed(11)
         with engine._graphs.eager():
-            engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", num_beams=1, max_mel_tokens=60)
+            engine.infer(audio_prompt=PROMPT, text="HELLO WORLD.", do_sample=sample, num_beams=1, max_mel_tokens=60)
         tried.append((round(delta, 4), engine.last_stats["gpt_steps"]))
         return engine.last_stats["gpt_steps"]
 
@@ -3821,11 +3976,11 @@ def raise_stop_bias(engine, card: str):
     if hi is None:
         with torch.no_grad():
             bias[stop] = base
-        raise AssertionError(f"no raise of the stop bias stopped a sampled 60-code request: {tried}")
+        raise AssertionError(f"no raise of the stop bias stopped a {kind} 60-code request: {tried}")
     lo = hi
     with torch.no_grad():
         bias[stop] = base + lo
-    log(f"[graphs] stop code's bias raised by {lo:.4f} (tried {tried}: decode steps of a sampled 60-code request): "
+    log(f"[graphs] stop code's bias raised by {lo:.4f} (tried {tried}: decode steps of a {kind} 60-code request): "
         f"rows now stop mid-block [{card}]")
     return lo, base
 
@@ -3840,7 +3995,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
     the span from the first kernel's start to the last one's end: what the
     span adds to the sum is the gaps between kernels, what the host time
     adds to the span is the host's own part of a step). Then one short run,
-    go(COUNT_STEPS), under the profiler again: its count of K1-K7's kernels,
+    go(COUNT_STEPS), under the profiler again: its count of K1-K8's kernels,
     by name, must be `want` a step (the wrappers' count) in each mode; under
     replay, the count that does not rest on the wrappers' counters. The
     window is short because the profiler drops a kernel record now and then
@@ -3896,7 +4051,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
         if dropped:
             log(f"[profile] {label}, {mode}: windows with records dropped, taken again: {dropped} [{card}]")
         if counted != expected:
-            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K7 over {n3} {mode} steps, "
+            raise AssertionError(f"{label}: the profiler counted {counted} kernels of K1-K8 over {n3} {mode} steps, "
                                  f"want {want} a step (earlier windows: {dropped})")
         device = sum(e.self_device_time_total for e in events) / 1e3 / n2 if events else None
         kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
@@ -3911,7 +4066,7 @@ def step_profile(engine, prepare, card: str, label: str, want: dict, modes=("eag
                                                 / 1e3 / n2 if events else None) for name in own}}
     dev = lambda v: "not measured" if v["device_ms_per_step"] is None else (
         f"{v['device_ms_per_step']:.3f} ms in {v['kernels_per_step']:.0f} kernels over a span of "
-        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K7 kernels "
+        f"{v['device_span_ms_per_step']:.3f} ms, idle {100 * v['device_idle_share']:.1f} %; K1-K8 kernels "
         f"{ {k: c for k, c in v['k_kernels'].items() if c} } by the profiler over {v['count_steps']} steps"
         + "".join(f"; {name} kernels {ms:.4f} ms" for name, ms in v["own_ms_per_step"].items() if ms is not None))
     names = {"eager": "eager", "graph": "replayed in blocks", "graph_per_step": "replayed one step a call"}
@@ -4453,7 +4608,7 @@ def graphs_phase(card: str) -> dict:
     published widths, bf16, random init from seed 0: the toy block check;
     each request eager (the private switch), then replayed twice, also with
     the stop code's bias raised (rows stop mid-block); codes token-exact,
-    K1-K7 launch counts and host reads equal; conditioning and latent passes
+    K1-K8 launch counts and host reads equal; conditioning and latent passes
     within 1 bf16 unit; vocoder wav within 1 int16 unit on the four routes;
     host and device ms per step eager beside replayed in blocks and one step
     a call; capture seconds and pool bytes per key; warmup seconds."""
@@ -4600,7 +4755,7 @@ def graphs_phase(card: str) -> dict:
             if per_call != want[route] or any(v % 2 for v in counts["eager"].values()):
                 raise AssertionError(f"vocoder {route}: {counts['eager']} launches over 2 calls, want {want[route]} a call")
             vocoder[route] = {"max_int16_diff": err, "launches": counts["graph"], "kernels_profiled": by_profiler}
-            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K7 kernels {by_profiler['graph']} "
+            log(f"[graphs] vocoder {route}: graph vs eager within {err} int16 unit(s); K1-K8 kernels {by_profiler['graph']} "
                 f"for one 100-code call and one batch of 2 by the profiler, as the wrappers launched eager [{card}]")
 
         # host vs device per step, eager beside replayed
@@ -4657,7 +4812,8 @@ def graphs_phase(card: str) -> dict:
                 return n
             return go
 
-        k6_step = {"k6": cfg.layers}  # K6: one launch a layer in every decode step
+        # K6: one launch a layer in every decode step; K8: 2 a layer and ln_f's
+        k6_step = {"k6": cfg.layers, "k8": k8_per_pass(cfg)}
         timing = {"b4_bf16": step_profile(engine, prepare_b4(False), card, "decode step, B=4, bf16 cache", k6_step),
                   "slot_chunk_4_rows": step_profile(engine, prepare_slots, card, "slot step, 4 sampled rows, 256 slots",
                                                     k6_step),
@@ -4683,7 +4839,9 @@ def graphs_phase(card: str) -> dict:
                 conds1, text[:1], codes[:1], np.full(1, 100)), card)
         if qmatmul.launches != k5_before:
             raise AssertionError(f"the latent pass launched K5 {qmatmul.launches - k5_before} times")
-        stop_raise8, stop_base8 = raise_stop_bias(engine, card)
+        # raised until the greedy route stops mid-block: a raise found on a sampled request can stop it at its first
+        # code, before any decode step (and K5 at none)
+        stop_raise8, stop_base8 = raise_stop_bias(engine, card, sample=False)
         try:
             for name, fn in int8_routes:
                 row = graph_vs_eager(engine, rec, name + "+stop", fn, card)
@@ -4831,7 +4989,7 @@ def k4_per_vocoder_call(kern4: dict, card: str) -> dict:
     return out
 
 
-PHASES = ("kernel", "k2", "k3", "k4", "k5", "k6", "k7", "hybrid", "engine", "beam", "stream", "serve", "int8", "small",
+PHASES = ("kernel", "k2", "k3", "k4", "k5", "k6", "k7", "k8", "hybrid", "engine", "beam", "stream", "serve", "int8", "small",
           "ckpt", "legacy", "fidelity", "mesh", "meshgraphs", "graphs")
 
 
@@ -4864,13 +5022,14 @@ def main(argv) -> int:
     from indextts_tpu_torch.config import load_config
     from indextts_tpu_torch.ops.cuda import graph_block
     from indextts_tpu_torch.ops.cuda import decode_attn as k6
+    from indextts_tpu_torch.ops.cuda import gpt2_chains as k8
     from indextts_tpu_torch.ops.cuda import qmatmul as k5
     from indextts_tpu_torch.ops.cuda import ssm_step as k7
 
-    # one nvcc per source, started together (K1-K7, and the decode block's
+    # one nvcc per source, started together (K1-K8, and the decode block's
     # predicate kernel and graph assembly, which every CUDA engine's loops use)
     t = time.perf_counter()
-    kernels_built = (k1, k2, k3, k4, k5, k6, k7, graph_block)
+    kernels_built = (k1, k2, k3, k4, k5, k6, k7, k8, graph_block)
     with ThreadPoolExecutor(max_workers=len(kernels_built)) as pool:
         for future in [pool.submit(k._library) for k in kernels_built]:
             future.result()
@@ -4882,7 +5041,7 @@ def main(argv) -> int:
                 log(f"[build] {src}:", line.strip())
 
     phase_fns = {"kernel": kernel_phase, "k2": k2_phase, "k3": k3_phase, "k4": k4_phase, "k5": k5_phase, "k6": k6_phase,
-                 "k7": k7_phase, "hybrid": lambda c: phase_in_child("hybrid", c),
+                 "k7": k7_phase, "k8": k8_phase, "hybrid": lambda c: phase_in_child("hybrid", c),
                  "engine": engine_phase, "beam": beam_phase, "stream": stream_phase, "serve": serve_phase,
                  "int8": int8_phase, "small": small_phase, "ckpt": ckpt_phase, "legacy": legacy_phase,
                  "fidelity": fidelity_phase, "mesh": mesh_phase, "meshgraphs": mesh_graphs_phase, "graphs": lambda c: phase_in_child("graphs", c)}
@@ -4901,6 +5060,7 @@ def main(argv) -> int:
     kern5 = k5_phase(card)
     kern6 = k6_phase(card)
     kern7 = k7_phase(card)
+    kern8 = k8_phase(card)
     hybrid = phase_in_child("hybrid", card)
     eng = engine_phase(card)
     beam = beam_phase(card)
@@ -4997,6 +5157,7 @@ def main(argv) -> int:
         "k5_per_decode_step_ms": {str(m): v for m, v in k5_per_step.items()},
         "k6": kern6,
         "k7": kern7,
+        "k8": kern8,
         "hybrid": hybrid,
         "engine": eng,
         "beam": beam,
@@ -5088,6 +5249,22 @@ def main(argv) -> int:
         "call_ms": k7_step(32, "device_ms", "ms"),  # the wrapper launches nothing but the kernel
         "cases": {f"B{b}": {"ms": k7_step(b, "device_ms", "ms"), "plain_ms": k7_step(b, "device_plain_ms", "plain_ms"),
                             "bound_ms": k7_step(b, "bound_ms", "bound_ms")} for b in k7_rows},
+    }, {
+        # per decode step (2 x layers + 1 add_layer_norm) of the batch loop's 8 rows; the beams', the slots' and a
+        # prefill's rows beside it; the step's gelu_new (PyTorch's, layers launches) beside K8
+        "name": "gpt2_chains", "route": "cuda", "source": K8_SOURCE, "replaces": K8_REPLACES,
+        "launches": eng["k8_launches"], "launches_beam_phase": beam["k8_launches"],
+        "launches_serve_phase": serve["k8_launches"], "launches_int8_phase": int8["k8_launches"],
+        "launches_graphs_phase": graphs["launches"]["k8"],
+        "max_abs_err": max(r["add_layer_norm"]["max_abs_err_f64"] for r in kern8["rows"]),
+        "ms": kern8["rows"][0]["per_step_ms"], "plain_ms": kern8["rows"][0]["plain_per_step_ms"],
+        "bound_ms": kern8["rows"][0]["bound_per_step_ms"], "bound_by": "bytes",
+        "library_ms": kern8["rows"][0]["library_per_step_ms"],
+        "call_ms": kern8["rows"][0]["per_step_ms"],  # the wrapper launches nothing but the kernel
+        "cases": {r["case"]: {"ms": r["per_step_ms"], "plain_ms": r["plain_per_step_ms"],
+                              "library_ms": r["library_per_step_ms"], "bound_ms": r["bound_per_step_ms"],
+                              "gelu_new_ms": r["gelu_per_step_ms"], "gelu_new_plain_ms": r["gelu_plain_per_step_ms"]}
+                  for r in kern8["rows"]},
     }]
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -45,7 +45,7 @@ What a captured block needs, and how the loops give it:
 * The kernel wrappers count their launches on the host, which a replay does
   not run: the counts a capture adds are taken back, per step for a block
   (the step is captured once) and per call otherwise, and a replay adds them
-  times the steps it ran (read back with the block's status), so K1-K7's
+  times the steps it ran (read back with the block's status), so K1-K8's
   `launches` count what ran on the card.
 
 The graphs of a stage share one memory pool; only temporaries live there
@@ -140,12 +140,12 @@ def stage_captures(name: str, device, backend: Optional[str] = None) -> bool:
 
 
 def _counters() -> Dict[Any, int]:
-    """The kernel wrappers' launch counters (K1-K7), by module."""
+    """The kernel wrappers' launch counters (K1-K8), by module."""
     from indextts_tpu_torch.ops.cuda import (aa_conv_branch, antialias, antialias_folded, antialias_tmajor,
-                                             decode_attn, qmatmul, ssm_step)
+                                             decode_attn, gpt2_chains, qmatmul, ssm_step)
 
     return {m: m.launches for m in (antialias, aa_conv_branch, antialias_tmajor, antialias_folded, qmatmul,
-                                    decode_attn, ssm_step)}
+                                    decode_attn, ssm_step, gpt2_chains)}
 
 
 def _flatten(holders: Sequence[Tuple[Any, Sequence[str]]]) -> List[torch.Tensor]:

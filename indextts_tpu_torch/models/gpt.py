@@ -26,9 +26,9 @@ from indextts_tpu_torch.models.attention_block import ConditioningEncoder
 from indextts_tpu_torch.models.conformer import ConformerEncoder
 from indextts_tpu_torch.models.granite import GraniteHybrid
 from indextts_tpu_torch.models.perceiver import PerceiverResampler
-from indextts_tpu_torch.ops.activations import gelu_new
 from indextts_tpu_torch.ops.conv import conv1d
 from indextts_tpu_torch.ops.cuda.decode_attn import decode_attn
+from indextts_tpu_torch.ops.cuda.gpt2_chains import add_layer_norm, gelu_new
 from indextts_tpu_torch.ops.norms import group_norm, layer_norm
 from indextts_tpu_torch.ops.quant import linear_no_bias
 from indextts_tpu_torch.parallel.mesh import copy_to_region, gather_from_region, reduce_from_region
@@ -37,8 +37,26 @@ from indextts_tpu_torch.weights import default_init_, normal_, uniform_
 NEG = torch.finfo(torch.float32).min
 
 
+# The residual stream between GPT-2 blocks: a tensor x, or a pair (x, d) that
+# stands for x + d, d being a block's MLP output not yet added to it; the next
+# LayerNorm (the next block's ln_1, or ln_f) adds it in the same launch (K8,
+# ops/cuda/gpt2_chains.py)
+Stream = Union[torch.Tensor, Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
 def _ln(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return layer_norm(x, m.weight, m.bias)
+
+
+def _sum_ln(m: nn.LayerNorm, h: Stream) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, m(x)) of the stream h, x its sum."""
+    x, d = (h, None) if isinstance(h, torch.Tensor) else h
+    return add_layer_norm(x, d, m.weight, m.bias)
+
+
+def final_ln(m: nn.LayerNorm, h: Stream) -> torch.Tensor:
+    """ln_f of the stream after the last block."""
+    return _sum_ln(m, h)[1]
 
 
 def _attn(q, k, v, bias):
@@ -87,7 +105,12 @@ class GPT2Block(nn.Module):
     linears may be ops/quant.QuantLinear (quantize_gpt_blocks). On a
     tensor-parallel shard (parallel/mesh.shard_gpt_params) attn_qkv holds
     this rank's heads of q, k and v, and the head count and widths below are
-    the local ones; `heads` is always the model's."""
+    the local ones; `heads` is always the model's.
+
+    A block takes and returns the residual stream (`Stream`): its MLP output
+    is handed on beside the sum instead of added to it, and each residual add
+    runs in one launch with the LayerNorm after it (K8's add_layer_norm;
+    plain on the CPU, where it is the add and then the LayerNorm)."""
 
     def __init__(self, d: int):
         super().__init__()
@@ -98,35 +121,39 @@ class GPT2Block(nn.Module):
         self.mlp_fc = nn.Linear(d, 4 * d)
         self.mlp_proj = nn.Linear(4 * d, d)
 
-    def _mlp(self, x):
-        return x + _row(self.mlp_proj, gelu_new(_col(self.mlp_fc, _ln(self.ln_2, x))))
-
-    def qkv(self, x: torch.Tensor, heads: int):
-        """q, k, v of x [..., D], each [..., local heads, Dh]."""
-        y = _col(self.attn_qkv, _ln(self.ln_1, x))
+    def qkv(self, h: Stream, heads: int):
+        """(x, q, k, v): x the stream h summed, and q, k, v of ln_1(x), each
+        [..., local heads, Dh]."""
+        x, y = _sum_ln(self.ln_1, h)
+        y = _col(self.attn_qkv, y)
         dl, dh = y.shape[-1] // 3, x.shape[-1] // heads
-        return (t.reshape(*t.shape[:-1], dl // dh, dh) for t in y.split(dl, dim=-1))
+        q, k, v = (t.reshape(*t.shape[:-1], dl // dh, dh) for t in y.split(dl, dim=-1))
+        return x, q, k, v
 
-    def proj(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        """The block's rest after attention: x + attn_proj(a), then the MLP."""
-        return self._mlp(x + _row(self.attn_proj, a))
+    def proj(self, x: torch.Tensor, a: torch.Tensor) -> Stream:
+        """The block's rest after attention: x + attn_proj(a) and ln_2, then
+        the MLP. Returns the stream (x + attn_proj(a), the MLP's output)."""
+        x, y = add_layer_norm(x, _row(self.attn_proj, a), self.ln_2.weight, self.ln_2.bias)
+        return x, _row(self.mlp_proj, gelu_new(_col(self.mlp_fc, y)))
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor, heads: int):
-        """Full sequence x [B, T, D] -> (out, (k, v) each [B, H, T, Dh])."""
+    def forward(self, h: Stream, bias: torch.Tensor, heads: int):
+        """Full sequence: the stream h over [B, T, D] -> (the stream out,
+        (k, v) each [B, H, T, Dh])."""
+        x, *qkv = self.qkv(h, heads)
         b, t, _ = x.shape
-        q, k, v = (y.transpose(1, 2) for y in self.qkv(x, heads))
+        q, k, v = (y.transpose(1, 2) for y in qkv)
         a = _attn(q, k, v, bias).transpose(1, 2).reshape(b, t, -1)
         return self.proj(x, a), (k, v)
 
-    def step(self, x: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: Union[int, torch.Tensor],
-             bias: torch.Tensor, heads: int) -> torch.Tensor:
-        """One new token x [B, D] against the caches [B, H, S, Dh]. `bias`
-        [B, 1, S] masks slot `pos`: the token's own K/V enter the softmax as
-        an extra logit, as in JAX _decode_block, and are then written into
-        slot `pos` of the caches in place (K6, ops/cuda/decode_attn.py).
-        `pos` is an int or a one-element long tensor on the device (a
-        captured step reads no host value)."""
-        q, k, v = self.qkv(x, heads)
+    def step(self, h: Stream, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: Union[int, torch.Tensor],
+             bias: torch.Tensor, heads: int) -> Stream:
+        """One new token, the stream h over [B, D], against the caches [B, H,
+        S, Dh]; returns the stream out. `bias` [B, 1, S] masks slot `pos`:
+        the token's own K/V enter the softmax as an extra logit, as in JAX
+        _decode_block, and are then written into slot `pos` of the caches in
+        place (K6, ops/cuda/decode_attn.py). `pos` is an int or a one-element
+        long tensor on the device (a captured step reads no host value)."""
+        x, q, k, v = self.qkv(h, heads)
         return self.proj(x, decode_attn(q, k, v, (k_cache, v_cache), pos, bias))
 
 
@@ -147,14 +174,14 @@ def gpt2_apply(gpt: GPT2, emb: torch.Tensor, heads: int, attention_mask: Optiona
     bias = torch.where(causal, zero, NEG)[None, None]
     if attention_mask is not None:
         bias = bias + torch.where(attention_mask.bool(), zero, NEG)[:, None, None, :]
-    x = emb
+    h = emb
     ks, vs = [], []
     for block in gpt.blocks:
-        x, (k, v) = block(x, bias, heads)
+        h, (k, v) = block(h, bias, heads)
         if return_kv:
             ks.append(k)
             vs.append(v)
-    x = _ln(gpt.ln_f, x)
+    x = final_ln(gpt.ln_f, h)
     return (x, (torch.stack(ks), torch.stack(vs))) if return_kv else x
 
 

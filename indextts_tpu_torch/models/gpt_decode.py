@@ -73,10 +73,10 @@ import torch
 from indextts_tpu_torch import tracing
 from indextts_tpu_torch.config import GPTConfig
 from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_uncaptured, weights_key
-from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, UnifiedVoice, get_conditioning, gpt2_apply, head_logits,
-                                           write_at)
+from indextts_tpu_torch.models.gpt import (NEG, GPT2Block, Stream, UnifiedVoice, final_ln, get_conditioning,
+                                           gpt2_apply, head_logits, write_at)
 from indextts_tpu_torch.models.granite import split_cache
-from indextts_tpu_torch.ops.cuda import ssm_step
+from indextts_tpu_torch.ops.cuda import gpt2_chains, ssm_step
 from indextts_tpu_torch.ops.cuda.decode_attn import decode_attn, quant_cols as _quant_cols
 from indextts_tpu_torch.ops.norms import layer_norm
 from indextts_tpu_torch.ops.sampling import (
@@ -258,14 +258,15 @@ def _prefill(model: UnifiedVoice, cfg: GPTConfig, emb: torch.Tensor, mask: torch
     return _mel_logits(model, hidden[:, -1]), cache
 
 
-def _decode_block_q(block: GPT2Block, x: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor, v8: torch.Tensor,
-                    vs: torch.Tensor, pos: Union[int, torch.Tensor], bias: torch.Tensor, heads: int) -> torch.Tensor:
+def _decode_block_q(block: GPT2Block, h: Stream, k8: torch.Tensor, ks: torch.Tensor, v8: torch.Tensor,
+                    vs: torch.Tensor, pos: Union[int, torch.Tensor], bias: torch.Tensor, heads: int) -> Stream:
     """GPT2Block.step against the int8 cache of one layer: k8 / v8 [B, H, S,
-    Dh], ks / vs [B, H/2, S]. `bias` [B, 1, S] masks slot `pos`: the new
+    Dh], ks / vs [B, H/2, S]; the residual stream h in and out (models/gpt.py
+    Stream). `bias` [B, 1, S] masks slot `pos`: the new
     token's exact K / V enter the softmax as an extra logit, and are then
     quantized into slot `pos` (an int or a [1] device index) in place (K6,
     ops/cuda/decode_attn.py, whose plain version dequantizes in JAX's order)."""
-    q, k, v = block.qkv(x, heads)
+    x, q, k, v = block.qkv(h, heads)
     return block.proj(x, decode_attn(q, k, v, (k8, ks, v8, vs), pos, bias))
 
 
@@ -284,14 +285,14 @@ def _decode_step(model: UnifiedVoice, cfg: GPTConfig, token: torch.Tensor, mel_p
     bias = torch.where(valid, torch.zeros((), device=x.device), NEG)[:, None, :]  # [B, 1, S]
     if model.hybrid:
         return _mel_logits(model, model.gpt.step(x, cache, pos, bias), return_normed=return_hidden)
+    h = x  # the residual stream (models/gpt.Stream)
     for layer, block in enumerate(model.gpt.blocks):
         caches = [c[layer] for c in cache]
         if len(cache) == 4:
-            x = _decode_block_q(block, x, *caches, pos, bias, cfg.heads)
+            h = _decode_block_q(block, h, *caches, pos, bias, cfg.heads)
         else:
-            x = block.step(x, *caches, pos, bias, cfg.heads)
-    x = layer_norm(x, model.gpt.ln_f.weight, model.gpt.ln_f.bias)
-    return _mel_logits(model, x, return_normed=return_hidden)
+            h = block.step(h, *caches, pos, bias, cfg.heads)
+    return _mel_logits(model, final_ln(model.gpt.ln_f, h), return_normed=return_hidden)
 
 
 def prefill_decode_state(
@@ -436,10 +437,10 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
     captured block, whose steps after the last row stopped are skipped on
     the card; the uniforms of a block's steps are drawn into ctx.u before
     it, one draw for each step the budget allows. One host read a block.
-    A span dec.loop (tracing.py) around the whole call, with `k7_launches`,
-    the K7 launches its steps ran."""
+    A span dec.loop (tracing.py) around the whole call, with `k7_launches`
+    and `k8_launches`, the K7 and K8 launches its steps ran."""
     with tracing.span("dec.loop") as loop_span:
-        k7 = ssm_step.launches
+        k7, k8 = ssm_step.launches, gpt2_chains.launches
         stop = min(state.i + n_steps, state.codes.shape[1] - 1)
         stage = stage_or_uncaptured(graphs, state.codes.device)
         lane = _bind_decode(stage, model, state, ctx, pos_off)
@@ -449,7 +450,7 @@ def decode_steps(model: UnifiedVoice, cfg: GPTConfig, state: DecodeState, ctx: D
             ctx.draw(min(BLOCK, stop - state.i))
             ran, state.live = stage.run(lane, step, live, stop - state.i)
             state.i += ran
-        loop_span.set(k7_launches=ssm_step.launches - k7)
+        loop_span.set(k7_launches=ssm_step.launches - k7, k8_launches=gpt2_chains.launches - k8)
     return state
 
 
@@ -860,9 +861,9 @@ class _BeamLoop:
     def run(self, n_steps: int, graphs: Optional[GraphStage] = None) -> None:
         """Up to n_steps steps (at most to max_new - 1) while _live(), in
         blocks through `graphs`, the engine's decode stage, as in
-        decode_steps (a span dec.loop, with k7_launches)."""
+        decode_steps (a span dec.loop, with k7_launches and k8_launches)."""
         with tracing.span("dec.loop") as loop_span:
-            k7 = ssm_step.launches
+            k7, k8 = ssm_step.launches, gpt2_chains.launches
             stop = min(self.i + n_steps, self.max_new - 1)
             stage = stage_or_uncaptured(graphs, self.codes.device)
             lane = self._bind(stage)
@@ -871,7 +872,7 @@ class _BeamLoop:
                 self._draw(min(BLOCK, stop - self.i))
                 ran, self.alive = stage.run(lane, step, self._live, stop - self.i)
                 self.i += ran
-            loop_span.set(k7_launches=ssm_step.launches - k7)
+            loop_span.set(k7_launches=ssm_step.launches - k7, k8_launches=gpt2_chains.launches - k8)
 
     def grow(self, extra: int) -> None:
         """`extra` more generated-token slots: the cache, the key mask and,

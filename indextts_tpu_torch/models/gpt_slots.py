@@ -56,7 +56,7 @@ from indextts_tpu_torch.graphs import BLOCK, GraphStage, block_row, stage_or_unc
 from indextts_tpu_torch.models.gpt import UnifiedVoice, write_at
 from indextts_tpu_torch.models.gpt_decode import GenerationConfig, _decode_step, prefill_decode_state
 from indextts_tpu_torch.models.granite import split_cache
-from indextts_tpu_torch.ops.cuda import ssm_step
+from indextts_tpu_torch.ops.cuda import gpt2_chains, ssm_step
 from indextts_tpu_torch.ops.sampling import Knob, greedy_token, process_logits, row_knob, sample_token, uniforms
 
 
@@ -248,11 +248,12 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
     CUDA engine a replay of the key's captured block, its uniforms drawn
     into state.u before it, one draw for each step the budget allows. One
     host read a block. Spans (tracing.py): slot.loop around the whole call
-    (a knob given as a host tensor is uploaded inside it; `k7_launches`, the
-    K7 launches its steps ran), slot.draws around a block's draws."""
+    (a knob given as a host tensor is uploaded inside it; `k7_launches` and
+    `k8_launches`, the K7 and K8 launches its steps ran), slot.draws around a
+    block's draws."""
     b, dev = state.codes.shape[0], state.codes.device
     with tracing.span("slot.loop") as loop_span:
-        k7 = ssm_step.launches
+        k7, k8 = ssm_step.launches, gpt2_chains.launches
         knobs = SimpleNamespace(**{name: row_knob(v, b, dev) for name, v in zip(
             _KNOBS, (temperature, top_p, repetition_penalty, typical_mass))})
         stage = stage_or_uncaptured(graphs, dev)
@@ -273,7 +274,7 @@ def slot_steps(model: UnifiedVoice, cfg: GPTConfig, gen: GenerationConfig, state
             done += ran
             if not alive:
                 break
-        loop_span.set(k7_launches=ssm_step.launches - k7)
+        loop_span.set(k7_launches=ssm_step.launches - k7, k8_launches=gpt2_chains.launches - k8)
     return state
 
 

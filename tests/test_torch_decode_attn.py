@@ -19,9 +19,9 @@ from indextts_tpu_torch.ops.cuda import decode_attn as k6
 
 
 def _old_step(block, x, k_cache, v_cache, pos, bias, heads):
-    """GPT2Block.step as it was."""
+    """GPT2Block.step as it was (the residual stream in and out)."""
     b = x.shape[0]
-    q, k, v = block.qkv(x, heads)
+    x, q, k, v = block.qkv(x, heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = (q[:, :, None] @ k_cache.transpose(-1, -2))[:, :, 0].float()
     scores = torch.cat([s * scale + bias, (q * k).sum(-1, keepdim=True).float() * scale], dim=-1)
@@ -33,9 +33,9 @@ def _old_step(block, x, k_cache, v_cache, pos, bias, heads):
 
 
 def _old_block_q(block, x, k8, ks, v8, vs, pos, bias, heads):
-    """gpt_decode._decode_block_q as it was."""
+    """gpt_decode._decode_block_q as it was (the residual stream in and out)."""
     b = x.shape[0]
-    q, k, v = block.qkv(x, heads)
+    x, q, k, v = block.qkv(x, heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     ksh, vsh = ks.repeat_interleave(2, dim=1), vs.repeat_interleave(2, dim=1)
     s = (q[:, :, None] @ k8.to(x.dtype).transpose(-1, -2))[:, :, 0].float()
@@ -100,7 +100,9 @@ def test_step_through_k6_equals_the_earlier_arithmetic(d, heads, local, dtype, q
             got = block.step(x, *cache, p, bias, heads)
             want = _old_step(block, x, *old, p, bias, heads)
     assert k6.launches == before
-    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert len(got) == len(want) == 2  # the stream: the sum, and the MLP's output not yet added
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
     for c, o in zip(cache, old):
         assert c.dtype == o.dtype and torch.equal(c, o)
     # the write reached column pos, and only that column
@@ -115,7 +117,7 @@ def test_plain_on_a_row_with_only_its_own_logit(quant):
     weight is 1), on both cache kinds."""
     block, x, cache, bias = _case(64, 4, 4, torch.float32, quant)
     with torch.no_grad():
-        q, k, v = block.qkv(x, 4)
+        _, q, k, v = block.qkv(x, 4)
         a = k6.decode_attn(q, k, v, cache, 17, bias)
     assert torch.equal(a[2], v[2].reshape(-1))
 
